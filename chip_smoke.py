@@ -8,7 +8,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 1. print the card's name and power limit; build every CUDA kernel from
    gromacs_fep_gpu_tpu_torch/csrc with nvcc and print the build time;
 2. small reference: the port's MdRunner on the GPU (kernels) against the
-   same run on the CPU (plain versions) for a 650-atom box;
+   same run on the CPU (plain versions) for a 650-atom box, with a
+   5-window lambda ladder: positions, energies, dV/dlambda and the
+   foreign-lambda Delta H; then the GPU's Delta H on its final frame
+   against the dense O(N^2) oracle in float64;
 3. main path, equilibration: the 12,290-atom solvation-FEP system
    (n_side 16, ligand at lambda_coul = lambda_vdw = 0.5), dt 0.5 fs,
    tau_t 0.1 ps, no MTS, 2000 steps (1 ps), through MdRunner.run;
@@ -21,7 +24,18 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    and no list overflow left;
 6. where the time goes: each layer of the step timed alone, then
    torch.profiler over two production chunks (the device's busy time per
-   step, its idle share, the top kernels and host ops).
+   step, its idle share, the top kernels and host ops);
+7. lambda-window path: the 5,186-atom solvation box (n_side 12, 32^3 PME
+   grid; below the size at which the JAX package buckets atoms for PME, so
+   its spread and gather are the small-system TPU kernels K4/K5),
+   equilibrated at window 10 of a 20-window ladder, then windows 10 and 11
+   for 400 steps each with MTS2 and a Delta H sweep every 100 steps; the
+   launch counters must match the flavour pattern, Delta H must be finite
+   on exactly the sweep steps and ~0 for the own window; dhdl.xvg is
+   written and read back and BAR's estimate of the 10 -> 11 leg printed;
+8. K4/K5: spread and phi_gather at that path's shapes against their plain
+   versions, with time, bound and index_add_ time; the foreign sweep's
+   time and launch count.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
@@ -32,11 +46,18 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
+import numpy as np
 import torch
 
 N_SIDE = 16
+N_SIDE_WINDOW = 12      # 1,727 waters + the ligand: 5,186 atoms
+N_LAMBDA = 20
+WINDOWS = (10, 11)
+WINDOW_STEPS = 400
 EQ_STEPS = 2000        # 1 ps at dt 0.5 fs: the lattice start cools to ~300 K
 PROD_STEPS = 400
 REPS = 50               # kernel launches per timing
@@ -127,12 +148,12 @@ def _rel(a, b):
     return d / max(float(b.abs().max()), 1e-30), d
 
 
-def _params(mts):
-    """bench.py::_base_params(16, True, mts) of the JAX package."""
+def _params(mts, n_side=N_SIDE):
+    """bench.py::_base_params(n_side, True, mts) of the JAX package."""
     from gromacs_fep_gpu_tpu_torch.core.types import (
         CoulombType, FepParams, MdParams, TcouplType)
     from gromacs_fep_gpu_tpu_torch.ops.pme import pme_grid_size
-    box_l = N_SIDE * 0.31
+    box_l = n_side * 0.31
     return MdParams(
         dt=0.002, nstlist=20, coulomb=CoulombType.PME, rcoulomb=0.9,
         rvdw=0.9, rlist=0.9, pme_grid=pme_grid_size((box_l,) * 3, 0.12),
@@ -149,27 +170,48 @@ def _decoupled(state):
     return state.replace(lam=lam)
 
 
+def _pme_suffix(grid):
+    """The PME counters are keyed by grid shape: the 12,290-atom path's
+    grid reports as pme_spread / pme_gather, the window path's as
+    pme_spread_small / pme_gather_small."""
+    return {tuple(_params(True).pme_grid): "",
+            tuple(_params(True, N_SIDE_WINDOW).pme_grid): "_small"}[
+                tuple(grid)]
+
+
 def _counts():
     from gromacs_fep_gpu_tpu_torch.ops import nb_v2u, pme_kernels
-    return {"nb_v2u_F": nb_v2u.launches["F"],
-            "nb_v2u_VF": nb_v2u.launches["VF"],
-            "pme_spread": pme_kernels.launches["spread"],
-            "pme_gather": pme_kernels.launches["gather"]}
+    out = {"nb_v2u_F": nb_v2u.launches["F"],
+           "nb_v2u_VF": nb_v2u.launches["VF"],
+           "pme_spread": 0, "pme_gather": 0,
+           "pme_spread_small": 0, "pme_gather_small": 0}
+    for (kind, grid), n in pme_kernels.launches.items():
+        out[f"pme_{kind}{_pme_suffix(grid)}"] += n
+    return out
 
 
 def _zero_counts():
     from gromacs_fep_gpu_tpu_torch.ops import nb_v2u, pme_kernels
-    for d in (nb_v2u.launches, pme_kernels.launches):
-        for k in d:
-            d[k] = 0
+    for k in nb_v2u.launches:
+        nb_v2u.launches[k] = 0
+    pme_kernels.launches.clear()
 
 
 def _expected_counts(runner, start_step, nsteps):
+    """Launches that the flavour pattern predicts: K1 once per step (VF on
+    the energy steps 'E' and 'D'), spread and gather once per step that is
+    not an MTS off-step, and per foreign sweep ('D') two more spreads (qA
+    of all atoms, dq of the perturbed ones) and one more gather."""
     pat = runner._flavor_pattern(start_step, nsteps)
-    return {"nb_v2u_F": pat.count("F") + pat.count("f"),
-            "nb_v2u_VF": pat.count("E"),
-            "pme_spread": nsteps - pat.count("f"),
-            "pme_gather": nsteps - pat.count("f")}
+    n_d = pat.count("D")
+    sfx = _pme_suffix(runner.params.pme_grid)
+    out = dict.fromkeys(("pme_spread", "pme_gather", "pme_spread_small",
+                         "pme_gather_small"), 0)
+    out.update({"nb_v2u_F": pat.count("F") + pat.count("f"),
+                "nb_v2u_VF": pat.count("E") + n_d,
+                "pme_spread" + sfx: nsteps - pat.count("f") + 2 * n_d,
+                "pme_gather" + sfx: nsteps - pat.count("f") + n_d})
+    return out
 
 
 def _drive(runner, state, nsteps, what):
@@ -219,16 +261,25 @@ def phase_build():
 
 def phase_small_reference(device):
     """The whole step on the GPU (kernels) against the CPU (plain
-    versions): 650 atoms, 40 steps, two rebuilds, MTS2, no thermostat.
+    versions): 650 atoms, 40 steps, two rebuilds, MTS2, no thermostat, at
+    window 2 of a 5-window ladder with a Delta H sweep every 20 steps.
     Gates: positions 2e-4 nm; potential energy and dV/dlambda 1e-4 of the
     reciprocal energy's magnitude (a sum of large terms of both signs;
-    atomics and summation order differ, and 40 steps amplify that)."""
+    atomics and summation order differ, and 40 steps amplify that); Delta H
+    1e-4 of max |Delta H|, own window <= 1e-3 kJ/mol.  Then the GPU's
+    Delta H on its final frame (cluster route: FEP list, lambda-dependent
+    terms, reciprocal slope, float32) against the dense oracle on the same
+    coordinates (differences of the whole potential, float64, on the CPU:
+    the CUDA kernels are float32 only), rel 1e-4 of max |Delta H|."""
     from gromacs_fep_gpu_tpu_torch.core.types import TcouplType
     from gromacs_fep_gpu_tpu_torch.md.runner import (MdRunner, RunnerConfig,
                                                      concat_logs)
     from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    from gromacs_fep_gpu_tpu_torch.ops.forces import dense_energy, get_beta
     from gromacs_fep_gpu_tpu_torch.ops.pme import pme_grid_size
-    n_side = 6
+    from gromacs_fep_gpu_tpu_torch.parallel.ensemble import lambda_schedule
+    n_side, window = 6, 2
+    ladder = lambda_schedule(5)
     params = _params(mts=True).replace(
         dt=0.001, rcoulomb=0.6, rvdw=0.6, rlist=0.6,
         pme_grid=pme_grid_size((n_side * 0.31,) * 3, 0.12),
@@ -237,11 +288,14 @@ def phase_small_reference(device):
     out = {}
     for dev in (device, "cpu"):
         system, state = solvation_system(n_side=n_side, seed=0, device=dev)
+        state = state.replace(lam=torch.tensor(ladder[window], device=dev),
+                              fep_state=window)
         runner = MdRunner(system, params, RunnerConfig(
-            super_nnbr=128, fep_max_nbr=128, baked_shifts=False))
-        state, logs = runner.run(_decoupled(state), 40)
-        out[dev] = (state, concat_logs(logs))
-    (sg, lgg), (sc, lgc) = out[device], out["cpu"]
+            super_nnbr=128, fep_max_nbr=128, baked_shifts=False),
+            all_lambda=ladder)
+        state, logs = runner.run(state, 40)
+        out[dev] = (state, concat_logs(logs), runner)
+    (sg, lgg, run_g), (sc, lgc, run_c) = out[device], out["cpu"]
     dx = float((sg.x.cpu() - sc.x).abs().max())
     on = torch.isfinite(lgc.epot)
     scale = float(lgc.epot[on].abs().max())
@@ -252,12 +306,45 @@ def phase_small_reference(device):
          f"max|dEpot| {de:.3e}, max|d dvdl| {dl:.3e} (scale {scale:.1f})")
     if not (dx <= 2e-4 and de <= 1e-4 * scale and dl <= 1e-4 * scale):
         raise AssertionError("small reference: GPU run disagrees with CPU")
+    dh_g, dh_c = lgg.delta_h.cpu(), lgc.delta_h
+    swept = torch.isfinite(dh_c[:, 0])
+    if swept.tolist() != [i % 20 == 0 for i in range(40)] or not torch.equal(
+            torch.isfinite(dh_g), torch.isfinite(dh_c)):
+        raise AssertionError("small reference: Delta H is not finite on "
+                             "exactly the nstdhdl steps")
+    dh_rel, dh_abs = _rel(dh_g[swept], dh_c[swept])
+    own = float(dh_g[swept][:, window].abs().max())
+    _say(f"small reference, ladder of 5 at window {window}: Delta H GPU vs "
+         f"CPU rel {dh_rel:.2e} (abs {dh_abs:.2e} of "
+         f"{float(dh_c[swept].abs().max()):.3f} kJ/mol), own window "
+         f"{own:.2e}")
+    if not (dh_rel <= E_REL and own <= 1e-3):
+        raise AssertionError("small reference: Delta H disagrees")
+
+    # the GPU's sweep on its final frame against the dense oracle
+    _, feplist, _, _ = run_g.rebuild(sg)
+    dh_k = run_g._foreign(feplist)(sg.x, sg.box, sg.lam).cpu().double()
+    x64, box64 = sg.x.cpu().double(), sg.box.cpu().double()
+    beta = get_beta(params)
+    with torch.no_grad():
+        e = [dense_energy(x64, box64, lm, run_c.system, params, beta,
+                          run_c.recip_fn).epot
+             for lm in list(torch.tensor(ladder).double())
+             + [sg.lam.cpu().double()]]
+    oracle = torch.stack(e[:-1]) - e[-1]
+    o_rel, o_abs = _rel(dh_k, oracle)
+    _say(f"Delta H, cluster route on the GPU (float32) vs dense oracle "
+         f"(float64): {[round(float(v), 4) for v in dh_k]} vs "
+         f"{[round(float(v), 4) for v in oracle]} kJ/mol, rel {o_rel:.2e} "
+         f"(abs {o_abs:.2e})")
+    if not o_rel <= E_REL:
+        raise AssertionError("Delta H disagrees with the dense oracle")
 
 
 def phase_kernels(runner, state, timer):
     """Each kernel against its plain version at the main path's shapes."""
-    from gromacs_fep_gpu_tpu_torch.ops import nb_v2u, pme, pme_kernels
-    from gromacs_fep_gpu_tpu_torch.ops.fep import get_beta
+    from gromacs_fep_gpu_tpu_torch.ops import nb_v2u
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
     params, system = runner.params, runner.system
     x, box = state.x, state.box
     nlist, _, prep, fl = runner.rebuild(state)
@@ -318,18 +405,42 @@ def phase_kernels(runner, state, timer):
             max_abs_err=f_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=by, library_ms=None))
 
-    # K2 / K3 on the lambda-mixed charges of the production step
-    K = tuple(params.pme_grid)
     lam_c = float(state.lam[2])
     q = ((1.0 - lam_c) * system.charge_a + lam_c * system.charge_b
          ).contiguous()
+    rows += _pme_kernel_rows(x, box, q, params, timer, small=False)
+    return rows
+
+
+def _pme_kernel_rows(x, box, q, params, timer, small):
+    """Spread and gather at one path's shapes against their plain versions
+    (the lambda-mixed charges of the step).  small=False: K2/K3 of the
+    12,290-atom path, the kernel wrappers against spread_plain and
+    gather_plain.  small=True: K4/K5 of the window path, through the entry
+    points that stand for the small-system TPU kernels, _spread_dispatch
+    and phi_gather, the latter against its einsum body."""
+    from gromacs_fep_gpu_tpu_torch.ops import pme, pme_kernels
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
+    K = tuple(params.pme_grid)
+    sfx = "_small" if small else ""
     n = x.shape[0]
     ng = K[0] * K[1] * K[2]
-    g_k = pme_kernels.spread_cuda(x, box, q, K)
+    rows = []
+    if small:
+        def spread():
+            return pme._spread_dispatch(x, box, q, K, params.pme_order)
+    else:
+        def spread():
+            return pme_kernels.spread_cuda(x, box, q, K)
+    before = pme_kernels.launches["spread", K]
+    g_k = spread()
+    if pme_kernels.launches["spread", K] != before + 1:
+        raise AssertionError(f"pme_spread{sfx}: the entry point did not "
+                             "launch the spread kernel")
     g_p = pme_kernels.spread_plain(x, box, q, K)
     torch.cuda.synchronize()
     s_rel, s_abs = _rel(g_k, g_p)
-    ms = timer.ms(lambda: pme_kernels.spread_cuda(x, box, q, K))
+    ms = timer.ms(spread)
     plain_ms = _median_ms(lambda: pme_kernels.spread_plain(x, box, q, K))
     # library yardstick: the index_add_ of the 64 taps, weights given
     _, (i0, i1, i2), (wx, wy, wz), _ = pme_kernels._support(x, box, K)
@@ -339,44 +450,65 @@ def phase_kernels(runner, state, timer):
            * wy[:, None, :, None] * wz[:, None, None, :]).reshape(-1)
     lib_ms = timer.ms(lambda: torch.zeros(ng, device=x.device).index_add_(
         0, flat, val))
+    memset_ms = timer.ms(lambda: torch.zeros(K, device=x.device))
     bound, by = _bound_ms(16 * n + 4 * ng + 36, FLOPS_SPREAD_ATOM * n)
     # the kernel's atomics add in an order that changes from run to run:
     # the grid is held at the energy gate, rel 1e-4 of its largest value
     ok = s_rel <= E_REL
-    _say(f"pme_spread: n={n} grid {K}; grid rel {s_rel:.2e} -> "
-         f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-         f"index_add_ {lib_ms:.4f} ms, bound {bound:.5f} ms by {by})")
+    _say(f"pme_spread{sfx}: n={n} grid {K}; grid rel {s_rel:.2e} -> "
+         f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms, of which the grid's "
+         f"memset {memset_ms:.4f} ms (plain {plain_ms:.3f} ms, index_add_ "
+         f"{lib_ms:.4f} ms, bound {bound:.5f} ms by {by})")
     if not ok:
-        raise AssertionError("pme_spread disagrees with its plain version")
+        raise AssertionError(f"pme_spread{sfx} disagrees with its plain "
+                             "version")
     rows.append(dict(
-        name="pme_spread", route="cuda",
+        name="pme_spread" + sfx, route="cuda",
         source="gromacs_fep_gpu_tpu_torch/csrc/pme_spline.cu",
-        replaces="gromacs_fep_gpu_tpu/ops/pme_blocked.py:394",
+        replaces=("gromacs_fep_gpu_tpu/ops/pme_pallas.py:112" if small
+                  else "gromacs_fep_gpu_tpu/ops/pme_blocked.py:394"),
         max_abs_err=s_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by, library_ms=lib_ms))
 
     influence = pme.influence_tensors(
         pme.make_influence_function(K, params.pme_order), x.device)
-    _, phi = pme.energy_and_potential(g_p, box, consts.beta, influence)
-    o_k = pme_kernels.gather_cuda(x, box, q, phi)
-    o_p = pme_kernels.gather_plain(x, box, q, phi)
+    _, phi = pme.energy_and_potential(g_p, box, get_beta(params), influence)
+    if small:
+        before = pme_kernels.launches["gather", K]
+        f_k, d_k = pme.phi_gather(x, box, q, phi, K, params.pme_order)
+        if pme_kernels.launches["gather", K] != before + 1:
+            raise AssertionError("pme_gather_small: phi_gather did not "
+                                 "launch the gather kernel")
+        f_p, d_p = pme.phi_gather_plain(x, box, q, phi, K, params.pme_order)
+
+        def plain():
+            return pme.phi_gather_plain(x, box, q, phi, K, params.pme_order)
+    else:
+        o_k = pme_kernels.gather_cuda(x, box, q, phi)
+        o_p = pme_kernels.gather_plain(x, box, q, phi)
+        (f_k, d_k), (f_p, d_p) = ((o[:, :3], o[:, 3]) for o in (o_k, o_p))
+
+        def plain():
+            return pme_kernels.gather_plain(x, box, q, phi)
     torch.cuda.synchronize()
-    gf_rel, gf_abs = _rel(o_k[:, :3], o_p[:, :3])
-    gq_rel, gq_abs = _rel(o_k[:, 3], o_p[:, 3])
+    gf_rel, gf_abs = _rel(f_k, f_p)
+    gq_rel, gq_abs = _rel(d_k, d_p)
     ms = timer.ms(lambda: pme_kernels.gather_cuda(x, box, q, phi))
-    plain_ms = _median_ms(lambda: pme_kernels.gather_plain(x, box, q, phi))
+    plain_ms = _median_ms(plain)
     bound, by = _bound_ms(16 * n + 4 * ng + 36 + 16 * n,
                           FLOPS_GATHER_ATOM * n)
     ok = gf_rel <= F_REL and gq_rel <= E_REL
-    _say(f"pme_gather: force rel {gf_rel:.2e}, dE/dq rel {gq_rel:.2e} -> "
-         f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-         f"bound {bound:.5f} ms by {by})")
+    _say(f"pme_gather{sfx}: force rel {gf_rel:.2e}, dE/dq rel {gq_rel:.2e} "
+         f"-> {'ok' if ok else 'FAIL'}; {ms:.4f} ms (plain {plain_ms:.3f} "
+         f"ms, bound {bound:.5f} ms by {by})")
     if not ok:
-        raise AssertionError("pme_gather disagrees with its plain version")
+        raise AssertionError(f"pme_gather{sfx} disagrees with its plain "
+                             "version")
     rows.append(dict(
-        name="pme_gather", route="cuda",
+        name="pme_gather" + sfx, route="cuda",
         source="gromacs_fep_gpu_tpu_torch/csrc/pme_spline.cu",
-        replaces="gromacs_fep_gpu_tpu/ops/pme_blocked.py:447",
+        replaces=("gromacs_fep_gpu_tpu/ops/pme_pallas.py:170" if small
+                  else "gromacs_fep_gpu_tpu/ops/pme_blocked.py:447"),
         max_abs_err=max(gf_abs, gq_abs), ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None))
     return rows
@@ -454,6 +586,134 @@ def phase_profile(runner, state, nsteps, ms_step):
         for e in cpu[:8]))
 
 
+def phase_window(device, timer, smi):
+    """The lambda-window free-energy run at full width: 5,186 atoms, a
+    20-window ladder, windows 10 and 11.  Returns the K4/K5 rows with their
+    launches on this path, and this path's K1 launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gromacs_fep_gpu_tpu_torch.analysis.bar import bar_profile
+    from gromacs_fep_gpu_tpu_torch.core.units import BOLTZ
+    from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg, write_dhdl_xvg
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    from gromacs_fep_gpu_tpu_torch.parallel.ensemble import lambda_schedule
+
+    ladder = lambda_schedule(N_LAMBDA)
+    params = _params(mts=True, n_side=N_SIDE_WINDOW)
+    if params.fep.nstdhdl != params.nstcalcenergy:
+        raise AssertionError("window path: nstdhdl != nstcalcenergy")
+    system, state = solvation_system(n_side=N_SIDE_WINDOW, seed=0,
+                                     device=device)
+
+    def at_window(st, w):
+        return st.replace(lam=torch.tensor(ladder[w], device=device),
+                          fep_state=w, step=0)
+    _say(f"window system: {system.n_atoms} atoms, box "
+         f"{float(state.box[0, 0]):.2f} nm, PME grid {params.pme_grid}, "
+         f"ladder of {N_LAMBDA}, nstdhdl {params.fep.nstdhdl}")
+    eq_params = _params(mts=False, n_side=N_SIDE_WINDOW).replace(
+        dt=0.0005, tau_t=0.1, nsttcouple=1)
+    eq = MdRunner(system, eq_params, RunnerConfig(super_nnbr=448,
+                                                  fep_max_nbr=512))
+    state, lg, sec, counts = _drive(eq, at_window(state, WINDOWS[0]),
+                                    EQ_STEPS, "window equilibration")
+    _say(f"window equilibration at window {WINDOWS[0]}: {EQ_STEPS} steps in "
+         f"{sec:.2f} s, regrows {eq.n_regrow}, final T "
+         f"{float(lg.temp[-1]):.1f} K")
+    eq_state = state
+
+    def runner_for(seed):
+        return MdRunner(system, params, RunnerConfig(
+            super_nnbr=eq.config.super_nnbr,
+            fep_max_nbr=eq.config.fep_max_nbr, seed=seed), all_lambda=ladder)
+
+    # K4/K5 at this path's shapes, on the equilibrated frame
+    lam_c = float(ladder[WINDOWS[0], 2])
+    q = ((1.0 - lam_c) * system.charge_a + lam_c * system.charge_b
+         ).contiguous()
+    rows = _pme_kernel_rows(eq_state.x, eq_state.box, q, params, timer,
+                            small=True)
+
+    total = {}
+    dh_rows, idx_rows, ti = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for w in WINDOWS:
+            runner = runner_for(seed=w)
+            state, lg, sec, counts = _drive(
+                runner, at_window(eq_state, w), WINDOW_STEPS, f"window {w}")
+            pat = runner._flavor_pattern(0, WINDOW_STEPS)
+            swept = torch.tensor([c == "D" for c in pat], device=device)
+            dh = lg.delta_h
+            if dh.shape != (WINDOW_STEPS, N_LAMBDA) or not torch.equal(
+                    torch.isfinite(dh), swept[:, None].expand_as(dh)):
+                raise AssertionError(f"window {w}: Delta H is not finite on "
+                                     "exactly the sweep steps")
+            own = float(dh[swept][:, w].abs().max())
+            t_lo, t_hi = float(lg.temp.min()), float(lg.temp.max())
+            ms_step = sec / WINDOW_STEPS * 1e3
+            ns_day = WINDOW_STEPS * params.dt / 1000.0 / sec * 86400.0
+            _say(f"window {w} (MTS2, dt 2 fs, {int(swept.sum())} sweeps of "
+                 f"{N_LAMBDA}): {WINDOW_STEPS} steps, {ms_step:.3f} ms/step, "
+                 f"{ns_day:.2f} ns/day on {smi}; launches {counts}; regrows "
+                 f"{runner.n_regrow}; T {t_lo:.1f}..{t_hi:.1f} K; own-window "
+                 f"|Delta H| {own:.2e}; Delta H to the neighbours "
+                 f"{[[round(float(v), 3) for v in r] for r in dh[swept][:, w - 1:w + 2]]}")
+            if own > 1e-3:
+                raise AssertionError(f"window {w}: own-window Delta H {own}")
+            if not (TEMP_BAND[0] <= t_lo and t_hi <= TEMP_BAND[1]):
+                raise AssertionError(f"window {w}: temperature left "
+                                     f"{TEMP_BAND} K: {t_lo:.1f}..{t_hi:.1f}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            # dhdl.xvg of the sweep steps, written and read back
+            path = f"{tmp}/window{w}.dhdl.xvg"
+            times = torch.nonzero(swept)[:, 0].cpu().numpy() * params.dt
+            write_dhdl_xvg(path, times, lg.dvdl[swept].cpu().numpy(),
+                           dh[swept].cpu().numpy(), ladder, w,
+                           temperature=params.ref_t)
+            data, legends = read_xvg(path)
+            if data.shape != (int(swept.sum()), 1 + 3 + N_LAMBDA) \
+                    or len(legends) != 3 + N_LAMBDA:
+                raise AssertionError(f"window {w}: dhdl.xvg came back as "
+                                     f"{data.shape}, {len(legends)} legends")
+            dh_rows.append(data[:, 4:])
+            idx_rows.append([w] * data.shape[0])
+            ti.append(float(data[:, 1:4].sum(1).mean()))
+    with warnings.catch_warnings():
+        # only two of the twenty windows were run: the other legs are empty
+        warnings.simplefilter("ignore", UserWarning)
+        legs, _, _ = bar_profile(np.concatenate(dh_rows),
+                                 np.concatenate(idx_rows), params.ref_t,
+                                 skip_frac=0.0)
+    dg, err = legs[WINDOWS[0]]
+    dlam = float(ladder[WINDOWS[1], 2] - ladder[WINDOWS[0], 2])
+    _say(f"free energy of the leg {WINDOWS[0]} -> {WINDOWS[1]} from "
+         f"{len(idx_rows[0])} + {len(idx_rows[1])} samples (a print, not a "
+         f"gate): BAR {dg:.4f} +- {err:.4f} kJ/mol; <dV/dl> dlambda "
+         f"{0.5 * (ti[0] + ti[1]) * dlam:.4f} kJ/mol (kT "
+         f"{BOLTZ * params.ref_t:.3f})")
+
+    # the foreign sweep alone: time and launches
+    runner = runner_for(seed=0)
+    _, feplist, _, _ = runner.rebuild(state)
+    sweep = runner._foreign(feplist)
+    sweep_ms = _median_ms(lambda: sweep(state.x, state.box, state.lam))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sweep(state.x, state.box, state.lam)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    _say(f"foreign sweep (L = {N_LAMBDA}, {system.n_atoms} atoms): "
+         f"{sweep_ms:.3f} ms per sweep, {sum(e.count for e in ev)} kernels, "
+         f"device busy {sum(e.self_device_time_total for e in ev) / 1e3:.3f} "
+         f"ms, on {smi}")
+    for r in rows:
+        r["launches"] = total[r["name"]]
+    return rows, total
+
+
 def run(device="cuda", smi=None):
     """All phases on `device`; returns the kernel rows."""
     import gromacs_fep_gpu_tpu_torch  # noqa: F401  (sets TF32 off)
@@ -506,9 +766,16 @@ def run(device="cuda", smi=None):
                              f"{t_lo:.1f}..{t_hi:.1f}")
     for r in rows:
         r["launches"] = counts[r["name"]]
-        if r["launches"] <= 0:
-            raise AssertionError(f"{r['name']} never ran on the main path")
     phase_profile(prod, state, 2 * params.nstlist, ms_step)
+
+    window_rows, window_counts = phase_window(device, timer, smi)
+    for r in rows:
+        if r["name"].startswith("nb_v2u"):    # K1 runs on both paths
+            r["launches_window"] = window_counts[r["name"]]
+    rows += window_rows
+    for r in rows:
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} never ran on its path")
     return rows
 
 

@@ -3,9 +3,9 @@ gromacs_fep_gpu_tpu/core/topology.py (MoleculeType, build_system,
 lj_table_from_sigma_eps).
 
 Only the parts of a molecule template the solvation-FEP path uses are
-ported: per-atom A/B data, harmonic bonds and angles, SETTLE groups and
-exclusions from the bond graph.  MoleculeType has no field for any other
-interaction class yet.
+ported: per-atom A/B data, harmonic bonds and angles, 1-4 pairs, SETTLE
+groups and exclusions from the bond graph.  MoleculeType has no field for
+any other interaction class yet.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .types import InteractionList, SettleGroups, System
+from .units import ONE_4PI_EPS0
 
 _TERM_SHAPES = {"bonds": (2, 2), "angles": (3, 2)}
 
@@ -33,6 +34,8 @@ class MoleculeType:
     # (atom indices, params_a[, params_b]); params_b missing => = A
     bonds: List[Tuple] = dataclasses.field(default_factory=list)
     angles: List[Tuple] = dataclasses.field(default_factory=list)
+    # 1-4 pairs: ((i, j), (qi*qj, c6, c12)[, B-state params])
+    pairs14: List[Tuple] = dataclasses.field(default_factory=list)
     settle: Optional[Tuple[int, int, int, float, float]] = None
     extra_exclusions: List[Tuple[int, int]] = dataclasses.field(
         default_factory=list)
@@ -106,9 +109,13 @@ def _pad_rows(rows, k: int, p: int, dev) -> InteractionList:
 
 
 def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
-                 nbfp: np.ndarray, device="cuda") -> System:
-    """Flatten (molecule, count) blocks into one System on `device`."""
+                 nbfp: np.ndarray, device="cuda", fudge_qq: float = 1.0,
+                 epsilon_r: float = 1.0) -> System:
+    """Flatten (molecule, count) blocks into one System on `device`.
+    The 1-4 charge products are scaled by epsfac * fudge_qq once here."""
     dev = torch.device(device)
+    epsfac = ONE_4PI_EPS0 / epsilon_r
+    pair14_rows = []
     qa, qb, ta, tb, ma, mb = [], [], [], [], [], []
     excl_sets: List[set] = []
     term_rows = {k: [] for k in _TERM_SHAPES}
@@ -133,6 +140,13 @@ def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
                     idx = tuple(int(a) + offset for a in row[0])
                     term_rows[name].append(
                         (idx, row[1], row[2] if len(row) > 2 else None))
+            for row in mol.pairs14:
+                idx = tuple(int(a) + offset for a in row[0])
+                scaled = [None if par is None else
+                          (par[0] * epsfac * fudge_qq, par[1], par[2])
+                          for par in (row[1],
+                                      row[2] if len(row) > 2 else None)]
+                pair14_rows.append((idx, scaled[0], scaled[1]))
             if mol.settle is not None:
                 o, h1, h2, doh, dhh = mol.settle
                 settle_rows.append(((o + offset, h1 + offset, h2 + offset),
@@ -170,4 +184,6 @@ def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
                   type_b=t(tb_), mass_a=t(ma_), mass_b=t(mb_),
                   perturbed=t(perturbed),
                   nbfp=t(np.asarray(nbfp, np.float32)), exclusions=t(excl),
-                  bonded=bonded, settle=settle, n_atoms=n)
+                  bonded=bonded, settle=settle, n_atoms=n,
+                  pairs14=(_pad_rows(pair14_rows, 2, 3, dev)
+                           if pair14_rows else None))

@@ -156,7 +156,9 @@ class SettleGroups:
 @dataclasses.dataclass
 class System:
     """Static topology + parameters on one device.  exclusions: (N, K)
-    partner ids padded with -1; bonded: name -> InteractionList."""
+    partner ids padded with -1; bonded: name -> InteractionList; pairs14:
+    1-4 pairs, k=2, p=3 (qq with epsfac and fudgeQQ applied, c6, c12), None
+    when the topology has none."""
     charge_a: torch.Tensor
     charge_b: torch.Tensor
     type_a: torch.Tensor
@@ -169,6 +171,7 @@ class System:
     bonded: Dict[str, InteractionList]
     settle: SettleGroups
     n_atoms: int = 0
+    pairs14: Optional[InteractionList] = None
 
     @property
     def device(self) -> torch.device:
@@ -198,6 +201,7 @@ class State:
     lam: torch.Tensor              # (7,)
     coupling: CouplingState
     step: int = 0
+    fep_state: int = 0             # index of the current lambda window
 
     @property
     def n_atoms(self) -> int:
@@ -207,7 +211,7 @@ class State:
         return dataclasses.replace(self, **kw)
 
 
-def make_state(x, v, box, lam=None, device="cuda") -> State:
+def make_state(x, v, box, lam=None, device="cuda", fep_state=0) -> State:
     """State from array-likes (float32 on `device`)."""
     dev = torch.device(device)
 
@@ -222,7 +226,7 @@ def make_state(x, v, box, lam=None, device="cuda") -> State:
         coupling=CouplingState(
             therm_integral=torch.zeros((), device=dev),
             ekinh_prev=torch.full((), -1.0, device=dev)),
-        step=0)
+        step=0, fep_state=int(fep_state))
 
 
 # ---------------------------------------------------------------------------
@@ -278,8 +282,10 @@ def from_numpy(system_arrays: dict, state_arrays: dict, device
     system_arrays keys: charge_a, charge_b, type_a, type_b, mass_a, mass_b,
     perturbed, nbfp, exclusions, settle_atoms, settle_d_oh, settle_d_hh,
     settle_mask, and for each bonded term `name`: bonded_<name>_atoms,
-    bonded_<name>_params_a, bonded_<name>_params_b, bonded_<name>_mask.
-    state_arrays keys: x, v, box, lam."""
+    bonded_<name>_params_a, bonded_<name>_params_b, bonded_<name>_mask;
+    optionally pairs14_atoms, pairs14_params_a, pairs14_params_b,
+    pairs14_mask.  state_arrays keys: x, v, box, lam and optionally
+    fep_state."""
     dev = torch.device(device)
 
     def f(a):
@@ -289,14 +295,21 @@ def from_numpy(system_arrays: dict, state_arrays: dict, device
         return torch.tensor(np.asarray(a, np.int64), device=dev)
 
     s = system_arrays
+
+    def ilist(prefix):
+        return InteractionList(
+            atoms=i(s[f"{prefix}_atoms"]),
+            params_a=f(s[f"{prefix}_params_a"]),
+            params_b=f(s[f"{prefix}_params_b"]), mask=f(s[f"{prefix}_mask"]))
+
     bonded = {}
     for key in s:
         if key.startswith("bonded_") and key.endswith("_atoms"):
             name = key[len("bonded_"):-len("_atoms")]
-            bonded[name] = InteractionList(
-                atoms=i(s[key]), params_a=f(s[f"bonded_{name}_params_a"]),
-                params_b=f(s[f"bonded_{name}_params_b"]),
-                mask=f(s[f"bonded_{name}_mask"]))
+            bonded[name] = ilist(f"bonded_{name}")
+    pairs14 = None
+    if "pairs14_atoms" in s and np.asarray(s["pairs14_atoms"]).shape[0] > 0:
+        pairs14 = ilist("pairs14")
     system = System(
         charge_a=f(s["charge_a"]), charge_b=f(s["charge_b"]),
         type_a=i(s["type_a"]), type_b=i(s["type_b"]),
@@ -308,10 +321,10 @@ def from_numpy(system_arrays: dict, state_arrays: dict, device
                             d_oh=f(s["settle_d_oh"]),
                             d_hh=f(s["settle_d_hh"]),
                             mask=f(s["settle_mask"])),
-        n_atoms=int(np.asarray(s["charge_a"]).shape[0]))
+        n_atoms=int(np.asarray(s["charge_a"]).shape[0]), pairs14=pairs14)
     st = state_arrays
     state = make_state(st["x"], st["v"], st["box"], st.get("lam"),
-                       device=dev)
+                       device=dev, fep_state=int(st.get("fep_state", 0)))
     return system, state
 
 
@@ -326,9 +339,12 @@ def to_numpy(system: System) -> dict:
                settle_d_oh=n(system.settle.d_oh),
                settle_d_hh=n(system.settle.d_hh),
                settle_mask=n(system.settle.mask))
-    for name, il in system.bonded.items():
-        out[f"bonded_{name}_atoms"] = n(il.atoms)
-        out[f"bonded_{name}_params_a"] = n(il.params_a)
-        out[f"bonded_{name}_params_b"] = n(il.params_b)
-        out[f"bonded_{name}_mask"] = n(il.mask)
+    lists = {f"bonded_{name}": il for name, il in system.bonded.items()}
+    if system.pairs14 is not None:
+        lists["pairs14"] = system.pairs14
+    for prefix, il in lists.items():
+        out[f"{prefix}_atoms"] = n(il.atoms)
+        out[f"{prefix}_params_a"] = n(il.params_a)
+        out[f"{prefix}_params_b"] = n(il.params_b)
+        out[f"{prefix}_mask"] = n(il.mask)
     return out

@@ -10,7 +10,13 @@
 // touches exactly its 4x4x4 support of the global (K1, K2, K3) grid,
 // spreading with atomicAdd (as the reference's pme_spread.cu does) and
 // gathering with plain loads.  There is no bucketing, so no stale bucket
-// can drop charge.  The TPU kernels' "fail hard" rule keeps its meaning:
+// can drop charge.  The same two kernels replace the small-system TPU pair
+// gromacs_fep_gpu_tpu/ops/pme_pallas.py _spread_kernel (via
+// spread_charges_pallas) and _gather_kernel (via phi_gather_pallas), which
+// contract whole-grid one-hot rows in three bf16 passes because the MXU
+// makes O(N K^3) free; without tensor cores in fp32 the 4x4x4 support is
+// the right work at every size, so there is no size threshold here.
+// The TPU kernels' "fail hard" rule keeps its meaning:
 // an atom whose grid coordinate is not finite poisons the grid (spread) or
 // its own output row (gather) with NaN instead of being skipped.
 //

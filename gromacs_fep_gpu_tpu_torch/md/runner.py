@@ -1,6 +1,9 @@
 """Run driver — PyTorch counterpart of gromacs_fep_gpu_tpu/md/runner.py
-(RunnerConfig, MdRunner: _flavor_pattern, the rebuild -> nstlist-step
-chunk, _grow and roll-back on overflow) for the single-device v2u path.
+(RunnerConfig, MdRunner: _foreign_factory, _flavor_pattern, the rebuild ->
+nstlist-step chunk, _grow and roll-back on overflow) for the single-device
+v2u path and the dense oracle path (use_dense).  With a lambda ladder
+(all_lambda) the step loop records Delta H to every window each
+fep.nstdhdl steps; expanded-ensemble and AWH moves are not ported.
 
 Each chunk rebuilds the pair lists (Hilbert sort, union cluster search
 with baked shifts, FEP list, v2u pack) and then runs nstlist steps
@@ -20,6 +23,8 @@ import torch
 
 from ..core.types import CoulombType, MdParams, State, System
 from ..ops.cluster_nb import make_cluster_force_fn
+from ..ops.forces import dense_energy, get_beta, make_dense_force_fn
+from ..ops.foreign import make_foreign_delta_fn
 from ..ops.nb_v2u import BU, prepare_v2u
 from ..ops.pairlist import (build_cluster_pairlist, build_fep_pairlist,
                             check_exclusions)
@@ -41,49 +46,100 @@ class RunnerConfig:
     # ambiguous, as the JAX runner does
     baked_shifts: bool = True
     seed: int = 0                   # v-rescale generator seed
+    # dense O(N^2) oracle force (ops/forces.py) instead of the pair lists
+    # and the K1 kernel: small systems only
+    use_dense: bool = False
 
 
 class MdRunner:
     """Owns the force function and the pair-list lifecycle."""
 
     def __init__(self, system: System, params: MdParams,
-                 config: Optional[RunnerConfig] = None):
+                 config: Optional[RunnerConfig] = None, all_lambda=None):
+        """all_lambda: optional (L, 7) lambda ladder; when given, the step
+        loop records Delta H to every window each fep.nstdhdl steps."""
         self.system = system
         self.params = params
         self.config = config or RunnerConfig()
         self.device = system.device
+        self.all_lambda = None
+        if all_lambda is not None:
+            self.all_lambda = torch.as_tensor(
+                np.asarray(all_lambda, np.float32), device=self.device)
         self.pert_idx = np.where(system.perturbed.cpu().numpy())[0]
         self.has_fep = self.pert_idx.size > 0
-        self.recip_fn = self.recip_force_fn = None
+        self.recip_fn = self.recip_force_fn = self.recip_slope_fn = None
         if params.coulomb == CoulombType.PME:
             if params.pme_grid is None:
                 raise ValueError("set params.pme_grid (use pme.pme_grid_size)")
-            from ..ops.pme import make_pme_recip_pair
-            self.recip_fn, self.recip_force_fn = make_pme_recip_pair(
-                system, params)
-        self._force_fn = make_cluster_force_fn(
-            system, params, has_fep=self.has_fep,
-            pme_recip_force_fn=self.recip_force_fn)
+            from ..ops.pme import make_pme_recip_fns
+            (self.recip_fn, self.recip_force_fn,
+             self.recip_slope_fn) = make_pme_recip_fns(system, params)
+        if self.config.use_dense:
+            dense = make_dense_force_fn(system, params, self.recip_fn)
+            self._force_fn = (lambda x, box, lam, nl, fl, prep=None,
+                              **_flavor_kwargs: dense(x, box, lam))
+        else:
+            self._force_fn = make_cluster_force_fn(
+                system, params, has_fep=self.has_fep,
+                pme_recip_force_fn=self.recip_force_fn)
+        self._foreign, self._n_foreign = self._foreign_factory()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
         self._rlist = None
         self.last_flags = None      # flags of the newest accepted rebuild
         self.n_regrow = 0           # chunks restarted after an overflow
 
+    def _foreign_factory(self):
+        """(factory, n_foreign): factory(feplist) -> delta(x, box, lam), the
+        (L,) Delta H sweep on one rebuild's FEP list.  Dense: differences
+        of the whole potential, one dense_energy per window (the oracle:
+        it shares nothing with the batched sweep).  Cluster route:
+        make_foreign_delta_fn over the lambda-dependent terms only."""
+        if self.all_lambda is None:
+            return None, 0
+        n_foreign = int(self.all_lambda.shape[0])
+        if self.config.use_dense:
+            beta = get_beta(self.params)
+
+            def factory(feplist):
+                def delta(x, box, lam):
+                    def e_at(lm):
+                        return dense_energy(x, box, lm, self.system,
+                                            self.params, beta,
+                                            self.recip_fn).epot
+                    with torch.no_grad():
+                        return torch.stack(
+                            [e_at(lm) for lm in self.all_lambda.to(x.dtype)]
+                        ) - e_at(lam)
+                return delta
+        else:
+            delta_core = make_foreign_delta_fn(
+                self.system, self.params, self.all_lambda,
+                self.recip_slope_fn)
+
+            def factory(feplist):
+                return lambda x, box, lam: delta_core(x, box, lam, feplist)
+        return factory, n_foreign
+
     def _flavor_pattern(self, start_step: int, seg_len: int) -> str:
-        """Per-offset force flavour: 'F' force only, 'E' energies, 'f' MTS
-        off-step (host-computable: every trigger is step % N == 0)."""
+        """Per-offset force flavour: 'F' force only, 'E' energies, 'D'
+        energies and the foreign-lambda sweep, 'f' MTS off-step
+        (host-computable: every trigger is step % N == 0)."""
         p = self.params
+        noener_active = not self.config.use_dense and p.nstcalcenergy > 1
         out = []
         for o in range(seg_len):
             s = start_step + o
-            if p.nstcalcenergy > 1:
-                ener = (s % p.nstcalcenergy) == 0
+            foreign = (self.all_lambda is not None
+                       and (s % p.fep.nstdhdl) == 0)
+            if noener_active:
+                ener = (s % p.nstcalcenergy) == 0 or foreign
                 if p.fep.enabled:
                     ener = ener or (s % p.fep.nstdhdl) == 0
             else:
                 ener = True
-            fl = "E" if ener else "F"
+            fl = "D" if foreign else ("E" if ener else "F")
             if p.mts and (s % p.mts_factor) != 0:
                 if fl != "F":
                     raise ValueError(
@@ -109,6 +165,8 @@ class MdRunner:
         flags are read back to the host."""
         self._set_geometry(state)
         cfg = self.config
+        if cfg.use_dense:
+            return None, None, None, dict.fromkeys(FLAGS, 0)
         nlist = build_cluster_pairlist(
             state.x, state.box, self.system, self._rlist,
             cell_size=cfg.cell_size, super_nnbr=cfg.super_nnbr,
@@ -162,8 +220,11 @@ class MdRunner:
                                  "longrange-nonbonded is supported")
             if self.recip_force_fn is None:
                 raise ValueError("mts requires PME")
+            if self.config.use_dense:
+                raise ValueError("the dense force does not split off the "
+                                 "reciprocal force: no mts with use_dense")
             checks = [("nstcalcenergy", p.nstcalcenergy)]
-            if p.fep.enabled:
+            if p.fep.enabled or self.all_lambda is not None:
                 checks.append(("nstdhdl", p.fep.nstdhdl))
             for nm, n in checks:
                 if n <= 1 or n % m != 0:
@@ -185,9 +246,14 @@ class MdRunner:
                 return self._force_fn(x, box, lam, nlist, feplist, prep,
                                       need_energy=False, skip_recip=True)
             return self._force_fn(x, box, lam, nlist, feplist, prep,
-                                  need_energy=flavor == "E", recip_scale=rs)
+                                  need_energy=flavor in ("E", "D"),
+                                  recip_scale=rs)
 
-        return make_step_fn(self.system, self.params, bound, self.generator)
+        return make_step_fn(
+            self.system, self.params, bound, self.generator,
+            foreign_delta_fn=(self._foreign(feplist) if self._foreign
+                              else None),
+            n_foreign=self._n_foreign)
 
     def run(self, state: State, nsteps: int
             ) -> Tuple[State, List[StepLog]]:

@@ -1,11 +1,13 @@
 """The MD step — PyTorch counterpart of gromacs_fep_gpu_tpu/md/simulator.py
 (StepLog, degrees_of_freedom, masses_at_lambda, make_step_fn) for the
-leapfrog / v-rescale / SETTLE / COM-removal / dhdl / MTS branches.
+leapfrog / v-rescale / SETTLE / COM-removal / dhdl / foreign-lambda / MTS
+branches.
 
 The force flavour of each step is chosen by the caller (the runner knows
 it on the host, as in the JAX runner's statically-flavoured segments):
-'F' force only, 'E' energies and dV/dlambda, 'f' MTS off-step (force only,
-PME reciprocal skipped).  State.step is a host integer, so every step % N
+'F' force only, 'E' energies and dV/dlambda, 'D' energies plus the
+foreign-lambda sweep, 'f' MTS off-step (force only, PME reciprocal
+skipped).  State.step is a host integer, so every step % N
 trigger is decided on the host without reading the device.
 """
 from __future__ import annotations
@@ -31,6 +33,9 @@ class StepLog:
     lam: torch.Tensor           # (7,)
     dvdl: torch.Tensor          # (7,), NaN on force-only steps
     constr_rmsd: torch.Tensor
+    # (L,) foreign-lambda U(l) - U(cur), NaN off dhdl steps; (0,) without
+    # a ladder
+    delta_h: torch.Tensor
 
 
 def degrees_of_freedom(system: System, params: MdParams) -> float:
@@ -49,11 +54,22 @@ def masses_at_lambda(system: System, lam_mass):
 
 
 def make_step_fn(system: System, params: MdParams, force_fn: Callable,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 foreign_delta_fn: Optional[Callable] = None,
+                 n_foreign: int = 0):
     """step(state, flavor) -> (state, StepLog).
 
     force_fn(x, box, lam, flavor) -> (f, EnergyTerms); generator drives
-    the v-rescale draws."""
+    the v-rescale draws.  foreign_delta_fn(x, box, lam) -> (n_foreign,)
+    Delta H vector, evaluated on 'D' steps at x(t), before the update, so
+    that it is frame-consistent with the energies of the same step
+    (reference: md.cpp:1323).
+
+    The JAX step also takes the lambda matrix, for the constraint term
+    delta_h += dlambda_bonded * dvdl_constr of LINCS with lambda-dependent
+    lengths.  The port's System holds SETTLE waters only, whose lengths
+    have no B state, so that term is identically zero and neither it nor
+    the matrix is here."""
     if params.integrator != IntegratorType.MD:
         raise NotImplementedError(f"integrator {params.integrator.value} is "
                                   "not ported yet (leapfrog only)")
@@ -74,7 +90,17 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
         lam = state.lam
         mass, invmass = masses_at_lambda(system, lam[FepCoupling.MASS])
         f, terms = force_fn(state.x, state.box, lam, flavor)
-        do_ener = flavor == "E"
+        do_ener = flavor in ("E", "D")
+
+        delta_h = torch.zeros((0,), dtype=state.x.dtype,
+                              device=state.x.device)
+        if foreign_delta_fn is not None and n_foreign > 0:
+            if flavor == "D":
+                delta_h = foreign_delta_fn(state.x, state.box, lam)
+            else:
+                delta_h = torch.full((n_foreign,), float("nan"),
+                                     dtype=state.x.dtype,
+                                     device=state.x.device)
 
         v_scale = None
         coupl = state.coupling
@@ -113,7 +139,7 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
                          device=x_new.device)
         log = StepLog(epot=terms.epot if do_ener else nan, ekin=ekin,
                       temp=temp, lam=lam, dvdl=terms.dvdl,
-                      constr_rmsd=constr_rmsd)
+                      constr_rmsd=constr_rmsd, delta_h=delta_h)
         return state.replace(x=x_new, v=v_new, coupling=coupl,
                              step=state.step + 1), log
 

@@ -188,7 +188,7 @@ def _elec_derivatives(params: MdParams):
         elec[1] = elfac * (1.0 / rc ** 2 - 2.0 * k_rf * rc)
         elec[2] = elfac * (2.0 / rc ** 3 + 2.0 * k_rf)
     elif params.coulomb == CoulombType.PME:
-        from ..ops.fep import ewald_beta
+        from ..ops.nonbonded_ref import ewald_beta
         b = ewald_beta(rc, params.ewald_rtol)
         br = b * rc
         m2s = 2.0 / math.sqrt(math.pi)

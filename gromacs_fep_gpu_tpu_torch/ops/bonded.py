@@ -4,8 +4,9 @@ TERM_CHANNEL).
 
 Energy-only functions of (x, box, lambda_bonded); parameters interpolate
 linearly between the end states, so torch.autograd gives the forces and
-the reference's dvdl.  Only harmonic bonds and angles are ported: the
-solvation ligand has 4 bonds and 6 angles.
+the reference's dvdl.  lambda is a scalar, or an (L,) vector of a
+foreign-lambda sweep, and the energy has lambda's shape.  Only harmonic
+bonds and angles are ported: the solvation ligand has 4 bonds and 6 angles.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from ..core.units import DEG2RAD
 
 
 def _interp(pa, pb, lam):
+    """(..., n, p) parameters at lambda of shape (...)."""
+    lam = lam[..., None, None]
     return (1.0 - lam) * pa + lam * pb
 
 
@@ -24,8 +27,8 @@ def bond_energy(x, box, il: InteractionList, lam) -> torch.Tensor:
     """Harmonic bonds: V = 1/2 k (r - b0)^2."""
     p = _interp(il.params_a, il.params_b, lam)
     dx = pbc_mod.pbc_dx(x[il.atoms[:, 0]] - x[il.atoms[:, 1]], box)
-    dr = torch.sqrt(torch.sum(dx * dx, -1) + 1e-32) - p[:, 0]
-    return torch.sum(il.mask * 0.5 * p[:, 1] * dr * dr)
+    dr = torch.sqrt(torch.sum(dx * dx, -1) + 1e-32) - p[..., 0]
+    return torch.sum(il.mask * 0.5 * p[..., 1] * dr * dr, -1)
 
 
 def angle_energy(x, box, il: InteractionList, lam) -> torch.Tensor:
@@ -37,8 +40,8 @@ def angle_energy(x, box, il: InteractionList, lam) -> torch.Tensor:
     cos_th = torch.sum(rij * rkj, -1) * torch.rsqrt(
         torch.sum(rij * rij, -1) * torch.sum(rkj * rkj, -1) + 1e-32)
     th = torch.arccos(torch.clamp(cos_th, -1.0 + 1e-7, 1.0 - 1e-7))
-    d = th - p[:, 0] * DEG2RAD
-    return torch.sum(il.mask * 0.5 * p[:, 1] * d * d)
+    d = th - p[..., 0] * DEG2RAD
+    return torch.sum(il.mask * 0.5 * p[..., 1] * d * d, -1)
 
 
 TERMS = {"bonds": bond_energy, "angles": angle_energy}

@@ -21,7 +21,8 @@ from ..core.types import (EnergyTerms, FepCoupling, MdParams, System,
                           VdwModifier)
 from ..core.units import ONE_4PI_EPS0
 from . import bonded as bonded_mod
-from .fep import FepPairData, get_beta, softcore_pair_energies
+from .fep import FepPairData, softcore_pair_energies
+from .forces import get_beta
 from .nb_v2u import NbConstants, PrepV2U, cluster_forces_v2u
 from .pairlist import ClusterPairlist, FepPairlist
 
@@ -40,7 +41,8 @@ def lj_table_mode(nbfp_np) -> str:
 
 def fep_pair_energy(x, box, lam_c, lam_v, feplist: FepPairlist,
                     system: System, params: MdParams, beta):
-    """Soft-core energies summed over the flat FEP pair list."""
+    """Soft-core (coulomb, vdw) energies summed over the flat FEP pair
+    list; (L,) each when the lambdas are (L,) vectors."""
     epsfac = ONE_4PI_EPS0 / params.epsilon_r
     ii, jj = feplist.iidx, feplist.jidx
     dx = pbc_mod.pbc_dx(x[ii] - x[jj], box)
@@ -56,7 +58,7 @@ def fep_pair_energy(x, box, lam_c, lam_v, feplist: FepPairlist,
         r2, pair, lam_c, lam_v, feplist.included, feplist.excluded,
         is_self=torch.zeros_like(r2), fep=params.fep, params=params,
         beta=beta)
-    return torch.sum(v_c), torch.sum(v_v)
+    return torch.sum(v_c, -1), torch.sum(v_v, -1)
 
 
 def make_cluster_force_fn(system: System, params: MdParams,

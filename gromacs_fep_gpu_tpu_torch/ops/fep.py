@@ -1,7 +1,5 @@
 """Soft-core FEP pair energies — PyTorch counterpart of
-gromacs_fep_gpu_tpu/ops/fep.py (softcore_pair_energies, Beutler branch),
-plus rf_constants / ewald_beta / vdw_shift_constants from
-ops/nonbonded_ref.py and get_beta from ops/forces.py.
+gromacs_fep_gpu_tpu/ops/fep.py (softcore_pair_energies, Beutler branch).
 
 The energy is written as a differentiable function of (r^2, lambda), so
 torch.autograd yields forces and dV/dlambda including the soft-core chain
@@ -11,57 +9,25 @@ exclusion corrections) are the JAX module's.
 """
 from __future__ import annotations
 
-import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.types import (CoulombType, FepParams, MdParams, SoftcoreType,
-                          VdwModifier)
+from ..core.types import CoulombType, FepParams, MdParams, SoftcoreType
+from .nonbonded_ref import (ewald_beta, rf_constants,  # noqa: F401
+                            vdw_shift_constants)
 
 MIN_DIST_SQ = 1.0e-6
 MAX_RINV_SIX = 1.0e15
 
 
-def rf_constants(params: MdParams) -> Tuple[float, float]:
-    """Reaction-field k_rf and c_rf (reference: forcerec.cpp calc_rffac)."""
-    rc = params.rcoulomb
-    eps_r, eps_rf = params.epsilon_r, params.epsilon_rf
-    if eps_rf == 0.0:
-        krf = 1.0 / (2.0 * rc ** 3)
-    else:
-        krf = (eps_rf - eps_r) / (2.0 * eps_rf + eps_r) / rc ** 3
-    return krf, 1.0 / rc + krf * rc ** 2
-
-
-def ewald_beta(rc: float, rtol: float) -> float:
-    """Ewald splitting parameter by bisection on erfc(beta rc) = rtol
-    (reference: ewald_utils.h calc_ewaldcoeff_q)."""
-    lo, hi = 0.0, 50.0
-    for _ in range(100):
-        beta = 0.5 * (lo + hi)
-        if math.erfc(beta * rc) > rtol:
-            lo = beta
-        else:
-            hi = beta
-    return 0.5 * (lo + hi)
-
-
-def get_beta(params: MdParams) -> Optional[float]:
-    if params.coulomb == CoulombType.PME:
-        return ewald_beta(params.rcoulomb, params.ewald_rtol)
-    return None
-
-
-def vdw_shift_constants(params: MdParams) -> Tuple[float, float]:
-    """Constant potential shifts (cpot) of dispersion and repulsion."""
-    if params.vdw_modifier == VdwModifier.POTENTIAL_SHIFT:
-        rc = params.rvdw
-        return -1.0 / rc ** 6, -1.0 / rc ** 12
-    if params.vdw_modifier == VdwModifier.NONE:
-        return 0.0, 0.0
-    raise NotImplementedError(
-        f"vdw-modifier {params.vdw_modifier.value} is not ported yet")
+def __getattr__(name):
+    # get_beta lives in ops/forces.py, which imports this module; the name
+    # resolves from here too, lazily, so that the two do not import in a ring
+    if name == "get_beta":
+        from .forces import get_beta
+        return get_beta
+    raise AttributeError(name)
 
 
 class FepPairData(NamedTuple):
@@ -81,7 +47,11 @@ def softcore_pair_energies(r2, pair: FepPairData, lam_coul, lam_vdw,
 
     included: 1 for real non-excluded pairs; excluded: 1 for pairs on the
     exclusion list (they still get the RF/Ewald corrections); padding rows
-    have both 0.  is_self: the i==i pair, counted with factor 1/2."""
+    have both 0.  is_self: the i==i pair, counted with factor 1/2.
+
+    lam_coul / lam_vdw are scalars, or (L,) vectors of a foreign-lambda
+    sweep: the result then has a leading L axis (the written-out batch axis
+    of the JAX side's jax.vmap over the lambda matrix)."""
     if fep.softcore != SoftcoreType.BEUTLER:
         raise NotImplementedError("Gapsys soft-core is not ported yet")
     dtype = r2.dtype
@@ -95,15 +65,20 @@ def softcore_pair_energies(r2, pair: FepPairData, lam_coul, lam_vdw,
     rp = r2 * r2 * r2
 
     p = fep.sc_power
-    bshape = (2,) + (1,) * r2.ndim
+    # axes: (end state, [lambda,] pair...)
+    lshape = tuple(lam_coul.shape)
+    bshape = (2,) + lshape + (1,) * r2.ndim
     lfac_c = torch.stack([1.0 - lam_coul, lam_coul]).reshape(bshape)
     lfac_v = torch.stack([1.0 - lam_vdw, lam_vdw]).reshape(bshape)
     sc_lf_c = (1.0 - lfac_c) ** p
     sc_lf_v = (1.0 - lfac_v) ** p
 
-    qq = torch.stack([pair.qq_a, pair.qq_b])
-    c6 = torch.stack([pair.c6_a, pair.c6_b])
-    c12 = torch.stack([pair.c12_a, pair.c12_b])
+    def ab(a, b):
+        return torch.stack([a, b]).reshape((2,) + (1,) * len(lshape)
+                                           + tuple(a.shape))
+    qq = ab(pair.qq_a, pair.qq_b)
+    c6 = ab(pair.c6_a, pair.c6_b)
+    c12 = ab(pair.c12_a, pair.c12_b)
 
     sigma6_def = fep.sc_sigma ** 6
     sigma6_min = fep.sc_sigma_min ** 6 if fep.sc_coul else 0.0

@@ -24,7 +24,7 @@ import torch
 from ..core.types import CoulombType, MdParams
 from ..core.units import ONE_4PI_EPS0
 from . import cuda_lib
-from .fep import rf_constants
+from .nonbonded_ref import rf_constants
 from .pairlist import CLUSTER, ClusterPairlist
 
 R2_FLOOR = 1e-6

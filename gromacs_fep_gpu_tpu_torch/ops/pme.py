@@ -1,16 +1,19 @@
 """Smooth particle-mesh Ewald reciprocal space — PyTorch counterpart of
 gromacs_fep_gpu_tpu/ops/pme.py (good_fft_size, pme_grid_size,
 bspline_weights, bspline_dweights, make_influence_function,
-_influence_scaled, reciprocal_energy, reciprocal_energy_force, phi_gather,
-self_energy, net_charge_energy, make_pme_recip_fn as the energy half of
-make_pme_recip_pair).
+_influence_scaled, _spread_dispatch, reciprocal_energy,
+reciprocal_energy_force, phi_gather, self_energy, net_charge_energy,
+make_pme_recip_fn as the energy half of make_pme_recip_pair) and of
+ops/pme_pallas.py (spread_charges_pallas, phi_gather_pallas: here
+_spread_dispatch and phi_gather on a CUDA tensor).
 
 torch.fft takes the place of the matmul DFT (make_dft_matrices /
-matmul_fft3 / _axis_dft): the same full-spectrum transform.  The force
-path spreads and gathers with the K2/K3 kernels of ops/pme_kernels.py; the
-AD-able energy (`reciprocal_energy`) spreads with a plain index_add_ and is
-used for the small lambda(1-lambda) E[dq] correction over the perturbed
-atoms.
+matmul_fft3 / _axis_dft): the same full-spectrum transform.  Every spread
+and gather that is not differentiated goes through the per-atom kernels of
+ops/pme_kernels.py, at every system size; the AD-able energy
+(`reciprocal_energy` on a tensor that requires grad) spreads with a plain
+index_add_ and is used for the small lambda(1-lambda) E[dq] correction
+over the perturbed atoms.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from ..core import pbc as pbc_mod
 from ..core.types import MdParams, System
 from ..core.units import ONE_4PI_EPS0
 from . import pme_kernels
-from .fep import ewald_beta
+from .nonbonded_ref import ewald_beta
 
 
 def good_fft_size(n: int) -> int:
@@ -112,8 +115,8 @@ def _influence_scaled(box, influence, beta, dtype):
     return pref * bb, scale
 
 
-def influence_tensors(influence, device):
-    return tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+def influence_tensors(influence, device, dtype=torch.float32):
+    return tuple(torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
                  for a in influence)
 
 
@@ -138,14 +141,35 @@ def spread_charges_scatter(x, box, charges, grid_shape, order: int = 4):
         grid_shape)
 
 
+def _spread_dispatch(x, box, charges, grid_shape, order):
+    """Charge spread of every path that is not differentiated, at every
+    system size.  It stands for both TPU spreads of the JAX package:
+    blocked_spread_pallas (K2, from 8,000 atoms up there) and
+    spread_charges_pallas (K4, the whole-grid one-hot matmul below that).
+    On a GPU both are the per-atom 4x4x4 kernel of pme_kernels.spread,
+    which needs neither atom blocks nor a size threshold; CPU tensors take
+    its plain version (any other order: the plain scatter, CPU only)."""
+    if order == 4:
+        return pme_kernels.spread(x, box, charges, grid_shape)
+    if x.device.type != "cpu":
+        raise NotImplementedError("the PME kernels are order 4 only")
+    return spread_charges_scatter(x, box, charges, grid_shape, order)
+
+
 def reciprocal_energy(x, box, charges, grid_shape, beta, order: int = 4,
                       influence=None):
-    """SPME reciprocal energy (no self/net-charge terms), differentiable."""
+    """SPME reciprocal energy (no self/net-charge terms).  Differentiable
+    through the plain scatter when x or the charges require grad; an
+    energy-only call spreads with _spread_dispatch (the kernel on a GPU)."""
     if influence is None:
         influence = influence_tensors(
-            make_influence_function(grid_shape, order), x.device)
-    qh = torch.fft.fftn(spread_charges_scatter(x, box, charges, grid_shape,
-                                               order))
+            make_influence_function(grid_shape, order), x.device, x.dtype)
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or charges.requires_grad):
+        grid = spread_charges_scatter(x, box, charges, grid_shape, order)
+    else:
+        grid = _spread_dispatch(x, box, charges, grid_shape, order)
+    qh = torch.fft.fftn(grid)
     G, scale = _influence_scaled(box, influence, beta, x.dtype)
     return scale * torch.sum(G * (qh.real ** 2 + qh.imag ** 2))
 
@@ -163,20 +187,31 @@ def energy_and_potential(grid, box, beta, influence):
 
 def reciprocal_energy_force(x, box, charges, grid_shape, beta,
                             order: int = 4, influence=None):
-    """(energy, forces, dE/dq) with the K2 spread and the K3 gather."""
-    if order != 4:
-        raise NotImplementedError("the PME kernels are order 4 only")
+    """(energy, forces, dE/dq): spread, solve, gather, with the kernels
+    on a GPU (order 4 only there)."""
     if influence is None:
         influence = influence_tensors(
-            make_influence_function(grid_shape, order), x.device)
-    grid = pme_kernels.spread(x, box, charges, grid_shape)
+            make_influence_function(grid_shape, order), x.device, x.dtype)
+    grid = _spread_dispatch(x, box, charges, grid_shape, order)
     energy, phi = energy_and_potential(grid, box, beta, influence)
-    forces, dEdq = pme_kernels.gather(x, box, charges, phi, grid_shape)
+    forces, dEdq = phi_gather(x, box, charges, phi, grid_shape, order)
     return energy, forces, dEdq
 
 
 def phi_gather(x, box, charges, phi, grid_shape, order: int = 4):
-    """Plain (forces, dE/dq) from phi for any order — the JAX phi_gather."""
+    """Per-atom (forces, dE/dq) from the potential grid phi = dE/dQ — the
+    JAX phi_gather and its TPU twin phi_gather_pallas (K5).  A tensor that
+    is not on the CPU goes to the gather kernel (order 4, or it raises);
+    a CPU tensor takes the plain version below, at any order."""
+    if x.device.type != "cpu":
+        if order != 4:
+            raise NotImplementedError("the PME kernels are order 4 only")
+        return pme_kernels.gather(x, box, charges, phi, grid_shape)
+    return phi_gather_plain(x, box, charges, phi, grid_shape, order)
+
+
+def phi_gather_plain(x, box, charges, phi, grid_shape, order: int = 4):
+    """Plain (forces, dE/dq) from phi for any order."""
     K = torch.tensor(grid_shape, device=x.device)
     s = pbc_mod.frac_coords(x, box)
     u = (s - torch.floor(s)) * K.to(x.dtype)
@@ -222,8 +257,9 @@ class _RecipSetup:
                              "pass grid_shape")
         self.order = params.pme_order
         dev = system.device
-        self.influence = influence_tensors(
-            make_influence_function(self.grid_shape, self.order), dev)
+        self._influence_np = make_influence_function(self.grid_shape,
+                                                     self.order)
+        self._influence = {}
         self.qa, self.qb = system.charge_a, system.charge_b
         dq = (self.qb - self.qa).cpu().numpy()
         pert = np.nonzero(dq != 0.0)[0]
@@ -231,11 +267,19 @@ class _RecipSetup:
         self.pert_idx = torch.as_tensor(pert, dtype=torch.int64, device=dev)
         self.dq = torch.as_tensor(dq[pert], dtype=torch.float32, device=dev)
 
+    def influence(self, dtype):
+        """The influence function's factors in the coordinates' dtype."""
+        if dtype not in self._influence:
+            self._influence[dtype] = influence_tensors(
+                self._influence_np, self.qa.device, dtype)
+        return self._influence[dtype]
+
     def e_dd(self, x, box):
         """Mesh E[dq] of the perturbed atoms' charge differences."""
-        return reciprocal_energy(x[self.pert_idx], box, self.dq,
-                                 self.grid_shape, self.beta, self.order,
-                                 self.influence)
+        return reciprocal_energy(x[self.pert_idx].contiguous(), box,
+                                 self.dq.to(x.dtype), self.grid_shape,
+                                 self.beta, self.order,
+                                 self.influence(x.dtype))
 
 
 def _recip_energy_fn(st: _RecipSetup):
@@ -246,17 +290,66 @@ def _recip_energy_fn(st: _RecipSetup):
 
     def recip_fn(x, box, lam_c):
         vol = pbc_mod.box_volume(box)
-        qmix = ((1.0 - lam_c) * st.qa + lam_c * st.qb) if st.fep_q else st.qa
-        e = (reciprocal_energy(x, box, qmix, st.grid_shape, beta, st.order,
-                               st.influence)
+        # charges in the coordinates' dtype first: a 0-dim lambda does not
+        # promote them
+        qa, qb = st.qa.to(x.dtype), st.qb.to(x.dtype)
+        qmix = ((1.0 - lam_c) * qa + lam_c * qb) if st.fep_q else qa
+        e = (reciprocal_energy(x, box, qmix, st.grid_shape, beta,
+                               st.order, st.influence(x.dtype))
              + self_energy(qmix, beta) + net_charge_energy(qmix, beta, vol))
         if st.fep_q:
-            e_dd = (st.e_dd(x, box) + self_energy(st.dq, beta)
-                    + net_charge_energy(st.dq, beta, vol))
+            dq = st.dq.to(x.dtype)
+            e_dd = (st.e_dd(x, box) + self_energy(dq, beta)
+                    + net_charge_energy(dq, beta, vol))
             e = e + lam_c * (1.0 - lam_c) * e_dd
         return e
 
     return recip_fn
+
+
+def _recip_slope_fn(st: _RecipSetup):
+    """slope_fn(x, box) -> d recip_fn / d lam_c, for the foreign-lambda
+    sweep.  The mix identity of _recip_energy_fn makes recip_fn exactly
+    linear in lam_c: recip_fn(l) = (1-l) E[qA] + l E[qB], so the energy
+    difference between any two lambdas is (l2 - l1) (E[qB] - E[qA]) and one
+    evaluation serves the whole ladder.  E is quadratic in the charges, so
+    with phi_A = dE/dQ at qA
+
+        E[qB] - E[qA] = sum_i dq_i (dE/dq_i)[qA] + E[dq]:
+
+    one spread of qA, one solve, one gather on the perturbed atoms and the
+    small E[dq] mesh term, with no difference of two large energies.  No
+    gradient is taken (call it under torch.no_grad())."""
+    beta = st.beta
+
+    def slope_fn(x, box):
+        if not st.fep_q:
+            return torch.zeros((), dtype=x.dtype, device=x.device)
+        influence = st.influence(x.dtype)
+        qa, qb, dq = st.qa.to(x.dtype), st.qb.to(x.dtype), st.dq.to(x.dtype)
+        grid = _spread_dispatch(x, box, qa, st.grid_shape, st.order)
+        _, phi = energy_and_potential(grid, box, beta, influence)
+        xp = x[st.pert_idx].contiguous()
+        _, dEdq = phi_gather(xp, box, dq, phi, st.grid_shape, st.order)
+        mesh = torch.sum(dEdq * dq) + reciprocal_energy(
+            xp, box, dq, st.grid_shape, beta, st.order, influence)
+        # self and net-charge terms of E[qB] - E[qA], in difference form
+        e_self = -ONE_4PI_EPS0 * beta / math.sqrt(math.pi) * torch.sum(
+            dq * (qa + qb)[st.pert_idx])
+        e_net = (-ONE_4PI_EPS0 * math.pi
+                 / (2.0 * beta ** 2 * pbc_mod.box_volume(box))
+                 * torch.sum(dq) * (torch.sum(qa) + torch.sum(qb)))
+        return mesh + e_self + e_net
+
+    return slope_fn
+
+
+def make_pme_recip_fns(system: System, params: MdParams, grid_shape=None):
+    """(energy_fn, force_fn, slope_fn) on one shared setup: the pair of
+    make_pme_recip_pair plus _recip_slope_fn for the foreign-lambda
+    sweep."""
+    st = _RecipSetup(system, params, grid_shape)
+    return _recip_energy_fn(st), _recip_force_fn(st), _recip_slope_fn(st)
 
 
 def make_pme_recip_pair(system: System, params: MdParams, grid_shape=None):
@@ -264,27 +357,31 @@ def make_pme_recip_pair(system: System, params: MdParams, grid_shape=None):
     box, lam_c) -> (E, F, dvdl_c) runs the kernels on the lambda-mixed grid
     plus the exact lambda(1-lambda) E[dq] correction (energy, its autograd
     force on the perturbed atoms, and its dvdl)."""
-    st = _RecipSetup(system, params, grid_shape)
-    energy_fn = _recip_energy_fn(st)
+    return make_pme_recip_fns(system, params, grid_shape)[:2]
+
+
+def _recip_force_fn(st: _RecipSetup):
     beta = st.beta
 
     def force_fn(x, box, lam_c):
         vol = pbc_mod.box_volume(box)
         if not st.fep_q:
             e_grid, f, _ = reciprocal_energy_force(
-                x, box, st.qa, st.grid_shape, beta, st.order, st.influence)
+                x, box, st.qa, st.grid_shape, beta, st.order,
+                st.influence(x.dtype))
             e = (e_grid + self_energy(st.qa, beta)
                  + net_charge_energy(st.qa, beta, vol))
             return e, f, torch.zeros((), dtype=x.dtype, device=x.device)
         qmix = ((1.0 - lam_c) * st.qa + lam_c * st.qb).contiguous()
         e_grid, f, dEdq = reciprocal_energy_force(
-            x, box, qmix, st.grid_shape, beta, st.order, st.influence)
+            x, box, qmix, st.grid_shape, beta, st.order,
+            st.influence(x.dtype))
         e = (e_grid + self_energy(qmix, beta)
              + net_charge_energy(qmix, beta, vol))
         xp = x[st.pert_idx].detach().requires_grad_(True)
         with torch.enable_grad():
             e_kk = reciprocal_energy(xp, box, st.dq, st.grid_shape, beta,
-                                     st.order, st.influence)
+                                     st.order, st.influence(x.dtype))
             (g_kk,) = torch.autograd.grad(e_kk, xp)
         e_kk = e_kk.detach()
         e_dd = (e_kk + self_energy(st.dq, beta)
@@ -300,4 +397,4 @@ def make_pme_recip_pair(system: System, params: MdParams, grid_shape=None):
         dvdl = dvdl + (1.0 - 2.0 * lam_c) * e_dd
         return e, f, dvdl
 
-    return energy_fn, force_fn
+    return force_fn

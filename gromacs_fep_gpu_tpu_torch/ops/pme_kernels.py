@@ -1,20 +1,24 @@
-"""PME charge spread (K2) and potential gather (K3) — PyTorch/CUDA
+"""PME charge spread (K2, K4) and potential gather (K3, K5) — PyTorch/CUDA
 counterpart of gromacs_fep_gpu_tpu/ops/pme_blocked.py (_w4,
 _spread_kernel / blocked_spread_pallas, _gather_kernel /
-blocked_phi_gather_pallas).
+blocked_phi_gather_pallas) and of gromacs_fep_gpu_tpu/ops/pme_pallas.py
+(_spread_kernel / spread_charges_pallas, _gather_kernel /
+phi_gather_pallas).
 
 The Hopper kernels (csrc/pme_spline.cu) work per atom on the global grid,
-so the TPU design's atom bucketing (build_pme_blocks), block windows and
-overlap-add fold are not needed: `spread` returns the folded (K1, K2, K3)
-grid directly and `gather` reads each atom's 4x4x4 support.  An atom with a
-non-finite grid coordinate poisons the result with NaN (the fail-hard rule
-of blocked_spread) instead of being dropped.
+so the TPU designs' atom bucketing (build_pme_blocks), block windows and
+overlap-add fold (K2/K3), and whole-grid one-hot matmuls in three bf16
+passes (K4/K5), are not needed: `spread` returns the folded (K1, K2, K3)
+grid directly and `gather` reads each atom's 4x4x4 support, at any atom
+count.  An atom with a non-finite grid coordinate poisons the result with
+NaN (the fail-hard rule of blocked_spread) instead of being dropped.
 
 Dispatch is by device: CPU tensors take the plain PyTorch versions, CUDA
 tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
+import collections
 from typing import Tuple
 
 import torch
@@ -22,8 +26,9 @@ import torch
 from ..core import pbc as pbc_mod
 from . import cuda_lib
 
-# launches of the CUDA kernels
-launches = {"spread": 0, "gather": 0}
+# launches of the CUDA kernels, keyed by (kernel, grid shape): the grid
+# shape tells the paths of different system sizes apart
+launches = collections.Counter()
 
 
 def _w4(w):
@@ -108,7 +113,7 @@ def spread_cuda(x, box, q, grid_shape) -> torch.Tensor:
         x.data_ptr(), q.data_ptr(), box.data_ptr(), grid.data_ptr(),
         x.shape[0], K1, K2, K3, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(code, "pme_spread")
-    launches["spread"] += 1
+    launches["spread", (K1, K2, K3)] += 1
     return grid
 
 
@@ -125,12 +130,13 @@ def gather_cuda(x, box, q, phi) -> torch.Tensor:
         out.data_ptr(), x.shape[0], K1, K2, K3,
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(code, "pme_gather")
-    launches["gather"] += 1
+    launches["gather", (K1, K2, K3)] += 1
     return out
 
 
 def spread(x, box, q, grid_shape) -> torch.Tensor:
-    """Folded (K1, K2, K3) order-4 charge grid (blocked_spread_pallas)."""
+    """Folded (K1, K2, K3) order-4 charge grid (blocked_spread_pallas,
+    spread_charges_pallas)."""
     if x.device.type == "cpu":
         return spread_plain(x, box, q, grid_shape)
     return spread_cuda(x, box, q, grid_shape)
@@ -138,7 +144,7 @@ def spread(x, box, q, grid_shape) -> torch.Tensor:
 
 def gather(x, box, q, phi, grid_shape) -> Tuple[torch.Tensor, torch.Tensor]:
     """(forces, dE/dq) from the potential grid phi = dE/dQ
-    (blocked_phi_gather_pallas)."""
+    (blocked_phi_gather_pallas, phi_gather_pallas)."""
     out = (gather_plain(x, box, q, phi) if x.device.type == "cpu"
            else gather_cuda(x, box, q, phi))
     binv = pbc_mod.inv3(box)

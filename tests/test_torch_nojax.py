@@ -1,6 +1,6 @@
 """The port stands alone: with jax (and the JAX package) made unimportable,
-every module of gromacs_fep_gpu_tpu_torch imports and one MD step runs on
-the CPU.  Run in a subprocess so this test's own interpreter, which has
+every module of gromacs_fep_gpu_tpu_torch imports, and one MD step and a
+two-step lambda window with its dhdl.xvg and BAR run on the CPU.  Run in a subprocess so this test's own interpreter, which has
 JAX loaded, does not hide a stray import."""
 import os
 import subprocess
@@ -10,7 +10,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys, tempfile
 for name in ("jax", "jaxlib", "flax", "gromacs_fep_gpu_tpu"):
     sys.modules[name] = None        # any import of them raises ImportError
 import torch
@@ -19,6 +19,9 @@ import gromacs_fep_gpu_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+for m in ("ops.nonbonded_ref", "ops.forces", "ops.foreign", "io.xvgio",
+          "analysis.bar", "analysis.mbar", "parallel.ensemble"):
+    assert pkg.__name__ + "." + m in mods, m
 from gromacs_fep_gpu_tpu_torch.core.types import (CoulombType, FepParams,
                                                   MdParams)
 from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
@@ -34,6 +37,35 @@ runner = MdRunner(system, params, RunnerConfig(super_nnbr=128,
 state, logs = runner.run(state, 1)
 assert state.step == 1 and bool(torch.isfinite(state.x).all())
 assert bool(torch.isfinite(logs[0].epot).all())
+# a lambda window with a ladder: Delta H -> dhdl.xvg -> BAR
+import numpy as np
+from gromacs_fep_gpu_tpu_torch.analysis.bar import bar_profile
+from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg, write_dhdl_xvg
+from gromacs_fep_gpu_tpu_torch.md.runner import concat_logs
+from gromacs_fep_gpu_tpu_torch.parallel.ensemble import lambda_schedule
+ladder = lambda_schedule(3)
+rows, idx = [], []
+with tempfile.TemporaryDirectory() as tmp:
+    for w in (0, 1):
+        st = state.replace(lam=torch.tensor(ladder[w]), fep_state=w, step=0)
+        runner = MdRunner(system, params.replace(
+            fep=FepParams(enabled=True, sc_alpha=0.5, sc_coul=True,
+                          nstdhdl=1)),
+            RunnerConfig(super_nnbr=128, fep_max_nbr=128),
+            all_lambda=ladder)
+        _, logs = runner.run(st, 2)
+        lg = concat_logs(logs)
+        path = os.path.join(tmp, "w%d.dhdl.xvg" % w)
+        write_dhdl_xvg(path, np.arange(2) * params.dt, lg.dvdl.numpy(),
+                       lg.delta_h.numpy(), ladder, w)
+        data, legends = read_xvg(path)
+        assert data.shape == (2, 1 + 3 + 3) and len(legends) == 6
+        assert float(np.abs(data[:, 4 + w]).max()) == 0.0
+        rows.append(data[:, 4:])
+        idx.append(np.full(2, w))
+legs, total, err = bar_profile(np.concatenate(rows), np.concatenate(idx),
+                               300.0, skip_frac=0.0)
+assert np.isfinite(legs[0][0]) and np.isnan(legs[1][0])
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")
             and sys.modules[m] is not None]
 print("OK", len(mods))
@@ -46,7 +78,7 @@ def test_port_imports_and_steps_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_mods = int(r.stdout.split()[-1])
-    assert n_mods >= 20
+    assert n_mods >= 30
 
 
 def test_default_device_is_cuda_without_fallback():

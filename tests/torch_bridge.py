@@ -17,11 +17,14 @@ def system_arrays(js) -> dict:
              settle_d_oh=np.asarray(js.settle.d_oh),
              settle_d_hh=np.asarray(js.settle.d_hh),
              settle_mask=np.asarray(js.settle.mask))
-    for name, il in js.bonded.items():
-        d[f"bonded_{name}_atoms"] = np.asarray(il.atoms)
-        d[f"bonded_{name}_params_a"] = np.asarray(il.params_a)
-        d[f"bonded_{name}_params_b"] = np.asarray(il.params_b)
-        d[f"bonded_{name}_mask"] = np.asarray(il.mask)
+    lists = {f"bonded_{name}": il for name, il in js.bonded.items()}
+    if js.pairs14.n > 0:
+        lists["pairs14"] = js.pairs14
+    for prefix, il in lists.items():
+        d[f"{prefix}_atoms"] = np.asarray(il.atoms)
+        d[f"{prefix}_params_a"] = np.asarray(il.params_a)
+        d[f"{prefix}_params_b"] = np.asarray(il.params_b)
+        d[f"{prefix}_mask"] = np.asarray(il.mask)
     return d
 
 
@@ -31,7 +34,8 @@ def state_arrays(jst) -> dict:
 
 def to_port(js, jst, device="cpu"):
     """(System, State) of the port on the JAX pytrees' exact values."""
-    return from_numpy(system_arrays(js), state_arrays(jst), device)
+    st = dict(state_arrays(jst), fep_state=int(jst.fep_state))
+    return from_numpy(system_arrays(js), st, device)
 
 
 def t(a, dtype=None):
