@@ -35,7 +35,20 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    written and read back and BAR's estimate of the 10 -> 11 leg printed;
 8. K4/K5: spread and phi_gather at that path's shapes against their plain
    versions, with time, bound and index_add_ time; the foreign sweep's
-   time and launch count.
+   time and launch count;
+9. NPT lambda window: from the window path's equilibrated state at window
+   10, C-rescale (isotropic, tau_p 1 ps, ref_p 1 bar, compressibility
+   4.5e-5 /bar, nstpcouple 10) with the dispersion correction (DispCorr =
+   EnerPres): 1,000 NPT steps, then windows 10 and 11 for 400 steps each
+   with a Delta H sweep every 100 steps -> dhdl.xvg -> BAR.  Each pressure
+   step runs K1's virial flavour; the launch counters must match the
+   flavour pattern exactly, the density stay in 0.90-1.10 g/cm^3 and the
+   volume of the windows within 3 % of the equilibrated one.  The step
+   and force of a pressure step ('R') are timed beside those of an 'F' and
+   an 'E' step.  K1 VF+virial is held against its
+   plain version at both paths' shapes (phases 4 and 9), and the small
+   reference (phase 2) holds the cluster route's in-force virial on the
+   card against the dense float64 oracle's strain gradient.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
@@ -58,6 +71,10 @@ N_SIDE_WINDOW = 12      # 1,727 waters + the ligand: 5,186 atoms
 N_LAMBDA = 20
 WINDOWS = (10, 11)
 WINDOW_STEPS = 400
+NPT_EQ_STEPS = 1000
+DENSITY_BAND = (0.90, 1.10)     # g/cm^3
+MAX_DV = 0.03                   # |V - V0| / V0 over the NPT windows
+AMU_PER_NM3_IN_G_PER_CM3 = 1.66053906660e-3
 EQ_STEPS = 2000        # 1 ps at dt 0.5 fs: the lattice start cools to ~300 K
 PROD_STEPS = 400
 REPS = 50               # kernel launches per timing
@@ -183,6 +200,7 @@ def _counts():
     from gromacs_fep_gpu_tpu_torch.ops import nb_v2u, pme_kernels
     out = {"nb_v2u_F": nb_v2u.launches["F"],
            "nb_v2u_VF": nb_v2u.launches["VF"],
+           "nb_v2u_VFV": nb_v2u.launches["VFV"],
            "pme_spread": 0, "pme_gather": 0,
            "pme_spread_small": 0, "pme_gather_small": 0}
     for (kind, grid), n in pme_kernels.launches.items():
@@ -199,32 +217,46 @@ def _zero_counts():
 
 def _expected_counts(runner, start_step, nsteps):
     """Launches that the flavour pattern predicts: K1 once per step (VF on
-    the energy steps 'E' and 'D'), spread and gather once per step that is
-    not an MTS off-step, and per foreign sweep ('D') two more spreads (qA
-    of all atoms, dq of the perturbed ones) and one more gather."""
+    the energy steps 'E' and 'D', VF+virial on the pressure steps 'R' and
+    'S'), spread and gather once per step that is not an MTS off-step (a
+    pressure step's reciprocal virial reuses its force pass's grid), and
+    per foreign sweep ('D', 'S') two more spreads (qA of all atoms, dq of
+    the perturbed ones) and one more gather."""
     pat = runner._flavor_pattern(start_step, nsteps)
-    n_d = pat.count("D")
+    n_d = pat.count("D") + pat.count("S")
     sfx = _pme_suffix(runner.params.pme_grid)
     out = dict.fromkeys(("pme_spread", "pme_gather", "pme_spread_small",
                          "pme_gather_small"), 0)
     out.update({"nb_v2u_F": pat.count("F") + pat.count("f"),
-                "nb_v2u_VF": pat.count("E") + n_d,
+                "nb_v2u_VF": pat.count("E") + pat.count("D"),
+                "nb_v2u_VFV": pat.count("R") + pat.count("S"),
                 "pme_spread" + sfx: nsteps - pat.count("f") + 2 * n_d,
                 "pme_gather" + sfx: nsteps - pat.count("f") + n_d})
     return out
 
 
-def _drive(runner, state, nsteps, what):
+def _drive(runner, state, nsteps, what, volumes=None):
     """MdRunner.run with the counters zeroed just before and read just
-    after; checks counts, finiteness and overflow flags."""
+    after; checks counts, finiteness and overflow flags.  With a list
+    `volumes`, the run goes in calls of 100 steps and the box volume after
+    each is appended to it."""
     from gromacs_fep_gpu_tpu_torch.md.runner import concat_logs
     expected = _expected_counts(runner, state.step, nsteps)
+    piece = nsteps if volumes is None else 100
     torch.cuda.synchronize()
     _zero_counts()
     t0 = time.perf_counter()
-    state, logs = runner.run(state, nsteps)
+    logs, done = [], 0
+    while done < nsteps:
+        state, lg = runner.run(state, min(piece, nsteps - done))
+        logs += lg
+        done += min(piece, nsteps - done)
+        if volumes is not None:
+            volumes.append(torch.prod(torch.diagonal(state.box)))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    if volumes is not None:
+        volumes[:] = [float(v) for v in volumes]
     counts = _counts()
     if counts != expected:
         raise AssertionError(f"{what}: launches {counts}, expected "
@@ -232,9 +264,10 @@ def _drive(runner, state, nsteps, what):
     lg = concat_logs(logs)
     on = torch.isfinite(lg.epot)
     n_on = int(on.sum())
-    if n_on != expected["nb_v2u_VF"]:
+    n_ener = expected["nb_v2u_VF"] + expected["nb_v2u_VFV"]
+    if n_on != n_ener:
         raise AssertionError(f"{what}: {n_on} energy steps, expected "
-                             f"{expected['nb_v2u_VF']}")
+                             f"{n_ener}")
     if n_on and not bool(torch.isfinite(lg.dvdl[on]).all()):
         raise AssertionError(f"{what}: non-finite dV/dlambda")
     if not bool(torch.isfinite(state.x).all() & torch.isfinite(
@@ -340,12 +373,72 @@ def phase_small_reference(device):
     if not o_rel <= E_REL:
         raise AssertionError("Delta H disagrees with the dense oracle")
 
+    # the in-force virial of a pressure step (K1 VF+virial, strain
+    # gradient of the cheap terms, reciprocal strain derivative on the
+    # force pass's grid) with the dispersion correction on, on the GPU's
+    # final frame, against the strain gradient of the whole dense potential
+    # in float64 on the CPU; gate 2e-4 of max |Xi_aa| (the JAX package's,
+    # tests/test_virial.py)
+    from gromacs_fep_gpu_tpu_torch.md.simulator import make_pressure_fn
+    from gromacs_fep_gpu_tpu_torch.ops import nb_v2u, pme_kernels
+    vparams = params.replace(dispcorr=True)
+    vrun = MdRunner(run_g.system, vparams, RunnerConfig(
+        super_nnbr=128, fep_max_nbr=128, baked_shifts=False))
+    nlist, feplist, prep, _ = vrun.rebuild(sg)
+    torch.cuda.synchronize()
+    _zero_counts()
+    _, terms = vrun._force_fn(sg.x, sg.box, sg.lam, nlist, feplist, prep,
+                              need_virial=True)
+    torch.cuda.synchronize()
+    k1, pme_by_kind = dict(nb_v2u.launches), {}
+    for (kind, _), n in pme_kernels.launches.items():
+        pme_by_kind[kind] = pme_by_kind.get(kind, 0) + n
+    if (k1, pme_by_kind) != ({"F": 0, "VF": 0, "VFV": 1},
+                             {"spread": 1, "gather": 1}):
+        raise AssertionError(f"a pressure step's force launched {k1}, "
+                             f"{pme_by_kind}: expected one K1 VF+virial, "
+                             "one spread and one gather")
+    vir_k = terms.vir_diag.cpu().double()
+
+    def epot(x, box, lam):
+        return dense_energy(x, box, lam, run_c.system, vparams, beta,
+                            run_c.recip_fn).epot
+    _, _, vir_o = make_pressure_fn(epot)(
+        x64, box64, sg.lam.cpu().double(), torch.zeros_like(x64),
+        run_c.system.mass_a.double())
+    v_rel, v_abs = _rel(vir_k, vir_o)
+    _say(f"virial, cluster route on the GPU (float32, K1 VF+virial) vs "
+         f"dense oracle (float64): {[round(float(v), 3) for v in vir_k]} "
+         f"vs {[round(float(v), 3) for v in vir_o]} kJ/mol, rel "
+         f"{v_rel:.2e} (abs {v_abs:.2e})")
+    if not v_rel <= 2e-4:
+        raise AssertionError("the in-force virial disagrees with the dense "
+                             "oracle")
+
 
 def phase_kernels(runner, state, timer):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes
+    (K1 F and VF, which the path runs, and K1 VF+virial, checked here at
+    these shapes as well; its row comes from the NPT path's shapes)."""
+    rows = _k1_kernel_rows(runner, state, timer, ("F", "VF", "VFV"))
+    rows = [r for r in rows if r["name"] != "nb_v2u_VFV"]
+    system, params = runner.system, runner.params
+    lam_c = float(state.lam[2])
+    q = ((1.0 - lam_c) * system.charge_a + lam_c * system.charge_b
+         ).contiguous()
+    rows += _pme_kernel_rows(state.x, state.box, q, params, timer,
+                             small=False)
+    return rows
+
+
+def _k1_kernel_rows(runner, state, timer, flavours):
+    """K1 in each flavour ('F', 'VF', 'VFV') against its plain version on
+    one frame of `runner`'s path.  Gates: forces rel 5e-4, energies rel
+    1e-4, the virial Xi_aa = -1/4 sum of the per-block partials (float64
+    sum) rel 1e-4 of max |Xi_aa|."""
     from gromacs_fep_gpu_tpu_torch.ops import nb_v2u
     from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
-    params, system = runner.params, runner.system
+    params = runner.params
     x, box = state.x, state.box
     nlist, _, prep, fl = runner.rebuild(state)
     if fl["shift_bad"]:
@@ -364,38 +457,51 @@ def phase_kernels(runner, state, timer):
     live_groups = int(prep.ng.sum())
     ixyz = [p.reshape(S, -1, 1) for p in ip]
     bit = torch.arange(32, device=x.device, dtype=torch.int32).reshape(1, -1, 1)
+    bl = torch.diagonal(box)
     for g in range(G):
         pair = ((prep.pair_m[:, g, None, :] >> bit) & 1).bool() \
             & (g < prep.ng)[:, None, None]
-        r2 = sum((ixyz[d] - jp[d][:, g, None, :]) ** 2 for d in range(3))
+        d = [ixyz[a] - jp[a][:, g, None, :] for a in range(3)]
+        if prep.shift is None:      # the in-kernel minimum image
+            d = [d[a] - torch.round(d[a] / bl[a]) * bl[a] for a in range(3)]
+        r2 = sum(da * da for da in d)
         n_pairs += int((pair & (r2 < consts.rc2)).sum())
     k1_bytes = (6 * S * 32 + 8 * live_groups * 256 + S) * 4 + 36 \
         + (3 * S * 32 + 2 * S) * 4
-    for energy in (False, True):
-        name = "nb_v2u_VF" if energy else "nb_v2u_F"
+    for flavour in flavours:
+        name = "nb_v2u_" + flavour
+        energy, virial = flavour != "F", flavour == "VFV"
 
-        def kern(e=energy):
-            return nb_v2u.nb_v2u_cuda(ip, jp, box, prep, consts, e)
+        def kern(e=energy, v=virial):
+            return nb_v2u.nb_v2u_cuda(ip, jp, box, prep, consts, e, v)
 
-        def plain(e=energy):
-            return nb_v2u.nb_v2u_plain(ip, jp, box, prep, consts, e)
+        def plain(e=energy, v=virial):
+            return nb_v2u.nb_v2u_plain(ip, jp, box, prep, consts, e, v)
         fk, fp = kern(), plain()
         torch.cuda.synchronize()
         f_k = torch.stack(fk[:3], -1)
         f_p = torch.stack(fp[:3], -1)
         f_rel, f_abs = _rel(f_k, f_p)
-        e_rel = 0.0
+        e_rel = v_rel = 0.0
         if energy:
-            ek, ep = 0.5 * fk[3].sum(0), 0.5 * fp[3].sum(0)
+            ek, ep = 0.5 * fk[3][:, :2].sum(0), 0.5 * fp[3][:, :2].sum(0)
             e_rel = float(((ek - ep).abs() / ep.abs()).max())
-        ok = f_rel <= F_REL and e_rel <= E_REL
+        if virial:
+            vk, vp = (-0.25 * e[3][:, 2:5].double().sum(0) for e in (fk, fp))
+            v_rel, v_abs = _rel(vk, vp)
+            f_abs = max(f_abs, v_abs)
+        ok = f_rel <= F_REL and e_rel <= E_REL and v_rel <= E_REL
         ms = timer.ms(kern)
         plain_ms = _median_ms(plain, reps=3)
-        bound, by = _bound_ms(k1_bytes, n_pairs * FLOPS_PAIR)
-        _say(f"{name}: S={S} G={G} live groups {live_groups} pairs in "
-             f"cut-off {n_pairs}; F rel {f_rel:.2e}, E rel {e_rel:.2e} -> "
+        # the virial flavour writes 3 more floats per block and does 9
+        # more flops per pair
+        bound, by = _bound_ms(k1_bytes + (12 * S if virial else 0),
+                              n_pairs * (FLOPS_PAIR + (9 if virial else 0)))
+        _say(f"{name} ({x.shape[0]:,} atoms): S={S} G={G} live "
+             f"groups {live_groups} pairs in cut-off {n_pairs}; F rel "
+             f"{f_rel:.2e}, E rel {e_rel:.2e}, virial rel {v_rel:.2e} -> "
              f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (plain {plain_ms:.3f} "
-             f"ms, bound {bound:.4f} ms by {by})")
+             f"ms, bound {bound:.5f} ms by {by})")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         rows.append(dict(
@@ -404,11 +510,6 @@ def phase_kernels(runner, state, timer):
             replaces="gromacs_fep_gpu_tpu/ops/pallas_nb.py:1107",
             max_abs_err=f_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=by, library_ms=None))
-
-    lam_c = float(state.lam[2])
-    q = ((1.0 - lam_c) * system.charge_a + lam_c * system.charge_b
-         ).contiguous()
-    rows += _pme_kernel_rows(x, box, q, params, timer, small=False)
     return rows
 
 
@@ -586,16 +687,91 @@ def phase_profile(runner, state, nsteps, ms_step):
         for e in cpu[:8]))
 
 
-def phase_window(device, timer, smi):
-    """The lambda-window free-energy run at full width: 5,186 atoms, a
-    20-window ladder, windows 10 and 11.  Returns the K4/K5 rows with their
-    launches on this path, and this path's K1 launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _run_windows(runner_for, start, params, ladder, smi, what,
+                 volumes=None):
+    """Windows WINDOWS, each WINDOW_STEPS from `start` (set to the window)
+    through _drive, with their checks: Delta H finite on exactly the sweep
+    steps, own window ~0, temperature in its band; dhdl.xvg of each window
+    written and read back; BAR of the leg printed.  Returns (launches
+    summed over the windows, the last window's final state, its log)."""
     from gromacs_fep_gpu_tpu_torch.analysis.bar import bar_profile
     from gromacs_fep_gpu_tpu_torch.core.units import BOLTZ
     from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg, write_dhdl_xvg
+    device = start.x.device
+    total = {}
+    dh_rows, idx_rows, ti = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for w in WINDOWS:
+            runner = runner_for(seed=w)
+            state, lg, sec, counts = _drive(
+                runner, start.replace(
+                    lam=torch.tensor(ladder[w], device=device), fep_state=w,
+                    step=0), WINDOW_STEPS, f"{what} {w}", volumes)
+            pat = runner._flavor_pattern(0, WINDOW_STEPS)
+            swept = torch.tensor([c in "DS" for c in pat], device=device)
+            dh = lg.delta_h
+            if dh.shape != (WINDOW_STEPS, N_LAMBDA) or not torch.equal(
+                    torch.isfinite(dh), swept[:, None].expand_as(dh)):
+                raise AssertionError(f"{what} {w}: Delta H is not finite on "
+                                     "exactly the sweep steps")
+            own = float(dh[swept][:, w].abs().max())
+            t_lo, t_hi = float(lg.temp.min()), float(lg.temp.max())
+            ms_step = sec / WINDOW_STEPS * 1e3
+            ns_day = WINDOW_STEPS * params.dt / 1000.0 / sec * 86400.0
+            flavours = {c: pat.count(c) for c in sorted(set(pat))}
+            _say(f"{what} {w} (MTS2, dt 2 fs, {int(swept.sum())} sweeps of "
+                 f"{N_LAMBDA}): {WINDOW_STEPS} steps, {ms_step:.3f} ms/step, "
+                 f"{ns_day:.2f} ns/day on {smi}; flavours {flavours}; "
+                 f"launches {counts}; regrows {runner.n_regrow}; T "
+                 f"{t_lo:.1f}..{t_hi:.1f} K; own-window |Delta H| "
+                 f"{own:.2e}; Delta H to the neighbours "
+                 f"{[[round(float(v), 3) for v in r] for r in dh[swept][:, w - 1:w + 2]]}")
+            if own > 1e-3:
+                raise AssertionError(f"{what} {w}: own-window Delta H {own}")
+            if not (TEMP_BAND[0] <= t_lo and t_hi <= TEMP_BAND[1]):
+                raise AssertionError(f"{what} {w}: temperature left "
+                                     f"{TEMP_BAND} K: {t_lo:.1f}..{t_hi:.1f}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            # dhdl.xvg of the sweep steps, written and read back
+            path = f"{tmp}/window{w}.dhdl.xvg"
+            times = torch.nonzero(swept)[:, 0].cpu().numpy() * params.dt
+            write_dhdl_xvg(path, times, lg.dvdl[swept].cpu().numpy(),
+                           dh[swept].cpu().numpy(), ladder, w,
+                           temperature=params.ref_t)
+            data, legends = read_xvg(path)
+            if data.shape != (int(swept.sum()), 1 + 3 + N_LAMBDA) \
+                    or len(legends) != 3 + N_LAMBDA:
+                raise AssertionError(f"{what} {w}: dhdl.xvg came back as "
+                                     f"{data.shape}, {len(legends)} legends")
+            dh_rows.append(data[:, 4:])
+            idx_rows.append([w] * data.shape[0])
+            ti.append(float(data[:, 1:4].sum(1).mean()))
+    with warnings.catch_warnings():
+        # only two of the twenty windows were run: the other legs are empty
+        warnings.simplefilter("ignore", UserWarning)
+        legs, _, _ = bar_profile(np.concatenate(dh_rows),
+                                 np.concatenate(idx_rows), params.ref_t,
+                                 skip_frac=0.0)
+    dg, err = legs[WINDOWS[0]]
+    dlam = float(ladder[WINDOWS[1], 2] - ladder[WINDOWS[0], 2])
+    _say(f"{what}: free energy of the leg {WINDOWS[0]} -> {WINDOWS[1]} from "
+         f"{len(idx_rows[0])} + {len(idx_rows[1])} samples (a print, not a "
+         f"gate): BAR {dg:.4f} +- {err:.4f} kJ/mol; <dV/dl> dlambda "
+         f"{0.5 * (ti[0] + ti[1]) * dlam:.4f} kJ/mol (kT "
+         f"{BOLTZ * params.ref_t:.3f})")
+    return total, state, lg
+
+
+def phase_window(device, timer, smi):
+    """The lambda-window free-energy run at full width: 5,186 atoms, a
+    20-window ladder, windows 10 and 11.  Returns the K4/K5 rows with their
+    launches on this path, this path's launches, and (system, the
+    equilibrated state at window 10, the list capacities) for the NPT
+    phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
     from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
     from gromacs_fep_gpu_tpu_torch.parallel.ensemble import lambda_schedule
@@ -636,64 +812,8 @@ def phase_window(device, timer, smi):
     rows = _pme_kernel_rows(eq_state.x, eq_state.box, q, params, timer,
                             small=True)
 
-    total = {}
-    dh_rows, idx_rows, ti = [], [], []
-    with tempfile.TemporaryDirectory() as tmp:
-        for w in WINDOWS:
-            runner = runner_for(seed=w)
-            state, lg, sec, counts = _drive(
-                runner, at_window(eq_state, w), WINDOW_STEPS, f"window {w}")
-            pat = runner._flavor_pattern(0, WINDOW_STEPS)
-            swept = torch.tensor([c == "D" for c in pat], device=device)
-            dh = lg.delta_h
-            if dh.shape != (WINDOW_STEPS, N_LAMBDA) or not torch.equal(
-                    torch.isfinite(dh), swept[:, None].expand_as(dh)):
-                raise AssertionError(f"window {w}: Delta H is not finite on "
-                                     "exactly the sweep steps")
-            own = float(dh[swept][:, w].abs().max())
-            t_lo, t_hi = float(lg.temp.min()), float(lg.temp.max())
-            ms_step = sec / WINDOW_STEPS * 1e3
-            ns_day = WINDOW_STEPS * params.dt / 1000.0 / sec * 86400.0
-            _say(f"window {w} (MTS2, dt 2 fs, {int(swept.sum())} sweeps of "
-                 f"{N_LAMBDA}): {WINDOW_STEPS} steps, {ms_step:.3f} ms/step, "
-                 f"{ns_day:.2f} ns/day on {smi}; launches {counts}; regrows "
-                 f"{runner.n_regrow}; T {t_lo:.1f}..{t_hi:.1f} K; own-window "
-                 f"|Delta H| {own:.2e}; Delta H to the neighbours "
-                 f"{[[round(float(v), 3) for v in r] for r in dh[swept][:, w - 1:w + 2]]}")
-            if own > 1e-3:
-                raise AssertionError(f"window {w}: own-window Delta H {own}")
-            if not (TEMP_BAND[0] <= t_lo and t_hi <= TEMP_BAND[1]):
-                raise AssertionError(f"window {w}: temperature left "
-                                     f"{TEMP_BAND} K: {t_lo:.1f}..{t_hi:.1f}")
-            for k, v in counts.items():
-                total[k] = total.get(k, 0) + v
-            # dhdl.xvg of the sweep steps, written and read back
-            path = f"{tmp}/window{w}.dhdl.xvg"
-            times = torch.nonzero(swept)[:, 0].cpu().numpy() * params.dt
-            write_dhdl_xvg(path, times, lg.dvdl[swept].cpu().numpy(),
-                           dh[swept].cpu().numpy(), ladder, w,
-                           temperature=params.ref_t)
-            data, legends = read_xvg(path)
-            if data.shape != (int(swept.sum()), 1 + 3 + N_LAMBDA) \
-                    or len(legends) != 3 + N_LAMBDA:
-                raise AssertionError(f"window {w}: dhdl.xvg came back as "
-                                     f"{data.shape}, {len(legends)} legends")
-            dh_rows.append(data[:, 4:])
-            idx_rows.append([w] * data.shape[0])
-            ti.append(float(data[:, 1:4].sum(1).mean()))
-    with warnings.catch_warnings():
-        # only two of the twenty windows were run: the other legs are empty
-        warnings.simplefilter("ignore", UserWarning)
-        legs, _, _ = bar_profile(np.concatenate(dh_rows),
-                                 np.concatenate(idx_rows), params.ref_t,
-                                 skip_frac=0.0)
-    dg, err = legs[WINDOWS[0]]
-    dlam = float(ladder[WINDOWS[1], 2] - ladder[WINDOWS[0], 2])
-    _say(f"free energy of the leg {WINDOWS[0]} -> {WINDOWS[1]} from "
-         f"{len(idx_rows[0])} + {len(idx_rows[1])} samples (a print, not a "
-         f"gate): BAR {dg:.4f} +- {err:.4f} kJ/mol; <dV/dl> dlambda "
-         f"{0.5 * (ti[0] + ti[1]) * dlam:.4f} kJ/mol (kT "
-         f"{BOLTZ * params.ref_t:.3f})")
+    total, state, _ = _run_windows(runner_for, eq_state, params, ladder, smi,
+                                   "window")
 
     # the foreign sweep alone: time and launches
     runner = runner_for(seed=0)
@@ -711,6 +831,119 @@ def phase_window(device, timer, smi):
          f"ms, on {smi}")
     for r in rows:
         r["launches"] = total[r["name"]]
+    caps = (eq.config.super_nnbr, eq.config.fep_max_nbr)
+    return rows, total, (system, eq_state, caps)
+
+
+def phase_npt(timer, smi, system, eq_state, caps):
+    """The NPT lambda window at full width: the window path's system and
+    parameters with C-rescale and the dispersion correction (the GROMACS
+    free-energy tutorial's NPT settings with DispCorr = EnerPres), from its
+    equilibrated state at window 10: NPT_EQ_STEPS steps, then windows 10
+    and 11.  Gates: exact launches (checked by _drive against the flavour
+    pattern, and the pattern against the expected flavour counts: per
+    window S 4, R 36, F 160, f 200; equilibration R 100, F 400, f 500),
+    finite values, density in DENSITY_BAND at every sample, and the
+    windows' volumes within MAX_DV of V_eq, the volume after the NPT
+    equilibration.  The NVT-equilibrated start is ~2 % denser than TIP3P
+    at 1 bar with the tail correction; the 1,000 NPT steps relax it, and
+    the drift from the NVT volume is printed, not gated.  Returns the K1
+    VF+virial row (measured at this path's shapes) and the launches."""
+    from gromacs_fep_gpu_tpu_torch.core.types import PcouplType
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    from gromacs_fep_gpu_tpu_torch.parallel.ensemble import lambda_schedule
+
+    ladder = lambda_schedule(N_LAMBDA)
+    params = _params(mts=True, n_side=N_SIDE_WINDOW).replace(
+        pcoupl=PcouplType.C_RESCALE, pcoupltype="isotropic", tau_p=1.0,
+        ref_p=1.0, compressibility=4.5e-5, nstpcouple=10, dispcorr=True)
+    mass = float(system.mass_a.sum())
+
+    def density(vol):
+        return mass / vol * AMU_PER_NM3_IN_G_PER_CM3
+
+    def runner_for(seed, all_lambda=ladder):
+        return MdRunner(system, params, RunnerConfig(
+            super_nnbr=caps[0], fep_max_nbr=caps[1], seed=seed),
+            all_lambda=all_lambda)
+    v0 = float(torch.prod(torch.diagonal(eq_state.box)))
+    _say(f"NPT window: {system.n_atoms} atoms, C-rescale tau_p "
+         f"{params.tau_p} ps, ref_p {params.ref_p} bar, compressibility "
+         f"{params.compressibility} /bar, nstpcouple {params.nstpcouple}, "
+         f"DispCorr EnerPres; V0 {v0:.4f} nm^3, density "
+         f"{density(v0):.4f} g/cm^3")
+
+    eq = runner_for(seed=100, all_lambda=None)
+    pat = eq._flavor_pattern(0, NPT_EQ_STEPS)
+    want = {"R": 100, "F": 400, "f": 500}
+    if {c: pat.count(c) for c in set(pat)} != want:
+        raise AssertionError(f"NPT equilibration flavours {pat!r}")
+    vols = []
+    state, lg, sec, counts = _drive(eq, eq_state.replace(step=0),
+                                    NPT_EQ_STEPS, "NPT equilibration", vols)
+    p_on = lg.pres[torch.isfinite(lg.pres)]
+    _say(f"NPT equilibration at window {WINDOWS[0]}: {NPT_EQ_STEPS} steps, "
+         f"{sec / NPT_EQ_STEPS * 1e3:.3f} ms/step, launches {counts}; "
+         f"volume every 100 steps {[round(v, 4) for v in vols]} nm^3; mean "
+         f"P {float(p_on.mean()):.1f} bar over {p_on.numel()} pressure "
+         f"steps")
+    if counts["nb_v2u_VFV"] != 100 or counts["nb_v2u_F"] != 900:
+        raise AssertionError(f"NPT equilibration launches {counts}")
+
+    for w in WINDOWS:
+        pat = runner_for(seed=w)._flavor_pattern(0, WINDOW_STEPS)
+        if {c: pat.count(c) for c in set(pat)} != {"S": 4, "R": 36,
+                                                   "F": 160, "f": 200}:
+            raise AssertionError(f"NPT window {w} flavours {pat!r}")
+    wvols = []
+    total, state_w, lg_w = _run_windows(runner_for, state, params, ladder,
+                                        smi, "NPT window", wvols)
+    if total["nb_v2u_VFV"] != 80 or total["nb_v2u_F"] != 720 \
+            or total["nb_v2u_VF"] != 0:
+        raise AssertionError(f"NPT windows launches {total}")
+    p_on = lg_w.pres[torch.isfinite(lg_w.pres)]
+    all_v = vols + wvols
+    v_eq = vols[-1]
+    dv = max(abs(v - v_eq) for v in wvols) / v_eq
+    rho = density(all_v[-1])
+    _say(f"NPT windows: volume every 100 steps {[round(v, 4) for v in wvols]}"
+         f" nm^3; window {WINDOWS[-1]} mean P {float(p_on.mean()):.1f} bar "
+         f"over {p_on.numel()} pressure steps; final density {rho:.4f} "
+         f"g/cm^3; max |V - V_eq| / V_eq {dv:.4f} over the windows; drift "
+         f"from the NVT volume: final {(all_v[-1] - v0) / v0:+.4f}, largest "
+         f"{max(abs(v - v0) for v in all_v) / v0:.4f}")
+    if not bool(torch.isfinite(p_on).all()) or p_on.numel() != 40:
+        raise AssertionError("NPT window: pressure not finite on exactly "
+                             "the 40 pressure steps")
+    if not DENSITY_BAND[0] <= rho <= DENSITY_BAND[1] or not all(
+            DENSITY_BAND[0] <= density(v) <= DENSITY_BAND[1] for v in all_v):
+        raise AssertionError(f"NPT density left {DENSITY_BAND} g/cm^3")
+    if dv >= MAX_DV:
+        raise AssertionError(f"NPT volume moved by {dv:.4f} of V_eq")
+
+    # the cost of a pressure step: step and force of each flavour alone
+    runner = runner_for(seed=0)
+    nlist, feplist, prep, _ = runner.rebuild(state)
+    step = runner.step_fn(nlist, feplist, prep)
+    ff, x, box, lam = runner._force_fn, state.x, state.box, state.lam
+    rs = float(params.mts_factor)
+    layers = {
+        "step R (pressure step)": lambda: step(state.replace(step=0), "R"),
+        "step F (MTS on-step)": lambda: step(state.replace(step=1), "F"),
+        "force R (energies, dV/dl, virial)": lambda: ff(
+            x, box, lam, nlist, feplist, prep, need_virial=True,
+            recip_scale=rs),
+        "force E (energies, dV/dl)": lambda: ff(
+            x, box, lam, nlist, feplist, prep, recip_scale=rs),
+        "force F": lambda: ff(x, box, lam, nlist, feplist, prep,
+                              need_energy=False, recip_scale=rs),
+    }
+    for name, fn in layers.items():
+        _say(f"  NPT layer {name}: {_median_ms(fn):.3f} ms")
+
+    # K1 VF+virial at this path's shapes, on the NPT-equilibrated frame
+    rows = _k1_kernel_rows(runner_for(seed=0), state, timer, ("VFV",))
+    rows[0]["launches"] = total["nb_v2u_VFV"]
     return rows, total
 
 
@@ -768,11 +1001,13 @@ def run(device="cuda", smi=None):
         r["launches"] = counts[r["name"]]
     phase_profile(prod, state, 2 * params.nstlist, ms_step)
 
-    window_rows, window_counts = phase_window(device, timer, smi)
+    window_rows, window_counts, npt_start = phase_window(device, timer, smi)
+    npt_rows, npt_counts = phase_npt(timer, smi, *npt_start)
     for r in rows:
-        if r["name"].startswith("nb_v2u"):    # K1 runs on both paths
+        if r["name"].startswith("nb_v2u"):    # K1 runs on every path
             r["launches_window"] = window_counts[r["name"]]
-    rows += window_rows
+            r["launches_npt"] = npt_counts[r["name"]]
+    rows += window_rows + npt_rows
     for r in rows:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never ran on its path")

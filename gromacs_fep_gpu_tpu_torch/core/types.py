@@ -4,8 +4,9 @@ State, InteractionList, SettleGroups, EnergyTerms, make_state).
 
 The flax pytrees become plain dataclasses of tensors.  Only the fields the
 solvation-FEP main path reads are kept; settings outside that path that
-MdParams does carry (integrator, thermostat, barostat, modifiers, slow
-growth) raise NotImplementedError where they are consumed.
+MdParams does carry (integrator, thermostat, the Parrinello-Rahman and MTTK
+barostats, non-isotropic pressure coupling, slow growth) raise
+NotImplementedError where they are consumed.
 
 `from_numpy` is the parameter bridge: it builds the port's System and State
 from dicts of numpy arrays (the tests fill them from the JAX pytrees with
@@ -114,6 +115,13 @@ class MdParams:
     tau_t: float = 1.0
     nsttcouple: int = 10
     pcoupl: PcouplType = PcouplType.NO
+    # isotropic only in the port; semiisotropic / anisotropic raise where
+    # the step consumes them
+    pcoupltype: str = "isotropic"
+    ref_p: float = 1.0                 # bar
+    tau_p: float = 5.0                 # ps
+    compressibility: float = 4.5e-5    # bar^-1
+    nstpcouple: int = 10
     nstcomm: int = 100
     nstcalcenergy: int = 1
     mts: bool = False
@@ -255,6 +263,9 @@ class EnergyTerms:
     restraints: torch.Tensor
     dispcorr: torch.Tensor
     dvdl: torch.Tensor
+    # (3,) diagonal potential virial Xi_aa of the force pass; zeros unless
+    # the force function ran with need_virial
+    vir_diag: Optional[torch.Tensor] = None
 
     @property
     def epot(self) -> torch.Tensor:
@@ -265,7 +276,9 @@ class EnergyTerms:
         z = torch.zeros((), device=device, dtype=dtype)
         return EnergyTerms(**{k: z for k in _ENERGY_FIELDS},
                            dvdl=torch.zeros((int(FepCoupling.COUNT),),
-                                            device=device, dtype=dtype))
+                                            device=device, dtype=dtype),
+                           vir_diag=torch.zeros((3,), device=device,
+                                                dtype=dtype))
 
     def replace(self, **kw) -> "EnergyTerms":
         return dataclasses.replace(self, **kw)

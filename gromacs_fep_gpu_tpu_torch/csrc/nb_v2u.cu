@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel gromacs_fep_gpu_tpu/ops/pallas_nb.py
 // _make_kernel_v2u (launched by pallas_cluster_forces_v2u) in its F
-// (force only) and VF (forces + energies) flavours, on the same data
+// (force only), VF (forces + energies) and VF+virial flavours, on the
+// same data
 // contract: S i-blocks of 32 atoms (4 clusters x 8), each walking ng[s]
 // groups of 256 j lanes whose coordinates arrive with the build-time
 // periodic shifts baked in; per-lane 32-bit pair and exclusion masks
@@ -13,6 +14,10 @@
 // space (erfc polynomial in VF, the pmecorrF rational fit in F), reaction
 // field or plain cutoff.  Over the full list the i-side sums are the
 // forces; the per-block energy partials are halved by the caller.
+// The virial flavour (compute_virial of the TPU kernel, pressure steps of
+// an NPT run) also sums fscal * d_a * d_a per axis a over the pairs, with
+// the same d the force uses (pre-shifted j or the folded minimum image);
+// the caller scales the per-block sums by -0.25 (pairs counted twice).
 //
 // What bounds it on the H100: by the work the list needs, bytes.  At
 // 12,290 atoms the j streams of the live groups are ~29 MB (9 us at
@@ -30,7 +35,10 @@
 // registers and accumulates three force components.  Out-of-mask and
 // out-of-cut-off pairs are skipped before the expensive math.  The 8
 // partial forces of an i atom sit in 8 consecutive lanes of one warp and
-// are reduced with shuffles; no atomics, no scratch memory.
+// are reduced with shuffles; no atomics, no scratch memory.  Energies and
+// virial sums reduce over the CTA (shuffles, then 8 warp partials in
+// shared memory) to one row per block: e_out[s*ne + 0..1] = (coulomb, lj),
+// with ne = 5 in the virial flavour and e_out[s*5 + 2..4] = (xx, yy, zz).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,7 +80,7 @@ __device__ __forceinline__ float pmecorr_f(float z2) {
   return fn0 / fd0;
 }
 
-template <bool kEnergy, int kCoul, bool kMinImage>
+template <bool kEnergy, int kCoul, bool kMinImage, bool kVirial>
 __global__ void __launch_bounds__(kLanes)
 nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
               const float* __restrict__ iz, const float* __restrict__ iq,
@@ -88,7 +96,9 @@ nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
   __shared__ float s_x[kLanes], s_y[kLanes], s_z[kLanes], s_q[kLanes];
   __shared__ float s_6[kLanes], s_12[kLanes];
   __shared__ unsigned s_pm[kLanes], s_em[kLanes];
-  __shared__ float s_red[2][kLanes / 32];
+  static_assert(kEnergy || !kVirial, "the virial rides the energy flavour");
+  constexpr int kNe = kVirial ? 5 : 2;   // floats per block in e_out
+  __shared__ float s_red[kNe][kLanes / 32];
 
   const int s = blockIdx.x;
   const int t = threadIdx.x;
@@ -110,6 +120,7 @@ nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
               ibz = kMinImage ? 1.0f / bz : 0.f;
 
   float fx = 0.f, fy = 0.f, fz = 0.f, e_c = 0.f, e_lj = 0.f;
+  float vxx = 0.f, vyy = 0.f, vzz = 0.f;
   const int ngroups = min(ng[s], G);
   for (int g = 0; g < ngroups; ++g) {
     const size_t base = ((size_t)s * G + g) * kLanes + t;
@@ -181,6 +192,11 @@ nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
                  - (c12 * c.rcinv6 * c.rcinv6 - c6 * c.rcinv6)) * in_v;
         e_c += e_pair;
       }
+      if (kVirial) {
+        vxx += fscal * dx * dx;
+        vyy += fscal * dy * dy;
+        vzz += fscal * dz * dz;
+      }
     }
   }
 
@@ -197,24 +213,26 @@ nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
     fz_out[ii] = fz;
   }
   if (kEnergy) {
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      e_c += __shfl_xor_sync(0xffffffffu, e_c, off);
-      e_lj += __shfl_xor_sync(0xffffffffu, e_lj, off);
+    float part[kNe];
+    part[0] = e_c;
+    part[1] = e_lj;
+    if constexpr (kVirial) {
+      part[2] = vxx;
+      part[3] = vyy;
+      part[4] = vzz;
     }
-    if (t % 32 == 0) {
-      s_red[0][t / 32] = e_c;
-      s_red[1][t / 32] = e_lj;
+#pragma unroll
+    for (int k = 0; k < kNe; ++k) {
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        part[k] += __shfl_xor_sync(0xffffffffu, part[k], off);
+      if (t % 32 == 0) s_red[k][t / 32] = part[k];
     }
     __syncthreads();
-    if (t == 0) {
-      float a = 0.f, b = 0.f;
-      for (int w = 0; w < kLanes / 32; ++w) {
-        a += s_red[0][w];
-        b += s_red[1][w];
-      }
-      e_out[2 * s] = a;
-      e_out[2 * s + 1] = b;
+    if (t < kNe) {
+      float a = 0.f;
+      for (int w = 0; w < kLanes / 32; ++w) a += s_red[t][w];
+      e_out[kNe * s + t] = a;
     }
   } else if (t == 0) {
     e_out[2 * s] = 0.f;
@@ -222,7 +240,7 @@ nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
   }
 }
 
-template <bool kEnergy, bool kMinImage>
+template <bool kEnergy, bool kMinImage, bool kVirial>
 void launch_flavour(int coul, dim3 grid, cudaStream_t st,
                     const float* const* p, const int* pm, const int* em,
                     const int* ng, float* fx, float* fy, float* fz, float* e,
@@ -230,14 +248,14 @@ void launch_flavour(int coul, dim3 grid, cudaStream_t st,
 #define NB_ARGS p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], \
     p[10], p[11], pm, em, ng, fx, fy, fz, e, box, G, c
   if (coul == kPme)
-    nb_v2u_kernel<kEnergy, kPme, kMinImage><<<grid, kLanes, 0, st>>>(
-        NB_ARGS);
+    nb_v2u_kernel<kEnergy, kPme, kMinImage, kVirial>
+        <<<grid, kLanes, 0, st>>>(NB_ARGS);
   else if (coul == kReactionField)
-    nb_v2u_kernel<kEnergy, kReactionField, kMinImage>
+    nb_v2u_kernel<kEnergy, kReactionField, kMinImage, kVirial>
         <<<grid, kLanes, 0, st>>>(NB_ARGS);
   else
-    nb_v2u_kernel<kEnergy, kCutoff, kMinImage><<<grid, kLanes, 0, st>>>(
-        NB_ARGS);
+    nb_v2u_kernel<kEnergy, kCutoff, kMinImage, kVirial>
+        <<<grid, kLanes, 0, st>>>(NB_ARGS);
 #undef NB_ARGS
 }
 
@@ -249,7 +267,8 @@ extern "C" int nb_v2u_launch(
     const float* jz, const float* jq, const float* js6, const float* js12,
     const int* pair_m, const int* excl_m, const int* ng, float* fx,
     float* fy, float* fz, float* e, const float* box, int S, int G,
-    int coulomb, int compute_energy, int min_image, float epsfac, float beta,
+    int coulomb, int compute_energy, int compute_virial, int min_image,
+    float epsfac, float beta,
     float rc2, float rv2, float krf, float crf, float rcinv6, float inv_rc,
     void* stream) {
   const float* planes[12] = {ix, iy, iz, iq, is6, is12,
@@ -257,17 +276,22 @@ extern "C" int nb_v2u_launch(
   Consts c{epsfac, beta, rc2, rv2, krf, crf, rcinv6, inv_rc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0) return 0;
+  if (compute_virial && !compute_energy) return (int)cudaErrorInvalidValue;
   dim3 grid(S);
 #define FLAVOUR_ARGS coulomb, grid, st, planes, pair_m, excl_m, ng, fx, fy, \
     fz, e, box, G, c
-  if (compute_energy && min_image)
-    launch_flavour<true, true>(FLAVOUR_ARGS);
+  if (compute_virial && min_image)
+    launch_flavour<true, true, true>(FLAVOUR_ARGS);
+  else if (compute_virial)
+    launch_flavour<true, false, true>(FLAVOUR_ARGS);
+  else if (compute_energy && min_image)
+    launch_flavour<true, true, false>(FLAVOUR_ARGS);
   else if (compute_energy)
-    launch_flavour<true, false>(FLAVOUR_ARGS);
+    launch_flavour<true, false, false>(FLAVOUR_ARGS);
   else if (min_image)
-    launch_flavour<false, true>(FLAVOUR_ARGS);
+    launch_flavour<false, true, false>(FLAVOUR_ARGS);
   else
-    launch_flavour<false, false>(FLAVOUR_ARGS);
+    launch_flavour<false, false, false>(FLAVOUR_ARGS);
 #undef FLAVOUR_ARGS
   return (int)cudaGetLastError();
 }

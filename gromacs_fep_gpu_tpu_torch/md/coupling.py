@@ -1,16 +1,24 @@
-"""Stochastic velocity rescaling — PyTorch counterpart of
-gromacs_fep_gpu_tpu/md/coupling.py (vrescale_lambda).
+"""Stochastic velocity rescaling and the isotropic barostats — PyTorch
+counterpart of gromacs_fep_gpu_tpu/md/coupling.py (vrescale_lambda,
+virial_pressure, berendsen_pscale, crescale_pscale).
 
-The JAX function draws its two random numbers from a jax PRNG key inside.
-Here the arithmetic (`vrescale_scale`) takes the draws as arguments, so a
-test can feed both versions identical numbers; `vrescale_lambda` draws them
-from an explicit torch.Generator on the state's device.
+The JAX functions draw their random numbers from a jax PRNG key inside.
+Here the arithmetic takes the draws as arguments (`vrescale_scale`, the
+C-rescale noise `xi`), so a test can feed both versions identical numbers;
+the step draws them from an explicit torch.Generator on the state's
+device.
+
+C-rescale follows the reference (coupling.cpp crescale_pscale) where the
+JAX function does not: its noise amplitude uses the reference temperature
+ref_t, not the instantaneous one.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..core.units import BOLTZ, PRESFAC
 
 
 def vrescale_scale(ekin, ekin_ref, ndf, dt_coupl, tau_t, r1, r2):
@@ -45,3 +53,37 @@ def vrescale_lambda(ekin, ekin_ref, ndf, dt_coupl, tau_t,
     """Draw (r1, r2) on the device and return (scale, d_therm_integral)."""
     r1, r2 = vrescale_draws(ndf, generator, ekin.device)
     return vrescale_scale(ekin, ekin_ref, ndf, dt_coupl, tau_t, r1, r2)
+
+
+def virial_pressure(ekin_tensor, virial, volume):
+    """(P, P tensor) = 2/V (Ekin - Xi) in bar, P = trace / 3 (reference:
+    coupling.cpp calc_pres)."""
+    p_tensor = 2.0 / volume * (ekin_tensor - virial) * PRESFAC
+    return torch.diagonal(p_tensor, dim1=-2, dim2=-1).sum(-1) / 3.0, p_tensor
+
+
+def berendsen_pscale(p_cur, ref_p, dt_coupl, tau_p, compressibility):
+    """Isotropic Berendsen box and coordinate scale factor mu (reference:
+    coupling.cpp berendsen_pcoupl: mu^3 = 1 - kappa dt/tau (P0 - P)),
+    clipped to [0.98, 1.02] as in the JAX function."""
+    mu = 1.0 - dt_coupl * compressibility / (3.0 * tau_p) * (ref_p - p_cur)
+    return torch.clamp(torch.as_tensor(mu), 0.98, 1.02)
+
+
+def crescale_pscale(p_cur, ref_p, dt_coupl, tau_p, compressibility,
+                    volume, ref_t, xi):
+    """Isotropic stochastic cell rescaling (Bernetti & Bussi 2020;
+    reference: coupling.cpp crescale_pscale) for a given N(0, 1) draw xi:
+
+        d ln V = -kappa dt/tau (P0 - P) + sqrt(2 kT kappa dt PRESFAC /
+                 (V tau)) xi,   mu = exp(d ln V / 3),
+
+    kT = BOLTZ ref_t (the reference temperature); clipped to [0.98, 1.02]
+    as in the JAX function.  The caller scales x and the box by mu and the
+    velocities by 1/mu."""
+    kt = BOLTZ * ref_t
+    dln_v = (compressibility * dt_coupl / tau_p * (p_cur - ref_p)
+             + torch.sqrt(torch.as_tensor(
+                 2.0 * kt * compressibility * dt_coupl * PRESFAC
+                 / (volume * tau_p))) * xi)
+    return torch.clamp(torch.exp(dln_v / 3.0), 0.98, 1.02)

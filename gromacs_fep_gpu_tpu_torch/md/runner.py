@@ -3,7 +3,12 @@
 nstlist-step chunk, _grow and roll-back on overflow) for the single-device
 v2u path and the dense oracle path (use_dense).  With a lambda ladder
 (all_lambda) the step loop records Delta H to every window each
-fep.nstdhdl steps; expanded-ensemble and AWH moves are not ported.
+fep.nstdhdl steps; expanded-ensemble and AWH moves are not ported.  With
+pressure coupling the steps at step % nstpcouple == 0 take the virial
+flavour of the force ('R', or 'S' with a sweep), and the box changes
+inside a chunk: the baked periodic shifts are box-vector counts and the
+PME influence function is rebuilt from the box at every call, so the
+chunk's lists stay valid as they do under the coordinates' motion.
 
 Each chunk rebuilds the pair lists (Hilbert sort, union cluster search
 with baked shifts, FEP list, v2u pack) and then runs nstlist steps
@@ -21,7 +26,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.types import CoulombType, MdParams, State, System
+from ..core.types import CoulombType, MdParams, PcouplType, State, System
 from ..ops.cluster_nb import make_cluster_force_fn
 from ..ops.forces import dense_energy, get_beta, make_dense_force_fn
 from ..ops.foreign import make_foreign_delta_fn
@@ -124,10 +129,12 @@ class MdRunner:
 
     def _flavor_pattern(self, start_step: int, seg_len: int) -> str:
         """Per-offset force flavour: 'F' force only, 'E' energies, 'D'
-        energies and the foreign-lambda sweep, 'f' MTS off-step
-        (host-computable: every trigger is step % N == 0)."""
+        energies and the foreign-lambda sweep, 'R' energies and the virial
+        (pressure steps of the cluster route), 'S' 'R' and the sweep, 'f'
+        MTS off-step (host-computable: every trigger is step % N == 0)."""
         p = self.params
         noener_active = not self.config.use_dense and p.nstcalcenergy > 1
+        vir_active = p.pcoupl != PcouplType.NO and not self.config.use_dense
         out = []
         for o in range(seg_len):
             s = start_step + o
@@ -139,7 +146,10 @@ class MdRunner:
                     ener = ener or (s % p.fep.nstdhdl) == 0
             else:
                 ener = True
-            fl = "D" if foreign else ("E" if ener else "F")
+            vir = vir_active and (s % p.nstpcouple) == 0
+            fl = "R" if vir else ("E" if ener else "F")
+            if foreign:
+                fl = {"E": "D", "R": "S"}[fl]
             if p.mts and (s % p.mts_factor) != 0:
                 if fl != "F":
                     raise ValueError(
@@ -226,6 +236,8 @@ class MdRunner:
             checks = [("nstcalcenergy", p.nstcalcenergy)]
             if p.fep.enabled or self.all_lambda is not None:
                 checks.append(("nstdhdl", p.fep.nstdhdl))
+            if p.pcoupl != PcouplType.NO:
+                checks.append(("nstpcouple", p.nstpcouple))
             for nm, n in checks:
                 if n <= 1 or n % m != 0:
                     raise ValueError(
@@ -245,15 +257,27 @@ class MdRunner:
             if flavor == "f":
                 return self._force_fn(x, box, lam, nlist, feplist, prep,
                                       need_energy=False, skip_recip=True)
+            if flavor in ("R", "S"):
+                return self._force_fn(x, box, lam, nlist, feplist, prep,
+                                      need_energy=True, need_virial=True,
+                                      recip_scale=rs)
             return self._force_fn(x, box, lam, nlist, feplist, prep,
                                   need_energy=flavor in ("E", "D"),
                                   recip_scale=rs)
+
+        epot_fn = None
+        if self.config.use_dense:
+            beta = get_beta(self.params)
+
+            def epot_fn(x, box, lam):
+                return dense_energy(x, box, lam, self.system, self.params,
+                                    beta, self.recip_fn).epot
 
         return make_step_fn(
             self.system, self.params, bound, self.generator,
             foreign_delta_fn=(self._foreign(feplist) if self._foreign
                               else None),
-            n_foreign=self._n_foreign)
+            n_foreign=self._n_foreign, energy_epot_fn=epot_fn)
 
     def run(self, state: State, nsteps: int
             ) -> Tuple[State, List[StepLog]]:

@@ -5,9 +5,18 @@ skip_recip path).
 
 The plain non-bonded pairs go through the K1 kernel (ops/nb_v2u.py) on the
 union lists; everything else that is cheap — soft-core FEP pairs, bonds,
-angles — is one differentiable energy whose forces and dV/dlambda come from
-torch.autograd (jax.grad on the JAX side).  The PME reciprocal part runs
-the K2/K3 kernels (ops/pme.py make_pme_recip_pair).
+angles, 1-4 pairs — is one differentiable energy whose forces and
+dV/dlambda come from torch.autograd (jax.grad on the JAX side).  The PME
+reciprocal part runs the K2/K3 kernels (ops/pme.py make_pme_recip_pair).
+The dispersion correction (DispCorr = EnerPres) adds its energy and its
+dV/dlambda_vdw; its pressure is the step's (ops/dispcorr.py p_tail).
+
+need_virial=True (the pressure steps of an NPT run) fills terms.vir_diag
+with the diagonal potential virial from the same force pass: the K1
+kernel's pair sums, the strain gradient of the cheap energy (taken in the
+same backward pass as its forces: the energy is evaluated at x s, box s
+with s = 1 + eps, eps = 0) and the reciprocal term's strain derivative on
+the force pass's grids.
 """
 from __future__ import annotations
 
@@ -22,7 +31,8 @@ from ..core.types import (EnergyTerms, FepCoupling, MdParams, System,
 from ..core.units import ONE_4PI_EPS0
 from . import bonded as bonded_mod
 from .fep import FepPairData, softcore_pair_energies
-from .forces import get_beta
+from .dispcorr import make_dispersion_correction
+from .forces import get_beta, pairs14_energy
 from .nb_v2u import NbConstants, PrepV2U, cluster_forces_v2u
 from .pairlist import ClusterPairlist, FepPairlist
 
@@ -65,13 +75,15 @@ def make_cluster_force_fn(system: System, params: MdParams,
                           has_fep: Optional[bool] = None,
                           pme_recip_force_fn: Optional[Callable] = None):
     """force_fn(x, box, lam, nlist, feplist, prep, need_energy=True,
-    recip_scale=1.0, skip_recip=False) -> (f, EnergyTerms).
+    need_virial=False, recip_scale=1.0, skip_recip=False) -> (f,
+    EnergyTerms).
 
     need_energy=False runs the force-only K1 flavour and skips the
-    dV/dlambda backward pass.  recip_scale / skip_recip are multiple time
-    stepping of the PME reciprocal force: on-steps apply the recip force
-    scaled by the MTS factor, off-steps skip it; energies and dvdl stay
-    unscaled."""
+    dV/dlambda backward pass.  need_virial=True (energies included) runs
+    K1's virial flavour and fills terms.vir_diag.  recip_scale /
+    skip_recip are multiple time stepping of the PME reciprocal force:
+    on-steps apply the recip force scaled by the MTS factor, off-steps skip
+    it; energies, dvdl and the virial stay unscaled."""
     beta = get_beta(params)
     if has_fep is None:
         has_fep = bool(system.perturbed.any())
@@ -82,15 +94,17 @@ def make_cluster_force_fn(system: System, params: MdParams,
         raise NotImplementedError(
             "only the geometric-LJ, potential-shift cluster kernel (v2u) is "
             "ported; the XLA table kernel is not")
-    if params.dispcorr:
-        raise NotImplementedError("dispersion correction is not ported yet")
+    disp_e_fn = (make_dispersion_correction(system, params)[0]
+                 if params.dispcorr else None)
+    has_pairs14 = system.pairs14 is not None and system.pairs14.n > 0
     if (params.coulomb.value == "pme") != (pme_recip_force_fn is not None):
         raise ValueError("PME needs pme_recip_force_fn and vice versa")
     consts = NbConstants.from_params(params, beta)
     n_lam = int(FepCoupling.COUNT)
 
     def other_energy(x, lam, box, feplist):
-        """FEP pairs + bonded terms as one scalar for autograd."""
+        """FEP pairs + bonded terms + 1-4 pairs as one scalar for
+        autograd."""
         lam_c, lam_v = lam[FepCoupling.COUL], lam[FepCoupling.VDW]
         lam_b = lam[FepCoupling.BONDED]
         terms = EnergyTerms.zeros(x.device)
@@ -102,22 +116,41 @@ def make_cluster_force_fn(system: System, params: MdParams,
             ch = bonded_mod.TERM_CHANNEL[name]
             e = bonded_mod.TERMS[name](x, box, il, lam_b)
             terms = terms.replace(**{ch: getattr(terms, ch) + e})
+        if has_pairs14:
+            e14c, e14l = pairs14_energy(x, box, system, lam_c, lam_v, params)
+            terms = terms.replace(coul14=terms.coul14 + e14c,
+                                  lj14=terms.lj14 + e14l)
         return terms.epot, terms
 
     def force_fn(x, box, lam, nlist: ClusterPairlist,
                  feplist: Optional[FepPairlist] = None,
                  prep: Optional[PrepV2U] = None, need_energy: bool = True,
-                 recip_scale: float = 1.0, skip_recip: bool = False):
-        f_sorted, e_coul, e_lj = cluster_forces_v2u(
-            x, box, nlist, prep, consts, compute_energy=need_energy)
+                 need_virial: bool = False, recip_scale: float = 1.0,
+                 skip_recip: bool = False):
+        if need_virial and pme_recip_force_fn is not None and skip_recip:
+            raise ValueError("a pressure step must evaluate the reciprocal "
+                             "term (align nstpcouple with the MTS factor)")
+        out = cluster_forces_v2u(x, box, nlist, prep, consts,
+                                 compute_energy=need_energy,
+                                 compute_virial=need_virial)
+        f_sorted, e_coul, e_lj = out[:3]
         f_cluster = f_sorted[nlist.inv_perm]
 
         xg = x.detach().requires_grad_(True)
         lg = lam.detach().requires_grad_(need_energy)
+        inputs = [xg, lg] if need_energy else [xg]
         with torch.enable_grad():
-            epot, terms = other_energy(xg, lg, box, feplist)
-            inputs = [xg, lg] if need_energy else [xg]
-            grads = torch.autograd.grad(epot, inputs, allow_unused=True)
+            xe, boxe = xg, box
+            if need_virial:
+                eps = torch.zeros(3, dtype=x.dtype, device=x.device,
+                                  requires_grad=True)
+                s = 1.0 + eps
+                xe, boxe = xg * s, box * s[None, :]
+                inputs.append(eps)
+            epot, terms = other_energy(xe, lg, boxe, feplist)
+            # a system with no cheap term (plain water) leaves no graph
+            grads = (torch.autograd.grad(epot, inputs, allow_unused=True)
+                     if epot.requires_grad else [None] * len(inputs))
         gx = grads[0] if grads[0] is not None else torch.zeros_like(x)
         if need_energy:
             glam = (grads[1] if grads[1] is not None
@@ -127,17 +160,31 @@ def make_cluster_force_fn(system: System, params: MdParams,
                               device=x.device)
         terms = EnergyTerms(**{k: v.detach() for k, v in
                                terms.__dict__.items()})
+        if need_virial:
+            g_eps = grads[-1] if grads[-1] is not None else torch.zeros(
+                3, dtype=x.dtype, device=x.device)
+            terms = terms.replace(vir_diag=out[3] + 0.5 * g_eps)
         f = f_cluster - gx
         if pme_recip_force_fn is not None and not skip_recip:
-            e_rec, f_rec, dvdl_rec = pme_recip_force_fn(
-                x, box, lam[FepCoupling.COUL])
+            rec = pme_recip_force_fn(x, box, lam[FepCoupling.COUL],
+                                     need_virial=need_virial)
+            e_rec, f_rec, dvdl_rec = rec[:3]
             f = f + recip_scale * f_rec
             terms = terms.replace(coul_recip=e_rec)
             if need_energy:
                 glam = glam.clone()
                 glam[FepCoupling.COUL] += dvdl_rec
+            if need_virial:
+                terms = terms.replace(vir_diag=terms.vir_diag + rec[3])
         terms = terms.replace(coulomb=terms.coulomb + e_coul,
                               lj=terms.lj + e_lj, dvdl=glam)
+        if disp_e_fn is not None:
+            e_dc, dvdl_dc = disp_e_fn(box, lam[FepCoupling.VDW])
+            terms = terms.replace(dispcorr=terms.dispcorr + e_dc)
+            if need_energy:
+                glam = glam.clone()
+                glam[FepCoupling.VDW] += dvdl_dc
+                terms = terms.replace(dvdl=glam)
         return f, terms
 
     return force_fn

@@ -36,9 +36,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "nb_v2u": {
         # 6 i planes, 6 j planes, pair/excl masks, ng, 3 force planes,
-        # energies, box(9); S, G, coulomb type, energy flag, minimum-image
-        # flag; 8 float constants; stream
-        "nb_v2u_launch": [_P] * 20 + [_I] * 5 + [_F] * 8 + [_P],
+        # energies, box(9); S, G, coulomb type, energy flag, virial flag,
+        # minimum-image flag; 8 float constants; stream
+        "nb_v2u_launch": [_P] * 20 + [_I] * 6 + [_F] * 8 + [_P],
     },
     "pme_spline": {
         # x, q, box(9), grid; n, K1, K2, K3; stream

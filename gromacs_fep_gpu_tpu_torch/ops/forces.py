@@ -11,7 +11,8 @@ this module on any system, on the CPU and on the GPU alike: it is plain
 tensor code in the dtype of its coordinates (float32 or float64).
 
 Of the JAX module's optional terms only those the port's System can hold
-are here; dispersion correction raises (not ported).
+are here, and the dispersion correction (ops/dispcorr.py), which
+make_dense_force_fn adds after the gradient, as the JAX function does.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from ..core.types import (CoulombType, EnergyTerms, FepCoupling, MdParams,
 from ..core.units import ONE_4PI_EPS0
 from . import bonded as bonded_mod
 from . import nonbonded_ref as nbref
+from .dispcorr import make_dispersion_correction
 from .fep import FepPairData, softcore_pair_energies
 
 
@@ -175,8 +177,8 @@ def make_dense_force_fn(system: System, params: MdParams,
                         pme_recip_fn: Optional[Callable] = None):
     """Returns force_fn(x, box, lam) -> (f, EnergyTerms with dvdl)."""
     beta = get_beta(params)
-    if params.dispcorr:
-        raise NotImplementedError("dispersion correction is not ported yet")
+    disp_e_fn = (make_dispersion_correction(system, params)[0]
+                 if params.dispcorr else None)
 
     def force_fn(x, box, lam):
         xg = x.detach().requires_grad_(True)
@@ -190,6 +192,11 @@ def make_dense_force_fn(system: System, params: MdParams,
                                for k, v in terms.__dict__.items()})
         if glam is None:
             glam = torch.zeros_like(lam)
+        if disp_e_fn is not None:
+            e_dc, dvdl_dc = disp_e_fn(box, lam[FepCoupling.VDW])
+            glam = glam.clone()
+            glam[FepCoupling.VDW] += dvdl_dc
+            terms = terms.replace(dispcorr=terms.dispcorr + e_dc)
         return -gx, terms.replace(dvdl=glam)
 
     return force_fn

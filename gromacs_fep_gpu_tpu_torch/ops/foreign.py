@@ -12,7 +12,8 @@ carries an explicit leading lambda axis through the same energy functions:
 one pass of (L, pairs) tensors instead of L passes, since the eager step is
 bound by its number of launches.  The reciprocal term is exactly linear in
 lambda_coul (ops/pme.py _recip_slope_fn), so one spread, solve and gather
-serve the whole ladder.
+serve the whole ladder.  So is the dispersion correction's energy, linear
+in lambda_vdw: one expression over the (L,) lambda_vdw column.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from ..core.types import FepCoupling, MdParams, System
 from . import bonded as bonded_mod
 from .cluster_nb import fep_pair_energy
+from .dispcorr import make_dispersion_correction
 from .forces import get_beta, pairs14_energy
 from .pairlist import FepPairlist
 
@@ -37,8 +39,8 @@ def make_lambda_energy_fn(system: System, params: MdParams,
     pme_slope_fn(x, box) -> d E_recip / d lambda_coul (make_pme_recip_fns);
     the JAX function takes recip_fn and evaluates it once per lambda."""
     beta = get_beta(params)
-    if params.dispcorr:
-        raise NotImplementedError("dispersion correction is not ported yet")
+    disp_e_fn = (make_dispersion_correction(system, params)[0]
+                 if params.dispcorr else None)
 
     def e_lambda(x, box, lam, feplist: Optional[FepPairlist]):
         lam_c, lam_v = lam[..., FepCoupling.COUL], lam[..., FepCoupling.VDW]
@@ -56,6 +58,8 @@ def make_lambda_energy_fn(system: System, params: MdParams,
             e = e + e14c + e14l
         if pme_slope_fn is not None:
             e = e + lam_c * pme_slope_fn(x, box)
+        if disp_e_fn is not None:
+            e = e + disp_e_fn(box, lam_v)[0]
         return e
 
     return e_lambda

@@ -10,6 +10,11 @@ periodic shifts baked into the gathered j coordinates; per-lane 32-bit
 pair and exclusion masks (bit c*8+a for i atom a of cluster c); `ng` trip
 counts.  Perturbed atoms are masked out here and handled by the FEP list.
 
+Three flavours, as in the TPU kernel: F (forces), VF (forces and the
+per-block energies) and VF+virial (compute_virial, the pressure steps of an
+NPT run: also the per-block sums of fscal * d_a^2 per axis, which the
+caller turns into the diagonal pair virial Xi_aa = -1/4 sum).
+
 `nb_v2u_forces` dispatches by the tensors' device: CPU tensors take the
 plain PyTorch version `nb_v2u_plain`; CUDA tensors launch the kernel of
 csrc/nb_v2u.cu or raise.
@@ -35,8 +40,9 @@ LANES = GJU * CLUSTER
 _COUL_CODE = {CoulombType.CUTOFF: 0, CoulombType.REACTION_FIELD: 1,
               CoulombType.PME: 2}
 
-# launches of the CUDA kernel, by flavor (F = force only, VF = energies)
-launches = {"F": 0, "VF": 0}
+# launches of the CUDA kernel, by flavor (F = force only, VF = energies,
+# VFV = energies and virial)
+launches = {"F": 0, "VF": 0, "VFV": 0}
 
 
 def _erfc_poly(x):
@@ -238,12 +244,17 @@ def gather_coordinates(x, box, nlist: ClusterPairlist, prep: PrepV2U):
 
 
 def nb_v2u_plain(i_planes, j_planes, box, prep: PrepV2U,
-                 consts: NbConstants, compute_energy: bool):
-    """Plain PyTorch version of the kernel: (fx, fy, fz (S, 32), e (S, 2))
+                 consts: NbConstants, compute_energy: bool,
+                 compute_virial: bool = False):
+    """Plain PyTorch version of the kernel: (fx, fy, fz (S, 32), e (S, ne))
     with e = per-block (coulomb, lj) sums over the full list (not yet
-    halved).  Same arithmetic as the TPU kernel, one j group at a time;
+    halved), ne = 2; with compute_virial, ne = 5 and e[:, 2:5] the
+    per-block sums of fscal * (dx^2, dy^2, dz^2) (not yet scaled by
+    -1/4).  Same arithmetic as the TPU kernel, one j group at a time;
     without baked shifts (prep.shift None) the rectangular minimum image
     is resolved per pair."""
+    if compute_virial and not compute_energy:
+        raise ValueError("the virial rides the energy flavour")
     ix, iy, iz = (p.reshape(-1, BU * CLUSTER, 1) for p in i_planes)
     jx, jy, jz = j_planes
     S, G = jx.shape[:2]
@@ -263,6 +274,7 @@ def nb_v2u_plain(i_planes, j_planes, box, prep: PrepV2U,
     fy, fz = torch.zeros_like(fx), torch.zeros_like(fx)
     e_c = torch.zeros((S,), dtype=torch.float32, device=dev)
     e_lj = torch.zeros_like(e_c)
+    vir = [torch.zeros_like(e_c) for _ in range(3)]
     for g in range(G):
         live = (g < prep.ng.to(torch.int64)).to(torch.float32)[:, None, None]
         pairb = ((prep.pair_m[:, g, None, :] >> bit) & 1).to(
@@ -309,6 +321,9 @@ def nb_v2u_plain(i_planes, j_planes, box, prep: PrepV2U,
         fx += torch.sum(fscal * dx, dim=2)
         fy += torch.sum(fscal * dy, dim=2)
         fz += torch.sum(fscal * dz, dim=2)
+        if compute_virial:
+            for a, d in enumerate((dx, dy, dz)):
+                vir[a] += torch.sum(fscal * d * d, dim=(1, 2))
         if compute_energy:
             e_lj += torch.sum(
                 (c12 * rinv12 - c6 * rinv6
@@ -321,7 +336,8 @@ def nb_v2u_plain(i_planes, j_planes, box, prep: PrepV2U,
             else:
                 e_pair = qq * inclb * (rinv - c.inv_rc) * in_c
             e_c += torch.sum(e_pair, dim=(1, 2))
-    return fx, fy, fz, torch.stack([e_c, e_lj], dim=1)
+    e = [e_c, e_lj] + (vir if compute_virial else [])
+    return fx, fy, fz, torch.stack(e, dim=1)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape):
@@ -335,9 +351,12 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
 
 
 def nb_v2u_cuda(i_planes, j_planes, box, prep: PrepV2U,
-                consts: NbConstants, compute_energy: bool):
+                consts: NbConstants, compute_energy: bool,
+                compute_virial: bool = False):
     """Launch csrc/nb_v2u.cu on the current stream; same outputs as
     nb_v2u_plain."""
+    if compute_virial and not compute_energy:
+        raise ValueError("the virial rides the energy flavour")
     S, G = j_planes[0].shape[:2]
     f32, i32 = torch.float32, torch.int32
     i_in = list(i_planes) + [prep.iq, prep.is6, prep.is12]
@@ -353,7 +372,7 @@ def nb_v2u_cuda(i_planes, j_planes, box, prep: PrepV2U,
     dev = j_planes[0].device
     fx = torch.empty((S, BU * CLUSTER), dtype=f32, device=dev)
     fy, fz = torch.empty_like(fx), torch.empty_like(fx)
-    e = torch.empty((S, 2), dtype=f32, device=dev)
+    e = torch.empty((S, 5 if compute_virial else 2), dtype=f32, device=dev)
     c = consts
     lib = cuda_lib.library("nb_v2u")
     code = lib.nb_v2u_launch(
@@ -361,33 +380,40 @@ def nb_v2u_cuda(i_planes, j_planes, box, prep: PrepV2U,
         prep.pair_m.data_ptr(), prep.excl_m.data_ptr(), prep.ng.data_ptr(),
         fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), e.data_ptr(),
         box.data_ptr(), S, G, _COUL_CODE[c.coulomb], int(compute_energy),
-        int(prep.shift is None),
+        int(compute_virial), int(prep.shift is None),
         c.epsfac, c.beta, c.rc2, c.rv2, c.krf, c.crf, c.rcinv6, c.inv_rc,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(code, "nb_v2u")
-    launches["VF" if compute_energy else "F"] += 1
+    launches["VFV" if compute_virial
+             else "VF" if compute_energy else "F"] += 1
     return fx, fy, fz, e
 
 
 def nb_v2u_forces(i_planes, j_planes, box, prep: PrepV2U,
-                  consts: NbConstants, compute_energy: bool):
+                  consts: NbConstants, compute_energy: bool,
+                  compute_virial: bool = False):
     """Kernel dispatch by device: the plain version on CPU tensors, the
     CUDA kernel on CUDA tensors."""
-    if j_planes[0].device.type == "cpu":
-        return nb_v2u_plain(i_planes, j_planes, box, prep, consts,
-                            compute_energy)
-    return nb_v2u_cuda(i_planes, j_planes, box, prep, consts,
-                       compute_energy)
+    fn = nb_v2u_plain if j_planes[0].device.type == "cpu" else nb_v2u_cuda
+    return fn(i_planes, j_planes, box, prep, consts, compute_energy,
+              compute_virial)
 
 
 def cluster_forces_v2u(x, box, nlist: ClusterPairlist, prep: PrepV2U,
-                       consts: NbConstants, compute_energy: bool = True):
+                       consts: NbConstants, compute_energy: bool = True,
+                       compute_virial: bool = False):
     """(f_sorted (n_pad, 3), e_coul, e_lj) over the union lists — the
-    counterpart of pallas_cluster_forces_v2u."""
+    counterpart of pallas_cluster_forces_v2u; with compute_virial also the
+    (3,) diagonal pair virial Xi_aa = -1/4 sum fscal d_a^2 (each pair is
+    counted twice), its per-block partials summed in float64."""
     i_planes, j_planes = gather_coordinates(x, box, nlist, prep)
     fx, fy, fz, e = nb_v2u_forces(i_planes, j_planes, box, prep, consts,
-                                  compute_energy)
+                                  compute_energy, compute_virial)
     n_pad = nlist.n_pad
     f_sorted = torch.stack([fx.reshape(-1)[:n_pad], fy.reshape(-1)[:n_pad],
                             fz.reshape(-1)[:n_pad]], dim=-1)
-    return f_sorted, 0.5 * torch.sum(e[:, 0]), 0.5 * torch.sum(e[:, 1])
+    out = (f_sorted, 0.5 * torch.sum(e[:, 0]), 0.5 * torch.sum(e[:, 1]))
+    if compute_virial:
+        vir = -0.25 * torch.sum(e[:, 2:5].to(torch.float64), dim=0)
+        return out + (vir.to(e.dtype),)
+    return out

@@ -14,6 +14,14 @@ ops/pme_kernels.py, at every system size; the AD-able energy
 (`reciprocal_energy` on a tensor that requires grad) spreads with a plain
 index_add_ and is used for the small lambda(1-lambda) E[dq] correction
 over the perturbed atoms.
+
+The reciprocal virial of an NPT pressure step (`force_fn(...,
+need_virial=True)`) is the strain derivative of the reciprocal energy.  The
+JAX package takes it by AD through an XLA spread; here it reuses the
+force pass's grids: under a diagonal strain x -> x s, box -> box s the
+fractional coordinates, and so the charge grids, do not move, and the
+strain acts only through the influence function, the 1/V prefactor and the
+net-charge term (`_strain_virial`).  No spread beyond the force pass's.
 """
 from __future__ import annotations
 
@@ -169,9 +177,27 @@ def reciprocal_energy(x, box, charges, grid_shape, beta, order: int = 4,
         grid = spread_charges_scatter(x, box, charges, grid_shape, order)
     else:
         grid = _spread_dispatch(x, box, charges, grid_shape, order)
+    return mesh_energy(grid, box, beta, influence)
+
+
+def mesh_energy(grid, box, beta, influence):
+    """E = scale * sum(G |Q^|^2) of a charge grid; differentiable in the
+    grid and in the box."""
     qh = torch.fft.fftn(grid)
-    G, scale = _influence_scaled(box, influence, beta, x.dtype)
+    G, scale = _influence_scaled(box, influence, beta, grid.dtype)
     return scale * torch.sum(G * (qh.real ** 2 + qh.imag ** 2))
+
+
+def _strain_virial(energy_of_box, box):
+    """Xi_aa = 1/2 dE/d eps_a of energy_of_box(box * (1 + eps)) at eps = 0:
+    the diagonal virial of a term whose coordinate dependence is frozen
+    (the charge grids, in fractional coordinates)."""
+    eps = torch.zeros(3, dtype=box.dtype, device=box.device,
+                      requires_grad=True)
+    with torch.enable_grad():
+        e = energy_of_box(box * (1.0 + eps)[None, :])
+        (g,) = torch.autograd.grad(e, eps)
+    return 0.5 * g
 
 
 def energy_and_potential(grid, box, beta, influence):
@@ -192,10 +218,17 @@ def reciprocal_energy_force(x, box, charges, grid_shape, beta,
     if influence is None:
         influence = influence_tensors(
             make_influence_function(grid_shape, order), x.device, x.dtype)
+    return _spread_solve_gather(x, box, charges, grid_shape, beta, order,
+                                influence)[1:]
+
+
+def _spread_solve_gather(x, box, charges, grid_shape, beta, order,
+                         influence):
+    """(grid, energy, forces, dE/dq) of reciprocal_energy_force."""
     grid = _spread_dispatch(x, box, charges, grid_shape, order)
     energy, phi = energy_and_potential(grid, box, beta, influence)
     forces, dEdq = phi_gather(x, box, charges, phi, grid_shape, order)
-    return energy, forces, dEdq
+    return grid, energy, forces, dEdq
 
 
 def phi_gather(x, box, charges, phi, grid_shape, order: int = 4):
@@ -363,38 +396,56 @@ def make_pme_recip_pair(system: System, params: MdParams, grid_shape=None):
 def _recip_force_fn(st: _RecipSetup):
     beta = st.beta
 
-    def force_fn(x, box, lam_c):
+    def force_fn(x, box, lam_c, need_virial: bool = False):
+        """(E, F, dvdl_c), and with need_virial also the (3,) diagonal
+        virial of E, from the grids of this pass held fixed."""
         vol = pbc_mod.box_volume(box)
+        influence = st.influence(x.dtype)
+        # charges in the coordinates' dtype first: a 0-dim lambda does not
+        # promote them
+        qa, qb, dq = (c.to(x.dtype) for c in (st.qa, st.qb, st.dq))
+        q = ((1.0 - lam_c) * qa + lam_c * qb).contiguous() if st.fep_q else qa
+        grid, e_grid, f, dEdq = _spread_solve_gather(
+            x, box, q, st.grid_shape, beta, st.order, influence)
+        e = e_grid + self_energy(q, beta) + net_charge_energy(q, beta, vol)
+        out_vir = []
         if not st.fep_q:
-            e_grid, f, _ = reciprocal_energy_force(
-                x, box, st.qa, st.grid_shape, beta, st.order,
-                st.influence(x.dtype))
-            e = (e_grid + self_energy(st.qa, beta)
-                 + net_charge_energy(st.qa, beta, vol))
-            return e, f, torch.zeros((), dtype=x.dtype, device=x.device)
-        qmix = ((1.0 - lam_c) * st.qa + lam_c * st.qb).contiguous()
-        e_grid, f, dEdq = reciprocal_energy_force(
-            x, box, qmix, st.grid_shape, beta, st.order,
-            st.influence(x.dtype))
-        e = (e_grid + self_energy(qmix, beta)
-             + net_charge_energy(qmix, beta, vol))
+            if need_virial:
+                grid = grid.detach()
+                out_vir.append(_strain_virial(
+                    lambda b: mesh_energy(grid, b, beta, influence)
+                    + net_charge_energy(q, beta, pbc_mod.box_volume(b)),
+                    box))
+            return (e, f, torch.zeros((), dtype=x.dtype, device=x.device),
+                    *out_vir)
         xp = x[st.pert_idx].detach().requires_grad_(True)
         with torch.enable_grad():
-            e_kk = reciprocal_energy(xp, box, st.dq, st.grid_shape, beta,
-                                     st.order, st.influence(x.dtype))
+            grid_dd = spread_charges_scatter(xp, box, dq, st.grid_shape,
+                                             st.order)
+            e_kk = mesh_energy(grid_dd, box, beta, influence)
             (g_kk,) = torch.autograd.grad(e_kk, xp)
         e_kk = e_kk.detach()
-        e_dd = (e_kk + self_energy(st.dq, beta)
-                + net_charge_energy(st.dq, beta, vol))
+        e_dd = (e_kk + self_energy(dq, beta)
+                + net_charge_energy(dq, beta, vol))
         lam_fac = lam_c * (1.0 - lam_c)
         e = e + lam_fac * e_dd
         f = f.index_add(0, st.pert_idx, -lam_fac * g_kk)
-        dvdl = torch.sum(dEdq[st.pert_idx] * st.dq)
+        dvdl = torch.sum(dEdq[st.pert_idx] * dq)
         dvdl = dvdl - 2.0 * ONE_4PI_EPS0 * beta / math.sqrt(math.pi) \
-            * torch.sum(qmix[st.pert_idx] * st.dq)
+            * torch.sum(q[st.pert_idx] * dq)
         dvdl = dvdl - ONE_4PI_EPS0 * math.pi / (beta ** 2 * vol) \
-            * (torch.sum(qmix) * torch.sum(st.dq))
+            * (torch.sum(q) * torch.sum(dq))
         dvdl = dvdl + (1.0 - 2.0 * lam_c) * e_dd
-        return e, f, dvdl
+        if need_virial:
+            grid, grid_dd = grid.detach(), grid_dd.detach()
+
+            def energy_of_box(b):
+                v = pbc_mod.box_volume(b)
+                return (mesh_energy(grid, b, beta, influence)
+                        + net_charge_energy(q, beta, v)
+                        + lam_fac * (mesh_energy(grid_dd, b, beta, influence)
+                                     + net_charge_energy(dq, beta, v)))
+            out_vir.append(_strain_virial(energy_of_box, box))
+        return (e, f, dvdl, *out_vir)
 
     return force_fn

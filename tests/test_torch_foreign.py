@@ -142,7 +142,22 @@ def test_foreign_delta_matches_dense_oracle_float64(system, coulomb, window):
 
 
 def test_dispersion_correction_raises():
-    ts = to_port(*solvation_system(n_side=3, spacing=0.4))[0]
-    tp = _params("reaction-field")[1].replace(dispcorr=True)
-    with pytest.raises(NotImplementedError, match="dispersion"):
-        tforeign.make_lambda_energy_fn(ts, tp)
+    """Dispersion correction in the sweep and the dense oracle: the
+    sweep's lambda-dependent energy carries JAX's per-window tail
+    e_tail(box, lambda_vdw), and the dense force its energy, rel 1e-5."""
+    from gromacs_fep_gpu_tpu.ops import dispcorr as jdisp
+    js, jst = solvation_system(n_side=3, spacing=0.4, seed=13)
+    ts, tst = to_port(js, jst)
+    jp, tp = (p.replace(dispcorr=True) for p in _params("reaction-field"))
+    lams = torch.tensor(lambda_schedule(L))
+    tail = (tforeign.make_lambda_energy_fn(ts, tp)(tst.x, tst.box, lams,
+                                                   None)
+            - tforeign.make_lambda_energy_fn(ts, tp.replace(
+                dispcorr=False))(tst.x, tst.box, lams, None))
+    je, _ = jdisp.make_dispersion_correction(js, jp)
+    want = [float(je(jst.box, lv)[0]) for lv in np.asarray(lams)[:, 3]]
+    np.testing.assert_allclose(tail.numpy(), want, rtol=1e-5)
+    lam = t(np.array([0, 0, 0.4, 0.7, 0.3, 0, 0], np.float32))
+    _, terms = tforces.make_dense_force_fn(ts, tp)(tst.x, tst.box, lam)
+    np.testing.assert_allclose(float(terms.dispcorr),
+                               float(je(jst.box, 0.7)[0]), rtol=1e-5)

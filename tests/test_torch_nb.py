@@ -18,24 +18,8 @@ from gromacs_fep_gpu_tpu.ops.pallas_nb import (pallas_cluster_forces_v2u,
                                                pallas_prepare_v2u)
 from gromacs_fep_gpu_tpu_torch.core import types as ttypes
 from gromacs_fep_gpu_tpu_torch.ops import nb_v2u
-from gromacs_fep_gpu_tpu_torch.ops.pairlist import ClusterPairlist
 
-from torch_bridge import t, to_port
-
-
-def _port_list(jl, n_clusters):
-    """The port's ClusterPairlist holding the JAX list's arrays."""
-    opt = {k: (None if getattr(jl, k) is None else t(getattr(jl, k)))
-           for k in ("super_shift", "img", "shift_overflow", "tile_overflow",
-                     "tile_max")}
-    return ClusterPairlist(
-        perm=t(jl.perm, torch.int64), inv_perm=t(jl.inv_perm, torch.int64),
-        q_a=t(jl.q_a), q_b=t(jl.q_b), t_a=t(jl.t_a, torch.int64),
-        t_b=t(jl.t_b, torch.int64), pert=t(jl.pert),
-        excl=t(jl.excl, torch.int64), n_clusters=n_clusters,
-        nbr_super=t(jl.nbr_super, torch.int64),
-        super_overflow=t(jl.super_overflow),
-        super_max_count=t(jl.super_max_count), **opt)
+from torch_bridge import port_cluster_list, t, to_port
 
 
 @pytest.fixture(scope="module", params=[True, False],
@@ -55,7 +39,7 @@ def lists(request):
         assert int(jl.shift_overflow) == 0
     jprep = pallas_prepare_v2u(jl, system.nbfp)
     ts, _ = to_port(system, state.replace(x=x))
-    tl = _port_list(jl, jl.n_clusters)
+    tl = port_cluster_list(jl, jl.n_clusters)
     tprep = nb_v2u.prepare_v2u(tl, ts.nbfp)
     return system, state.replace(x=x), jl, jprep, ts, tl, tprep
 

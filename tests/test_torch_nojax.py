@@ -1,6 +1,7 @@
 """The port stands alone: with jax (and the JAX package) made unimportable,
-every module of gromacs_fep_gpu_tpu_torch imports, and one MD step and a
-two-step lambda window with its dhdl.xvg and BAR run on the CPU.  Run in a subprocess so this test's own interpreter, which has
+every module of gromacs_fep_gpu_tpu_torch imports, and one MD step, two
+C-rescale NPT steps with the dispersion correction, and a two-step lambda
+window with its dhdl.xvg and BAR run on the CPU.  Run in a subprocess so this test's own interpreter, which has
 JAX loaded, does not hide a stray import."""
 import os
 import subprocess
@@ -19,8 +20,8 @@ import gromacs_fep_gpu_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
-for m in ("ops.nonbonded_ref", "ops.forces", "ops.foreign", "io.xvgio",
-          "analysis.bar", "analysis.mbar", "parallel.ensemble"):
+for m in ("ops.nonbonded_ref", "ops.forces", "ops.foreign", "ops.dispcorr",
+          "io.xvgio", "analysis.bar", "analysis.mbar", "parallel.ensemble"):
     assert pkg.__name__ + "." + m in mods, m
 from gromacs_fep_gpu_tpu_torch.core.types import (CoulombType, FepParams,
                                                   MdParams)
@@ -37,6 +38,14 @@ runner = MdRunner(system, params, RunnerConfig(super_nnbr=128,
 state, logs = runner.run(state, 1)
 assert state.step == 1 and bool(torch.isfinite(state.x).all())
 assert bool(torch.isfinite(logs[0].epot).all())
+# NPT: C-rescale with the dispersion correction, a pressure step each step
+from gromacs_fep_gpu_tpu_torch.core.types import PcouplType
+npt = MdRunner(system, params.replace(pcoupl=PcouplType.C_RESCALE,
+                                      nstpcouple=1, dispcorr=True),
+               RunnerConfig(super_nnbr=128, fep_max_nbr=128))
+out, logs = npt.run(state, 2)
+assert bool(torch.isfinite(logs[0].pres).all())
+assert not torch.equal(out.box, state.box)
 # a lambda window with a ladder: Delta H -> dhdl.xvg -> BAR
 import numpy as np
 from gromacs_fep_gpu_tpu_torch.analysis.bar import bar_profile
