@@ -48,7 +48,32 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    an 'E' step.  K1 VF+virial is held against its
    plain version at both paths' shapes (phases 4 and 9), and the small
    reference (phase 2) holds the cluster route's in-force virial on the
-   card against the dense float64 oracle's strain gradient.
+   card against the dense float64 oracle's strain gradient;
+10. per-cluster kernels at the main path's shapes (phase 4's frame,
+   geometric LJ, potential shift, rc 0.9): K7a ("super", union lists of 8
+   clusters), K7b ("cluster"), K7c ("v2", baked shifts) and the table
+   route's kernel, each in its flavours against its plain version (E rel
+   1e-4, F rel 5e-4 of max |F|), each launch counted exactly once, with
+   time, bound and plain time; then all five NB routes (K1, K7a, K7b, K7c,
+   the table kernel in geometric mode) against each other at one state;
+11. small CHARMM-style reference: a 650-atom box with the Lorentz-Berthelot
+   table (force-switch, then potential-switch; rc 0.75 nm, rvdw-switch
+   0.6 nm) on the default RunnerConfig, which demotes to the table route:
+   GPU against CPU over 20 steps, then the GPU's final-frame energies,
+   forces and Delta H against the dense float64 oracle at rel 1e-4;
+12. the CHARMM path at 12,290 atoms: the main path's system with the
+   Lorentz-Berthelot table and the GROMACS manual's CHARMM settings
+   (force-switch, rvdw 1.2 nm, rvdw-switch 1.0 nm, PME rcoulomb 1.2 nm,
+   DispCorr no), from the main path's production state: 500 steps of
+   re-equilibration (tau_t 0.1 ps), the table kernel's F, VF and VF+virial
+   against its plain version at these shapes (virial 1e-4 of max |Xi_aa|),
+   400 production steps on the default RunnerConfig (every NB launch the
+   table kernel's, launches as the flavour pattern says, the per-cluster
+   capacity grown from 64 with its roll-backs printed, no overflow left,
+   idle share under torch.profiler), then 100 C-rescale steps on the same
+   route for its virial flavour;
+13. each of the layouts "super", "cluster" and "v2" drives 100 steps of
+   the main path from its production state, launches checked.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
@@ -88,9 +113,27 @@ PEAK_BYTES = 3.35e12
 # and for K3 (weights and derivative weights 3 x 30, 16 x 4 x 4 FMAs on
 # the z taps, 16 x 4 x 3 flops for the x/y contractions)
 FLOPS_PAIR = 66
+# the table route's pair: exact erfc and exp, the table lookup and the
+# force-switch polynomial
+FLOPS_PAIR_TABLE = 80
+# the kernels run full lists, which hold each pair twice; forces on every
+# atom need each unique pair once plus the j atom's update (3 mul, 3 sub),
+# so the operations bound counts unique pairs x (pair flops + 6)
+FLOPS_JFORCE = 6
 FLOPS_SPREAD_ATOM = 72 + 16 + 128
 FLOPS_GATHER_ATOM = 90 + 256 + 192
 TEMP_BAND = (260.0, 380.0)      # K, every production step
+# the CHARMM path (GROMACS manual, "Force fields in GROMACS -> CHARMM")
+CHARMM_RC, CHARMM_RSW = 1.2, 1.0
+CHARMM_EQ_STEPS = 500
+CHARMM_NPT_STEPS = 100
+LAYOUT_STEPS = 100
+K7_LAYOUTS = ("super", "cluster", "v2")
+# TPU kernel each route replaces (file:line of the kernel body)
+REPLACES = {"super": "gromacs_fep_gpu_tpu/ops/pallas_nb.py:90",
+            "cluster": "gromacs_fep_gpu_tpu/ops/pallas_nb.py:227",
+            "v2": "gromacs_fep_gpu_tpu/ops/pallas_nb.py:748",
+            "table": "gromacs_fep_gpu_tpu/ops/cluster_nb.py:57"}
 
 
 def _say(msg):
@@ -196,42 +239,61 @@ def _pme_suffix(grid):
                 tuple(grid)]
 
 
+def _nb_counts():
+    """NB launches: K1 as nb_v2u_<flavour>, the per-cluster kernel as
+    nb_<layout>_<flavour>."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster, nb_v2u
+    out = {f"nb_v2u_{k}": v for k, v in nb_v2u.launches.items()}
+    for layout, by in nb_cluster.launches.items():
+        out.update({f"nb_{layout}_{k}": v for k, v in by.items()})
+    return out
+
+
 def _counts():
-    from gromacs_fep_gpu_tpu_torch.ops import nb_v2u, pme_kernels
-    out = {"nb_v2u_F": nb_v2u.launches["F"],
-           "nb_v2u_VF": nb_v2u.launches["VF"],
-           "nb_v2u_VFV": nb_v2u.launches["VFV"],
-           "pme_spread": 0, "pme_gather": 0,
-           "pme_spread_small": 0, "pme_gather_small": 0}
+    """Every kernel's launches since the last _zero_counts: the NB kernels
+    (_nb_counts), the PME kernels by grid (the CHARMM path's grid is the
+    main path's)."""
+    from gromacs_fep_gpu_tpu_torch.ops import pme_kernels
+    out = _nb_counts()
+    out.update({"pme_spread": 0, "pme_gather": 0,
+                "pme_spread_small": 0, "pme_gather_small": 0})
     for (kind, grid), n in pme_kernels.launches.items():
         out[f"pme_{kind}{_pme_suffix(grid)}"] += n
     return out
 
 
 def _zero_counts():
-    from gromacs_fep_gpu_tpu_torch.ops import nb_v2u, pme_kernels
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster, nb_v2u, pme_kernels
     for k in nb_v2u.launches:
         nb_v2u.launches[k] = 0
+    for by in nb_cluster.launches.values():
+        for k in by:
+            by[k] = 0
     pme_kernels.launches.clear()
 
 
 def _expected_counts(runner, start_step, nsteps):
-    """Launches that the flavour pattern predicts: K1 once per step (VF on
-    the energy steps 'E' and 'D', VF+virial on the pressure steps 'R' and
-    'S'), spread and gather once per step that is not an MTS off-step (a
-    pressure step's reciprocal virial reuses its force pass's grid), and
-    per foreign sweep ('D', 'S') two more spreads (qA of all atoms, dq of
-    the perturbed ones) and one more gather."""
+    """Launches that the flavour pattern predicts: the runner's NB kernel
+    (K1, or the per-cluster kernel of its layout) once per step (VF on the
+    energy steps 'E' and 'D', VF+virial on the pressure steps 'R' and
+    'S'), no other NB kernel, spread and gather once per step that is not
+    an MTS off-step (a pressure step's reciprocal virial reuses its force
+    pass's grid), and per foreign sweep ('D', 'S') two more spreads (qA of
+    all atoms, dq of the perturbed ones) and one more gather."""
     pat = runner._flavor_pattern(start_step, nsteps)
     n_d = pat.count("D") + pat.count("S")
     sfx = _pme_suffix(runner.params.pme_grid)
-    out = dict.fromkeys(("pme_spread", "pme_gather", "pme_spread_small",
-                         "pme_gather_small"), 0)
-    out.update({"nb_v2u_F": pat.count("F") + pat.count("f"),
-                "nb_v2u_VF": pat.count("E") + pat.count("D"),
-                "nb_v2u_VFV": pat.count("R") + pat.count("S"),
+    out = dict.fromkeys(_nb_counts(), 0)
+    out.update(dict.fromkeys(("pme_spread", "pme_gather",
+                              "pme_spread_small", "pme_gather_small"), 0))
+    nb = f"nb_{runner.layout}_"
+    out.update({nb + "F": pat.count("F") + pat.count("f"),
+                nb + "VF": pat.count("E") + pat.count("D"),
                 "pme_spread" + sfx: nsteps - pat.count("f") + 2 * n_d,
                 "pme_gather" + sfx: nsteps - pat.count("f") + n_d})
+    n_vir = pat.count("R") + pat.count("S")
+    if n_vir or nb + "VFV" in out:
+        out[nb + "VFV"] = n_vir
     return out
 
 
@@ -264,7 +326,8 @@ def _drive(runner, state, nsteps, what, volumes=None):
     lg = concat_logs(logs)
     on = torch.isfinite(lg.epot)
     n_on = int(on.sum())
-    n_ener = expected["nb_v2u_VF"] + expected["nb_v2u_VFV"]
+    nb = f"nb_{runner.layout}_"
+    n_ener = expected[nb + "VF"] + expected.get(nb + "VFV", 0)
     if n_on != n_ener:
         raise AssertionError(f"{what}: {n_on} energy steps, expected "
                              f"{n_ener}")
@@ -274,22 +337,28 @@ def _drive(runner, state, nsteps, what, volumes=None):
             state.v).all()):
         raise AssertionError(f"{what}: non-finite coordinates")
     fl = runner.last_flags
-    left = {k: fl[k] for k in ("fep_ovf", "s_ovf", "excl_bad", "shift_bad",
-                               "t_ovf")}
+    left = {k: fl[k] for k in ("fep_ovf", "s_ovf", "n_ovf", "excl_bad",
+                               "shift_bad", "t_ovf")}
     if any(left.values()):
         raise AssertionError(f"{what}: list flags after growth {left}")
     return state, lg, seconds, counts
 
 
 def phase_build():
+    """Build every source; per source, the kernels' register range and the
+    bytes they spill (ptxas -v)."""
+    import re
     from gromacs_fep_gpu_tpu_torch.ops import cuda_lib
     cuda_lib.build_all()
-    regs = [ln.strip() for log in cuda_lib.build_logs.values()
-            for ln in log.splitlines() if "registers" in ln]
     _say(f"build: {cuda_lib.build_seconds:.2f} s for "
          f"{len(cuda_lib.SOURCES)} sources")
-    for ln in regs:
-        _say(f"  {ln}")
+    for stem, log in cuda_lib.build_logs.items():
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spill = sum(int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+        _say(f"  {stem}.cu: {len(regs)} kernels, registers "
+             f"{min(regs)}-{max(regs)}, {spill} bytes of spill stores and "
+             f"loads")
 
 
 def phase_small_reference(device):
@@ -440,19 +509,14 @@ def _k1_kernel_rows(runner, state, timer, flavours):
     from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
     params = runner.params
     x, box = state.x, state.box
-    nlist, _, prep, fl = runner.rebuild(state)
-    if fl["shift_bad"]:
-        # a box too small for build-time shifts: the runner's own fallback
-        runner.config.baked_shifts = False
-        nlist, _, prep, fl = runner.rebuild(state)
-    if fl["s_ovf"]:
-        raise AssertionError(f"kernel phase: list flags {fl}")
+    nlist, _, prep, fl = runner.lists(state)
     consts = nb_v2u.NbConstants.from_params(params, get_beta(params))
     ip, jp = nb_v2u.gather_coordinates(x, box, nlist, prep)
     S, G = prep.nbr2.shape[:2]
     rows = []
 
-    # K1 work of this pair list: masked pairs inside the cut-off
+    # K1 work of this pair list: masked pairs inside the cut-off, each
+    # unique pair counted once
     n_pairs = 0
     live_groups = int(prep.ng.sum())
     ixyz = [p.reshape(S, -1, 1) for p in ip]
@@ -466,6 +530,7 @@ def _k1_kernel_rows(runner, state, timer, flavours):
             d = [d[a] - torch.round(d[a] / bl[a]) * bl[a] for a in range(3)]
         r2 = sum(da * da for da in d)
         n_pairs += int((pair & (r2 < consts.rc2)).sum())
+    n_pairs //= 2
     k1_bytes = (6 * S * 32 + 8 * live_groups * 256 + S) * 4 + 36 \
         + (3 * S * 32 + 2 * S) * 4
     for flavour in flavours:
@@ -496,9 +561,11 @@ def _k1_kernel_rows(runner, state, timer, flavours):
         # the virial flavour writes 3 more floats per block and does 9
         # more flops per pair
         bound, by = _bound_ms(k1_bytes + (12 * S if virial else 0),
-                              n_pairs * (FLOPS_PAIR + (9 if virial else 0)))
+                              n_pairs * (FLOPS_PAIR + FLOPS_JFORCE
+                                         + (9 if virial else 0)))
         _say(f"{name} ({x.shape[0]:,} atoms): S={S} G={G} live "
-             f"groups {live_groups} pairs in cut-off {n_pairs}; F rel "
+             f"groups {live_groups} unique pairs in cut-off {n_pairs}; F "
+             f"rel "
              f"{f_rel:.2e}, E rel {e_rel:.2e}, virial rel {v_rel:.2e} -> "
              f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (plain {plain_ms:.3f} "
              f"ms, bound {bound:.5f} ms by {by})")
@@ -623,9 +690,6 @@ def phase_profile(runner, state, nsteps, ms_step):
     the sum of its kernels' times (one stream, so they do not overlap) and
     the idle share is taken against the unprofiled ms/step of the
     production phase."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from gromacs_fep_gpu_tpu_torch.md.constraints import settle_positions
     from gromacs_fep_gpu_tpu_torch.md.simulator import masses_at_lambda
 
@@ -657,7 +721,16 @@ def phase_profile(runner, state, nsteps, ms_step):
     }
     for name, fn in layers.items():
         _say(f"  layer {name}: {_median_ms(fn):.3f} ms")
+    _profile_window(runner, state, nsteps, ms_step)
 
+
+def _profile_window(runner, state, nsteps, ms_step, top=10):
+    """torch.profiler over `nsteps` steps of runner.run: the device's busy
+    time (the sum of its kernels' times: one stream, so they do not
+    overlap), its idle share against the unprofiled ms/step, the top
+    kernels and host ops.  Returns the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -677,7 +750,7 @@ def phase_profile(runner, state, nsteps, ms_step):
          f"{1.0 - busy_ms / nsteps / ms_step:.3f} of the unprofiled "
          f"{ms_step:.3f} ms/step")
     ev.sort(key=lambda e: -e.self_device_time_total)
-    for e in ev[:10]:
+    for e in ev[:top]:
         _say(f"  {e.self_device_time_total / 1e3 / nsteps:9.4f} ms/step "
              f"{e.count / nsteps:6.1f}/step  {e.key[:90]}")
     cpu = sorted((e for e in avg if e.device_type == DeviceType.CPU),
@@ -685,6 +758,7 @@ def phase_profile(runner, state, nsteps, ms_step):
     _say("  host: " + "; ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / nsteps:.2f} ms/step"
         for e in cpu[:8]))
+    return 1.0 - busy_ms / nsteps / ms_step
 
 
 def _run_windows(runner_for, start, params, ladder, smi, what,
@@ -947,6 +1021,382 @@ def phase_npt(timer, smi, system, eq_state, caps):
     return rows, total
 
 
+
+def _lb_system(n_side, device):
+    """The solvation model's system with its sigma/epsilon mixed by
+    Lorentz-Berthelot (comb-rule 2, the AMBER/CHARMM rule) and the model's
+    zeroed rows for the water H and the dummy type, from the public
+    builders; its state is solvation_system's."""
+    from gromacs_fep_gpu_tpu_torch.core.topology import (
+        build_system, lj_table_from_sigma_eps)
+    from gromacs_fep_gpu_tpu_torch.models import solvation, water
+    sigma = [water.O_SIGMA, 0.1, solvation.LIG_C_SIGMA,
+             solvation.LIG_H_SIGMA, 0.1]
+    eps = [water.O_EPS, 0.0, solvation.LIG_C_EPS, solvation.LIG_H_EPS, 0.0]
+    nbfp = lj_table_from_sigma_eps(sigma, eps, comb_rule=2)
+    for k in (1, 4):
+        nbfp[k, :, :] = 0.0
+        nbfp[:, k, :] = 0.0
+    return build_system([(solvation.methane_like_ligand(True), 1),
+                         (water.tip3p_moltype(), n_side ** 3 - 1)], nbfp,
+                        device=device)
+
+
+def _charmm_params(**kw):
+    """_base_params with the GROMACS manual's CHARMM non-bonded settings:
+    vdwtype cut-off with force-switch, rvdw 1.2, rvdw-switch 1.0, PME with
+    rcoulomb 1.2, DispCorr no (rlist from the Verlet buffer)."""
+    from gromacs_fep_gpu_tpu_torch.core.types import VdwModifier
+    return _params(mts=True).replace(
+        rcoulomb=CHARMM_RC, rvdw=CHARMM_RC, rlist=CHARMM_RC,
+        vdw_modifier=VdwModifier.FORCE_SWITCH, rvdw_switch=CHARMM_RSW,
+        dispcorr=False, **kw)
+
+
+def _pairs_in_cut(planes, box, prep, r2max, block=64):
+    """Unique pairs of the pack's list (K7a: the union row of the
+    i-cluster's supercluster) that take the pair math: both atoms real and
+    unperturbed, not the self pair, r^2 below the larger cut-off
+    (rectangular minimum image).  The full list holds each twice."""
+    from gromacs_fep_gpu_tpu_torch.ops.pairlist import CLUSTER
+    dev = planes[0].device
+    bl = torch.diagonal(box)
+    ar = torch.arange(CLUSTER, device=dev)
+    n = 0
+    for c0 in range(0, prep.n_icl, block):
+        ci = torch.arange(c0, min(c0 + block, prep.n_icl), device=dev)
+        B = ci.shape[0]
+        row = ci // 8 if prep.layout == "super" else ci
+        jid = (prep.nbr[row].long()[..., None] * CLUSTER + ar).reshape(B, -1)
+        iid = ci[:, None] * CLUSTER + ar
+        r2 = 0.0
+        for p, L in zip(planes, bl):
+            d = p[iid][..., None] - p[jid][:, None, :]
+            d = d - torch.round(d / L) * L
+            r2 = r2 + d * d
+        ok = ((prep.pv[iid][..., None] > 0) & (prep.pv[jid][:, None, :] > 0)
+              & (iid[..., None] != jid[:, None, :]) & (r2 < r2max))
+        n += int(ok.sum())
+    return n // 2
+
+
+def _cluster_bytes(prep, flavour):
+    """Compulsory bytes of one launch: every input read once (the planes,
+    the live list entries and counts, exclusions or shifts and lane masks,
+    the LJ table) and every output written once."""
+    n_rows, n_icl = prep.n_rows, prep.n_icl
+    live = int(prep.cnt.sum())
+    per_atom = 5 + (1 if prep.nbfp is not None else 2)
+    b = per_atom * 4 * n_rows + 4 * (live + prep.cnt.numel()) + 36
+    if prep.nbfp is not None:
+        b += prep.nbfp.numel() * 4
+    if prep.layout == "v2":
+        b += live * (3 + 8) * 4
+    else:
+        b += prep.excl.numel() * 4
+    ne = 5 if flavour == "VFV" else 2
+    return b + 3 * 4 * n_icl * 8 + ne * 4 * n_icl
+
+
+def _cluster_kernel_rows(runner, state, timer, flavours, n_pairs=None):
+    """The per-cluster kernel of runner's layout in each flavour against
+    its plain version on one frame.  Gates: forces rel 5e-4 of max |F|,
+    energies rel 1e-4, the virial Xi_aa = -1/4 sum of the per-cluster
+    partials (float64 sum) rel 1e-4 of max |Xi_aa|; every call launches
+    the kernel exactly once."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
+    from gromacs_fep_gpu_tpu_torch.ops.nb_v2u import NbConstants
+    params, layout = runner.params, runner.layout
+    x, box = state.x, state.box
+    nlist, _, prep, fl = runner.lists(state)
+    consts = NbConstants.from_params(params, get_beta(params))
+    planes = nb_cluster.gather_planes(x, box, nlist, prep)
+    if n_pairs is None:
+        n_pairs = _pairs_in_cut(planes, box, prep,
+                                max(consts.rc2, consts.rv2))
+    flops = FLOPS_PAIR_TABLE if layout == "table" else FLOPS_PAIR
+    R, W = prep.nbr.shape
+    rows = []
+    for flavour in flavours:
+        name = f"nb_{layout}_{flavour}"
+        energy, virial = flavour != "F", flavour == "VFV"
+
+        def kern(e=energy, v=virial):
+            return nb_cluster.nb_cluster_cuda(planes, box, prep, consts, e,
+                                              v)
+
+        def plain(e=energy, v=virial):
+            return nb_cluster.nb_cluster_plain(planes, box, prep, consts, e,
+                                               v)
+        before = nb_cluster.launches[layout][flavour]
+        fk = kern()
+        if nb_cluster.launches[layout][flavour] != before + 1:
+            raise AssertionError(f"{name}: one call, "
+                                 f"{nb_cluster.launches[layout][flavour] - before}"
+                                 " launches")
+        fp = plain()
+        torch.cuda.synchronize()
+        f_rel, f_abs = _rel(torch.stack(fk[:3], -1), torch.stack(fp[:3], -1))
+        e_rel = v_rel = 0.0
+        if energy:
+            ek, ep = (0.5 * o[3][:, :2].double().sum(0) for o in (fk, fp))
+            e_rel = float(((ek - ep).abs() / ep.abs()).max())
+        if virial:
+            vk, vp = (-0.25 * o[3][:, 2:5].double().sum(0) for o in (fk, fp))
+            v_rel, v_abs = _rel(vk, vp)
+            f_abs = max(f_abs, v_abs)
+        ok = f_rel <= F_REL and e_rel <= E_REL and v_rel <= E_REL
+        ms = timer.ms(kern)
+        plain_ms = _median_ms(plain, reps=3)
+        bound, by = _bound_ms(_cluster_bytes(prep, flavour),
+                              n_pairs * (flops + FLOPS_JFORCE
+                                         + (9 if virial else 0)))
+        _say(f"{name} ({x.shape[0]:,} atoms): {R} rows x {W} entries, "
+             f"{int(prep.cnt.sum())} live, unique pairs in cut-off "
+             f"{n_pairs}; F "
+             f"rel {f_rel:.2e}, E rel {e_rel:.2e}, virial rel {v_rel:.2e} "
+             f"-> {'ok' if ok else 'FAIL'}; {ms:.4f} ms (plain "
+             f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}, library "
+             f"none)")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="gromacs_fep_gpu_tpu_torch/csrc/nb_cluster.cu",
+            replaces=REPLACES[layout], max_abs_err=f_abs, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None))
+    return rows, n_pairs
+
+
+def phase_cluster_kernels(system, params, state, timer, caps):
+    """Phase 10: K7a/b/c and the table kernel at the main path's shapes,
+    then the five NB routes against each other at one state (VF: forces
+    rel 5e-4 of max |F|, energies rel 1e-4, against the table kernel).
+    Returns the K7 rows (their launches come from phase 13)."""
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster, nb_v2u
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
+    from gromacs_fep_gpu_tpu_torch.ops.nb_v2u import NbConstants
+
+    def runner(layout):
+        return MdRunner(system, params, RunnerConfig(
+            layout=layout, super_nnbr=caps[0], fep_max_nbr=caps[1]))
+    rows, n_pairs, routes = [], None, {}
+    for layout in K7_LAYOUTS + ("table",):
+        r = runner(layout)
+        out, n_pairs = _cluster_kernel_rows(r, state, timer, ("F", "VF"),
+                                            n_pairs)
+        # the table kernel's rows come from the CHARMM path, which runs it
+        rows += out if layout != "table" else []
+        routes[layout] = r
+    routes["v2u"] = runner("v2u")
+    consts = NbConstants.from_params(params, get_beta(params))
+    res = {}
+    for layout, r in routes.items():
+        nlist, _, prep, _ = r.lists(state)
+        fn = (nb_v2u.cluster_forces_v2u if layout == "v2u"
+              else nb_cluster.cluster_forces)
+        f, ec, el = fn(state.x, state.box, nlist, prep, consts, True)
+        res[layout] = (f[nlist.inv_perm], torch.stack([ec, el]).double())
+    torch.cuda.synchronize()
+    f_ref, e_ref = res["table"]
+    worst = 0.0
+    for layout, (f, e) in res.items():
+        f_rel, _ = _rel(f, f_ref)
+        e_rel = float(((e - e_ref).abs() / e_ref.abs()).max())
+        worst = max(worst, f_rel / F_REL, e_rel / E_REL)
+        _say(f"  NB route {layout:7s} vs the table kernel: F rel "
+             f"{f_rel:.2e}, E (coul, lj) {[round(float(v), 3) for v in e]}"
+             f" rel {e_rel:.2e}")
+    if worst > 1.0:
+        raise AssertionError("the NB routes disagree at one state")
+    _say(f"five NB routes agree at {state.x.shape[0]:,} atoms "
+         f"({n_pairs} unique pairs in the cut-off)")
+    return rows
+
+
+def phase_small_charmm(device):
+    """Phase 11: the Lorentz-Berthelot table on the default RunnerConfig
+    (demoted to the table route) at 650 atoms, force-switch and then
+    potential-switch, rc 0.75 nm and rvdw-switch 0.6 nm (the CHARMM
+    cut-offs do not fit a 1.86 nm box), a 5-window ladder at window 2.
+    GPU against CPU over 20 steps (the small reference's gates), then the
+    GPU's final frame against the dense float64 oracle: the potential
+    and the LJ energy rel 1e-4, forces rel 1e-4 of max |F|, Delta H rel
+    1e-4 of max |Delta H|."""
+    from gromacs_fep_gpu_tpu_torch.core.types import TcouplType, VdwModifier
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, concat_logs
+    from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    from gromacs_fep_gpu_tpu_torch.ops.forces import (dense_energy, get_beta,
+                                                      make_dense_force_fn)
+    from gromacs_fep_gpu_tpu_torch.ops.pme import pme_grid_size
+    from gromacs_fep_gpu_tpu_torch.parallel.ensemble import lambda_schedule
+    n_side, window, nsteps = 6, 2, 20
+    ladder = lambda_schedule(5)
+    for modifier in (VdwModifier.FORCE_SWITCH, VdwModifier.POTENTIAL_SWITCH):
+        params = _params(mts=True).replace(
+            dt=0.001, rcoulomb=0.75, rvdw=0.75, rlist=0.75, rvdw_switch=0.6,
+            vdw_modifier=modifier,
+            pme_grid=pme_grid_size((n_side * 0.31,) * 3, 0.12),
+            tcoupl=TcouplType.NO, nstcalcenergy=10)
+        params = params.replace(fep=dataclasses.replace(params.fep,
+                                                        nstdhdl=10))
+        out = {}
+        for dev in (device, "cpu"):
+            system = _lb_system(n_side, dev)
+            _, state = solvation_system(n_side=n_side, seed=0, device=dev)
+            state = state.replace(lam=torch.tensor(ladder[window],
+                                                   device=dev),
+                                  fep_state=window)
+            runner = MdRunner(system, params, all_lambda=ladder)
+            if runner.layout != "table":
+                raise AssertionError("the LB table did not demote to the "
+                                     "table route")
+            state, logs = runner.run(state, nsteps)
+            out[dev] = (state, concat_logs(logs), runner)
+        (sg, lgg, run_g), (sc, lgc, run_c) = out[device], out["cpu"]
+        dx = float((sg.x.cpu() - sc.x).abs().max())
+        on = torch.isfinite(lgc.epot)
+        scale = float(lgc.epot[on].abs().max())
+        de = float((lgg.epot.cpu()[on] - lgc.epot[on]).abs().max())
+        dl = float((lgg.dvdl.cpu()[on][:, 2:4] - lgc.dvdl[on][:, 2:4])
+                   .abs().max())
+        dh_rel, _ = _rel(lgg.delta_h.cpu()[on], lgc.delta_h[on])
+        _say(f"small CHARMM-style reference ({modifier.value}, LB table, "
+             f"{system.n_atoms} atoms, {nsteps} steps, {run_g.n_regrow} "
+             f"regrows to nnbr {run_g.config.nnbr}): GPU vs CPU max|dx| "
+             f"{dx:.3e} nm, max|dEpot| {de:.3e}, max|d dvdl| {dl:.3e} "
+             f"(scale {scale:.1f}), Delta H rel {dh_rel:.2e}")
+        if not (dx <= 2e-4 and de <= 1e-4 * scale and dl <= 1e-4 * scale
+                and dh_rel <= E_REL):
+            raise AssertionError("small CHARMM-style reference: GPU run "
+                                 "disagrees with CPU")
+        # the GPU's final frame against the dense float64 oracle
+        nlist, feplist, prep, _ = run_g.lists(sg)
+        f_k, t_k = run_g._force_fn(sg.x, sg.box, sg.lam, nlist, feplist,
+                                   prep)
+        dh_k = run_g._foreign(feplist)(sg.x, sg.box, sg.lam)
+        x64, box64 = sg.x.cpu().double(), sg.box.cpu().double()
+        lam64 = sg.lam.cpu().double()
+        f_o, t_o = make_dense_force_fn(run_c.system, params,
+                                       run_c.recip_fn)(x64, box64, lam64)
+        beta = get_beta(params)
+        with torch.no_grad():
+            e = [dense_energy(x64, box64, lm, run_c.system, params, beta,
+                              run_c.recip_fn).epot
+                 for lm in list(torch.tensor(ladder).double()) + [lam64]]
+        dh_o = torch.stack(e[:-1]) - e[-1]
+        e_rel = abs(float(t_k.epot) - float(t_o.epot)) / abs(
+            float(t_o.epot))
+        lj_k = float(t_k.lj + t_k.lj14)
+        lj_o = float(t_o.lj + t_o.lj14)
+        lj_rel = abs(lj_k - lj_o) / abs(lj_o)
+        f_rel, _ = _rel(f_k.cpu().double(), f_o)
+        o_rel, _ = _rel(dh_k.cpu().double(), dh_o)
+        _say(f"  final frame vs dense float64 oracle: Epot "
+             f"{float(t_k.epot):.3f} vs {float(t_o.epot):.3f} (rel "
+             f"{e_rel:.2e}), LJ {lj_k:.3f} vs {lj_o:.3f} (rel {lj_rel:.2e}),"
+             f" F rel {f_rel:.2e}, Delta H rel {o_rel:.2e}")
+        if not (e_rel <= E_REL and lj_rel <= E_REL and f_rel <= E_REL
+                and o_rel <= E_REL):
+            raise AssertionError(f"{modifier.value}: the table route "
+                                 "disagrees with the dense oracle")
+
+
+def phase_charmm(device, timer, smi, start):
+    """Phase 12: the CHARMM path at 12,290 atoms from the main path's
+    production state.  Returns the table kernel's rows (launches: F and VF
+    from the 400 production steps, VF+virial from the C-rescale steps)."""
+    from gromacs_fep_gpu_tpu_torch.core.types import PcouplType
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    system = _lb_system(N_SIDE, device)
+    params = _charmm_params()
+    eq = MdRunner(system, params.replace(tau_t=0.1))
+    if eq.layout != "table":
+        raise AssertionError("the CHARMM path did not demote to the table "
+                             "route")
+    _say(f"CHARMM path: {system.n_atoms} atoms, LB table, force-switch "
+         f"{CHARMM_RSW}-{CHARMM_RC} nm, PME rc {CHARMM_RC} nm, rlist "
+         f"{eq._rlist if eq._rlist else 'at first run'}, layout "
+         f"{eq.layout}")
+    state, lg, sec, counts = _drive(eq, start.replace(step=0),
+                                    CHARMM_EQ_STEPS, "CHARMM equilibration")
+    _say(f"CHARMM equilibration: {CHARMM_EQ_STEPS} steps in {sec:.2f} s, "
+         f"rlist {eq._rlist:.4f} nm, regrows {eq.n_regrow} (nnbr 64 -> "
+         f"{eq.config.nnbr}, fep_max_nbr {eq.config.fep_max_nbr}), final T "
+         f"{float(lg.temp[-1]):.1f} K")
+
+    prod = MdRunner(system, params)
+    rows, _ = _cluster_kernel_rows(prod, state, timer, ("F", "VF", "VFV"))
+    prod = MdRunner(system, params)      # the default RunnerConfig again
+    state, lg, sec, counts = _drive(prod, state, PROD_STEPS,
+                                    "CHARMM production")
+    t_lo, t_hi = float(lg.temp.min()), float(lg.temp.max())
+    on = torch.isfinite(lg.epot)
+    ms_step = sec / PROD_STEPS * 1e3
+    ns_day = PROD_STEPS * params.dt / 1000.0 / sec * 86400.0
+    nb = {k: v for k, v in counts.items() if k.startswith("nb_") and v}
+    _say(f"CHARMM production (MTS2, dt 2 fs, table route): {PROD_STEPS} "
+         f"steps, {ms_step:.3f} ms/step, {ns_day:.2f} ns/day on {smi}; NB "
+         f"launches {nb}; regrows {prod.n_regrow} (nnbr 64 -> "
+         f"{prod.config.nnbr}); flags {prod.last_flags}; T {t_lo:.1f}.."
+         f"{t_hi:.1f} K; Epot {[round(float(e), 1) for e in lg.epot[on]]}; "
+         f"dV/dl coul {[round(float(d), 2) for d in lg.dvdl[on][:, 2]]} vdw "
+         f"{[round(float(d), 2) for d in lg.dvdl[on][:, 3]]}")
+    if set(nb) - {"nb_table_F", "nb_table_VF"}:
+        raise AssertionError(f"CHARMM path: NB launches outside the table "
+                             f"kernel: {nb}")
+    if not (TEMP_BAND[0] <= t_lo and t_hi <= TEMP_BAND[1]):
+        raise AssertionError(f"CHARMM path: temperature left {TEMP_BAND} "
+                             f"K: {t_lo:.1f}..{t_hi:.1f}")
+    idle = _profile_window(prod, state, params.nstlist, ms_step, top=6)
+    _say(f"CHARMM production idle share {idle:.3f} on {smi}")
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+
+    npt = MdRunner(system, params.replace(
+        pcoupl=PcouplType.C_RESCALE, tau_p=1.0, compressibility=4.5e-5,
+        nstpcouple=10), RunnerConfig(nnbr=prod.config.nnbr,
+                                     fep_max_nbr=prod.config.fep_max_nbr))
+    state, lg, sec, counts = _drive(npt, state.replace(step=0),
+                                    CHARMM_NPT_STEPS, "CHARMM C-rescale")
+    p_on = lg.pres[torch.isfinite(lg.pres)]
+    _say(f"CHARMM C-rescale on the table route: {CHARMM_NPT_STEPS} steps, "
+         f"{sec / CHARMM_NPT_STEPS * 1e3:.3f} ms/step, launches "
+         f"{ {k: v for k, v in counts.items() if k.startswith('nb_') and v} }"
+         f"; mean P {float(p_on.mean()):.1f} bar over {p_on.numel()} "
+         f"pressure steps")
+    if counts["nb_table_VFV"] != CHARMM_NPT_STEPS // 10 \
+            or not bool(torch.isfinite(p_on).all()):
+        raise AssertionError("CHARMM C-rescale: virial flavour launches or "
+                             "pressure")
+    rows[2]["launches"] = counts["nb_table_VFV"]
+    return rows
+
+
+def phase_layouts(system, params, state, caps):
+    """Phase 13: LAYOUT_STEPS steps of the main path on each K7 layout from
+    its production state; returns each layout's launches."""
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    total = {}
+    for layout in K7_LAYOUTS:
+        runner = MdRunner(system, params, RunnerConfig(
+            layout=layout, super_nnbr=caps[0], fep_max_nbr=caps[1],
+            seed=3))
+        _, lg, sec, counts = _drive(runner, state.replace(step=0),
+                                    LAYOUT_STEPS, f"layout {layout}")
+        nb = {k: v for k, v in counts.items() if k.startswith("nb_") and v}
+        _say(f"layout {layout}: {LAYOUT_STEPS} steps, "
+             f"{sec / LAYOUT_STEPS * 1e3:.3f} ms/step, NB launches {nb}, "
+             f"regrows {runner.n_regrow} (nnbr {runner.config.nnbr}, "
+             f"super_nnbr {runner.config.super_nnbr}), T "
+             f"{float(lg.temp.min()):.1f}..{float(lg.temp.max()):.1f} K")
+        total.update(nb)
+    return total
+
+
 def run(device="cuda", smi=None):
     """All phases on `device`; returns the kernel rows."""
     import gromacs_fep_gpu_tpu_torch  # noqa: F401  (sets TF32 off)
@@ -980,6 +1430,9 @@ def run(device="cuda", smi=None):
         super_nnbr=eq.config.super_nnbr, fep_max_nbr=eq.config.fep_max_nbr,
         seed=1))
     rows = phase_kernels(prod, state, timer)
+    cluster_rows = phase_cluster_kernels(
+        system, params, state, timer,
+        (eq.config.super_nnbr, eq.config.fep_max_nbr))
 
     state, lg, sec, counts = _drive(prod, state, PROD_STEPS, "production")
     temp = lg.temp
@@ -1001,13 +1454,20 @@ def run(device="cuda", smi=None):
         r["launches"] = counts[r["name"]]
     phase_profile(prod, state, 2 * params.nstlist, ms_step)
 
+    caps = (prod.config.super_nnbr, prod.config.fep_max_nbr)
+    layout_counts = phase_layouts(system, params, state, caps)
+    for r in cluster_rows:
+        r["launches"] = layout_counts.get(r["name"], 0)
+    phase_small_charmm(device)
+    table_rows = phase_charmm(device, timer, smi, state)
+
     window_rows, window_counts, npt_start = phase_window(device, timer, smi)
     npt_rows, npt_counts = phase_npt(timer, smi, *npt_start)
     for r in rows:
         if r["name"].startswith("nb_v2u"):    # K1 runs on every path
             r["launches_window"] = window_counts[r["name"]]
             r["launches_npt"] = npt_counts[r["name"]]
-    rows += window_rows + npt_rows
+    rows += cluster_rows + table_rows + window_rows + npt_rows
     for r in rows:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never ran on its path")

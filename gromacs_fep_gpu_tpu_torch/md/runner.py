@@ -1,7 +1,8 @@
 """Run driver — PyTorch counterpart of gromacs_fep_gpu_tpu/md/runner.py
 (RunnerConfig, MdRunner: _foreign_factory, _flavor_pattern, the rebuild ->
 nstlist-step chunk, _grow and roll-back on overflow) for the single-device
-v2u path and the dense oracle path (use_dense).  With a lambda ladder
+cluster paths (RunnerConfig.layout: v2u, super, cluster, v2 and the table
+route) and the dense oracle path (use_dense).  With a lambda ladder
 (all_lambda) the step loop records Delta H to every window each
 fep.nstdhdl steps; expanded-ensemble and AWH moves are not ported.  With
 pressure coupling the steps at step % nstpcouple == 0 take the virial
@@ -10,13 +11,14 @@ inside a chunk: the baked periodic shifts are box-vector counts and the
 PME influence function is rebuilt from the box at every call, so the
 chunk's lists stay valid as they do under the coordinates' motion.
 
-Each chunk rebuilds the pair lists (Hilbert sort, union cluster search
-with baked shifts, FEP list, v2u pack) and then runs nstlist steps
-eagerly.  The list flags are read synchronously once per rebuild, before
-any step uses the lists: on a capacity overflow the capacities grow by the
-JAX contract (need = max(flag, cap) * 1.25 + 8) and the chunk restarts
-from its verified start state, so no step ever runs on an overflowed
-list.  Excluded pairs beyond rlist fail hard.
+Each chunk rebuilds the pair lists (Hilbert sort, the layout's cluster
+search, FEP list, the layout's pack) and then runs nstlist steps eagerly.
+The list flags are read synchronously once per rebuild, before any step
+uses the lists: on a capacity overflow the capacities grow by the JAX
+contract (need = max(flag, cap) * 1.25 + 8, rounded up to 32 for the union
+list and to 16 for the per-cluster list) and the chunk restarts from its
+verified start state, so no step ever runs on an overflowed list.
+Excluded pairs beyond rlist fail hard.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 
 from ..core.types import CoulombType, MdParams, PcouplType, State, System
-from ..ops.cluster_nb import make_cluster_force_fn
+from ..ops import nb_cluster
+from ..ops.cluster_nb import lj_table_mode, make_cluster_force_fn
 from ..ops.forces import dense_energy, get_beta, make_dense_force_fn
 from ..ops.foreign import make_foreign_delta_fn
 from ..ops.nb_v2u import BU, prepare_v2u
@@ -36,13 +39,33 @@ from ..ops.pairlist import (build_cluster_pairlist, build_fep_pairlist,
 from .simulator import StepLog, make_step_fn, stack_logs
 from .verletbuf import effective_rlist
 
-FLAGS = ("fep_ovf", "s_ovf", "s_max", "excl_bad", "shift_bad", "t_ovf",
-         "t_max")
+FLAGS = ("fep_ovf", "s_ovf", "s_max", "n_ovf", "n_max", "excl_bad",
+         "shift_bad", "t_ovf", "t_max")
 
 
 @dataclasses.dataclass
 class RunnerConfig:
+    """Capacities and the kernel layout.  layout and the JAX package's
+    RunnerConfig(use_pallas, pallas_mode):
+    - "v2u" (default): K1 on the union lists of 4-cluster blocks
+      (use_pallas=True, pallas_mode="v2u", what bench.py runs);
+    - "super": K7a on the union lists of 8-cluster superclusters
+      (pallas_mode="super");
+    - "cluster": K7b on the per-cluster lists (pallas_mode="cluster");
+    - "v2": K7c on the per-cluster lists with baked shifts
+      (pallas_mode="v2");
+    - "table": the table route, the XLA cluster_nb_kernel's counterpart
+      (use_pallas=False, the JAX RunnerConfig's default, and mdrun -fep
+      cpu).
+    The kernel layouts demote to "table" on a non-geometric LJ table or a
+    vdW modifier other than potential-shift, as the JAX runner drops
+    use_pallas (ops/cluster_nb.py effective_layout); LJ-PME raises.
+    MdRunner.layout is the layout the force runs on; the config keeps
+    the one asked for.  Pressure coupling runs on "v2u" and "table" (their kernels have a
+    virial flavour) and raises on the K7 layouts."""
+    layout: str = "v2u"
     super_nnbr: int = 384           # union-list capacity per i-block
+    nnbr: int = 64                  # per-cluster list capacity
     fep_max_nbr: int = 256          # FEP partners per perturbed atom
     cell_size: Optional[float] = None   # sort-cell edge; default ~cluster
     tile_cap: Optional[int] = None  # two-level search tile capacity
@@ -84,10 +107,14 @@ class MdRunner:
             dense = make_dense_force_fn(system, params, self.recip_fn)
             self._force_fn = (lambda x, box, lam, nl, fl, prep=None,
                               **_flavor_kwargs: dense(x, box, lam))
+            self.layout = None
         else:
             self._force_fn = make_cluster_force_fn(
                 system, params, has_fep=self.has_fep,
-                pme_recip_force_fn=self.recip_force_fn)
+                pme_recip_force_fn=self.recip_force_fn,
+                layout=self.config.layout)
+            # the layout the force runs on, after the demotion
+            self.layout = self._force_fn.layout
         self._foreign, self._n_foreign = self._foreign_factory()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
@@ -134,7 +161,10 @@ class MdRunner:
         MTS off-step (host-computable: every trigger is step % N == 0)."""
         p = self.params
         noener_active = not self.config.use_dense and p.nstcalcenergy > 1
-        vir_active = p.pcoupl != PcouplType.NO and not self.config.use_dense
+        # the virial flavour: K1 and the table route (JAX: the XLA kernel
+        # and the v2u Pallas kernel, runner.py:307-312)
+        vir_active = (p.pcoupl != PcouplType.NO
+                      and self.layout in ("v2u", "table"))
         out = []
         for o in range(seg_len):
             s = start_step + o
@@ -177,10 +207,16 @@ class MdRunner:
         cfg = self.config
         if cfg.use_dense:
             return None, None, None, dict.fromkeys(FLAGS, 0)
+        layout = self.layout
+        per_cluster = layout in ("cluster", "v2", "table")
         nlist = build_cluster_pairlist(
             state.x, state.box, self.system, self._rlist,
-            cell_size=cfg.cell_size, super_nnbr=cfg.super_nnbr,
-            compute_shifts=cfg.baked_shifts, super_block=BU,
+            nnbr=cfg.nnbr if per_cluster else 0,
+            cell_size=cfg.cell_size,
+            super_nnbr=None if per_cluster else cfg.super_nnbr,
+            compute_shifts=(layout == "v2"
+                            or (layout == "v2u" and cfg.baked_shifts)),
+            super_block=8 if layout == "super" else BU,
             tile_cap=cfg.tile_cap)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         feplist, fep_ovf = None, zero
@@ -194,14 +230,22 @@ class MdRunner:
                                    CoulombType.REACTION_FIELD):
             excl_bad = check_exclusions(state.x, state.box, self.system,
                                         self._rlist, skip_perturbed=True)
-        prep = prepare_v2u(nlist, self.system.nbfp)
+        nbfp = self.system.nbfp
+        if layout == "v2u":
+            prep = prepare_v2u(nlist, nbfp)
+        elif layout == "table":
+            prep = nb_cluster.prepare_table(
+                nlist, nbfp, lj_table_mode(nbfp.cpu().numpy()))
+        else:
+            prep = nb_cluster.PREPARE[layout](nlist, nbfp)
+
+        def flag(t):
+            return zero if t is None else t
         flags = torch.stack([
-            fep_ovf, nlist.super_overflow, nlist.super_max_count, excl_bad,
-            (nlist.shift_overflow if nlist.shift_overflow is not None
-             else zero),
-            nlist.tile_overflow if nlist.tile_overflow is not None else zero,
-            nlist.tile_max if nlist.tile_max is not None else zero,
-        ]).to(torch.int64)
+            fep_ovf, flag(nlist.super_overflow), flag(nlist.super_max_count),
+            flag(nlist.n_overflow), flag(nlist.max_count), excl_bad,
+            flag(nlist.shift_overflow), flag(nlist.tile_overflow),
+            flag(nlist.tile_max)]).to(torch.int64)
         return nlist, feplist, prep, dict(zip(FLAGS, flags.cpu().tolist()))
 
     def _grow(self, fl: dict) -> bool:
@@ -214,6 +258,10 @@ class MdRunner:
         if fl["s_ovf"] > 0:
             need = int(max(fl["s_max"], cfg.super_nnbr) * 1.25 + 8)
             cfg.super_nnbr = (need + 31) // 32 * 32
+            grown = True
+        if fl["n_ovf"] > 0:
+            need = int(max(fl["n_max"], cfg.nnbr) * 1.25 + 8)
+            cfg.nnbr = (need + 15) // 16 * 16
             grown = True
         if fl["t_ovf"] > 0:
             cfg.tile_cap = int(max(fl["t_max"], cfg.tile_cap or 0)
@@ -279,17 +327,14 @@ class MdRunner:
                               else None),
             n_foreign=self._n_foreign, energy_epot_fn=epot_fn)
 
-    def run(self, state: State, nsteps: int
-            ) -> Tuple[State, List[StepLog]]:
-        """Run nsteps; returns (final state, per-chunk stacked StepLogs)."""
-        self._check_run(state)
+    def lists(self, state: State):
+        """(nlist, feplist, prep, flags) of a rebuild at `state` that no
+        list overflows: on an overflow the capacities grow (_grow) and on
+        a box too small for build-time shifts the v2u layout takes the
+        in-loop minimum image, each time rebuilding (counted in
+        n_regrow).  Excluded pairs beyond rlist fail hard."""
         cfg = self.config
-        self._set_geometry(state)
-        nst = max(1, min(self.params.nstlist, nsteps))
-        logs, done = [], 0
-        while done < nsteps:
-            seg_len = min(nst, nsteps - done)
-            flavors = self._flavor_pattern(state.step, seg_len)
+        while True:
             nlist, feplist, prep, fl = self.rebuild(state)
             if fl["excl_bad"] > 0:
                 raise RuntimeError(
@@ -298,16 +343,36 @@ class MdRunner:
                     "RF/Ewald exclusion corrections would be lost "
                     "(reference: nbnxm/exclusionchecker.cpp fails hard)")
             if fl["shift_bad"] > 0:
+                if self.layout == "v2":
+                    raise RuntimeError(
+                        "cluster extents too large relative to the box for "
+                        "the v2 kernel's build-time periodic shifts "
+                        "(gas-density system or tiny box); rerun with "
+                        "RunnerConfig(layout='cluster') or use_dense")
                 # cluster extents too large relative to the box for
                 # build-time shifts: switch to the in-loop minimum image
-                # and restart the chunk
                 cfg.baked_shifts = False
                 self.n_regrow += 1
                 continue
             if self._grow(fl):
-                # roll back: the chunk restarts from its verified start
                 self.n_regrow += 1
                 continue
+            return nlist, feplist, prep, fl
+
+    def run(self, state: State, nsteps: int
+            ) -> Tuple[State, List[StepLog]]:
+        """Run nsteps; returns (final state, per-chunk stacked StepLogs).
+        Each chunk rebuilds its lists at its verified start state (lists),
+        so a roll-back on overflow never runs a step on an overflowed
+        list."""
+        self._check_run(state)
+        self._set_geometry(state)
+        nst = max(1, min(self.params.nstlist, nsteps))
+        logs, done = [], 0
+        while done < nsteps:
+            seg_len = min(nst, nsteps - done)
+            flavors = self._flavor_pattern(state.step, seg_len)
+            nlist, feplist, prep, fl = self.lists(state)
             self.last_flags = fl
             step = self.step_fn(nlist, feplist, prep)
             chunk_logs = []

@@ -1,10 +1,16 @@
 """Production force assembly — PyTorch counterpart of
-gromacs_fep_gpu_tpu/ops/cluster_nb.py (lj_table_mode, fep_pair_energy,
-make_cluster_force_fn with other_energy and the MTS recip_scale /
-skip_recip path).
+gromacs_fep_gpu_tpu/ops/cluster_nb.py (lj_table_mode, cluster_nb_kernel,
+fep_pair_energy, make_cluster_force_fn with other_energy and the MTS
+recip_scale / skip_recip path).
 
-The plain non-bonded pairs go through the K1 kernel (ops/nb_v2u.py) on the
-union lists; everything else that is cheap — soft-core FEP pairs, bonds,
+The plain non-bonded pairs go through one of five layouts: K1 on the v2u
+union lists (ops/nb_v2u.py, the default), K7a/K7b/K7c ("super",
+"cluster", "v2") or the table route, the XLA cluster_nb_kernel's
+counterpart (ops/nb_cluster.py).  The kernel layouts are geometric-LJ,
+potential-shift kernels: a non-geometric LJ table (Lorentz-Berthelot) or
+another vdW modifier demotes the force to the table route, where the JAX
+package falls back from its Pallas kernels to the XLA kernel
+(`effective_layout`).  LJ-PME raises.  Everything else that is cheap — soft-core FEP pairs, bonds,
 angles, 1-4 pairs — is one differentiable energy whose forces and
 dV/dlambda come from torch.autograd (jax.grad on the JAX side).  The PME
 reciprocal part runs the K2/K3 kernels (ops/pme.py make_pme_recip_pair).
@@ -12,8 +18,8 @@ The dispersion correction (DispCorr = EnerPres) adds its energy and its
 dV/dlambda_vdw; its pressure is the step's (ops/dispcorr.py p_tail).
 
 need_virial=True (the pressure steps of an NPT run) fills terms.vir_diag
-with the diagonal potential virial from the same force pass: the K1
-kernel's pair sums, the strain gradient of the cheap energy (taken in the
+with the diagonal potential virial from the same force pass: the K1 (or
+table-route) kernel's pair sums, the strain gradient of the cheap energy (taken in the
 same backward pass as its forces: the energy is evaluated at x s, box s
 with s = 1 + eps, eps = 0) and the reciprocal term's strain derivative on
 the force pass's grids.
@@ -26,15 +32,18 @@ import numpy as np
 import torch
 
 from ..core import pbc as pbc_mod
-from ..core.types import (EnergyTerms, FepCoupling, MdParams, System,
-                          VdwModifier)
+from ..core.types import (EnergyTerms, FepCoupling, MdParams, PcouplType,
+                          System, VdwModifier)
 from ..core.units import ONE_4PI_EPS0
 from . import bonded as bonded_mod
 from .fep import FepPairData, softcore_pair_energies
 from .dispcorr import make_dispersion_correction
 from .forces import get_beta, pairs14_energy
-from .nb_v2u import NbConstants, PrepV2U, cluster_forces_v2u
+from . import nb_cluster
+from .nb_v2u import NbConstants, cluster_forces_v2u
 from .pairlist import ClusterPairlist, FepPairlist
+
+LAYOUTS = ("v2u",) + nb_cluster.LAYOUTS
 
 
 def lj_table_mode(nbfp_np) -> str:
@@ -47,6 +56,40 @@ def lj_table_mode(nbfp_np) -> str:
                            atol=1e-12):
             return "table"
     return "geometric"
+
+
+def effective_layout(nbfp_np, params: MdParams, layout: str) -> str:
+    """The layout the force runs on: the kernel layouts (v2u, super,
+    cluster, v2) hold the geometric-LJ, potential-shift kernels only, so a
+    table-mode LJ or another vdW modifier demotes to the table route, as
+    the JAX package drops use_pallas (cluster_nb.py:435-441,
+    runner.py:199-207).  LJ-PME is not ported and raises."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} is not one of {LAYOUTS}")
+    if params.vdw_type == "pme":
+        raise NotImplementedError("LJ-PME (vdw_type = pme) is not ported "
+                                  "yet")
+    if params.vdw_type != "cut-off":
+        raise ValueError(f"vdw_type {params.vdw_type!r}")
+    if (lj_table_mode(nbfp_np) != "geometric"
+            or params.vdw_modifier != VdwModifier.POTENTIAL_SHIFT):
+        return "table"
+    return layout
+
+
+def cluster_nb_kernel(x, box, nlist: ClusterPairlist, nbfp,
+                      params: MdParams, beta: Optional[float],
+                      lj_mode: str = "table", compute_virial: bool = False,
+                      compute_energy: bool = True):
+    """Analytic forces and energies over the per-cluster list: (f_sorted
+    (n_pad, 3), e_coul, e_lj[, vir_diag (3,)]), the JAX XLA kernel's
+    outputs (energies halved, the virial -1/4 of the pair sums).  It runs
+    the table route: its plain version (nb_cluster.cluster_nb_kernel_core)
+    on CPU tensors, its CUDA kernel on CUDA tensors."""
+    prep = nb_cluster.prepare_table(nlist, nbfp, lj_mode)
+    return nb_cluster.cluster_forces(
+        x, box, nlist, prep, NbConstants.from_params(params, beta),
+        compute_energy=compute_energy, compute_virial=compute_virial)
 
 
 def fep_pair_energy(x, box, lam_c, lam_v, feplist: FepPairlist,
@@ -73,27 +116,30 @@ def fep_pair_energy(x, box, lam_c, lam_v, feplist: FepPairlist,
 
 def make_cluster_force_fn(system: System, params: MdParams,
                           has_fep: Optional[bool] = None,
-                          pme_recip_force_fn: Optional[Callable] = None):
+                          pme_recip_force_fn: Optional[Callable] = None,
+                          layout: str = "v2u"):
     """force_fn(x, box, lam, nlist, feplist, prep, need_energy=True,
     need_virial=False, recip_scale=1.0, skip_recip=False) -> (f,
-    EnergyTerms).
+    EnergyTerms); force_fn.layout is the layout it runs
+    (effective_layout), and prep must be that layout's pack (PrepV2U or
+    nb_cluster.PrepCluster).
 
-    need_energy=False runs the force-only K1 flavour and skips the
+    need_energy=False runs the force-only kernel flavour and skips the
     dV/dlambda backward pass.  need_virial=True (energies included) runs
-    K1's virial flavour and fills terms.vir_diag.  recip_scale /
-    skip_recip are multiple time stepping of the PME reciprocal force:
-    on-steps apply the recip force scaled by the MTS factor, off-steps skip
-    it; energies, dvdl and the virial stay unscaled."""
+    the kernel's virial flavour (K1 or the table route; K7a/b/c have none
+    and raise) and fills terms.vir_diag.  recip_scale / skip_recip are
+    multiple time stepping of the PME reciprocal force: on-steps apply the
+    recip force scaled by the MTS factor, off-steps skip it; energies, dvdl
+    and the virial stay unscaled."""
     beta = get_beta(params)
     if has_fep is None:
         has_fep = bool(system.perturbed.any())
-    nbfp_np = system.nbfp.cpu().numpy()
-    if (lj_table_mode(nbfp_np) != "geometric"
-            or params.vdw_modifier != VdwModifier.POTENTIAL_SHIFT
-            or params.vdw_type != "cut-off"):
+    layout = effective_layout(system.nbfp.cpu().numpy(), params, layout)
+    if params.pcoupl != PcouplType.NO and layout not in ("v2u", "table"):
         raise NotImplementedError(
-            "only the geometric-LJ, potential-shift cluster kernel (v2u) is "
-            "ported; the XLA table kernel is not")
+            f"pressure coupling on the {layout} layout: its kernel has no "
+            "virial flavour (the JAX package takes an autograd pressure "
+            "there); use layout v2u or table")
     disp_e_fn = (make_dispersion_correction(system, params)[0]
                  if params.dispcorr else None)
     has_pairs14 = system.pairs14 is not None and system.pairs14.n > 0
@@ -124,15 +170,29 @@ def make_cluster_force_fn(system: System, params: MdParams,
 
     def force_fn(x, box, lam, nlist: ClusterPairlist,
                  feplist: Optional[FepPairlist] = None,
-                 prep: Optional[PrepV2U] = None, need_energy: bool = True,
+                 prep=None, need_energy: bool = True,
                  need_virial: bool = False, recip_scale: float = 1.0,
                  skip_recip: bool = False):
         if need_virial and pme_recip_force_fn is not None and skip_recip:
             raise ValueError("a pressure step must evaluate the reciprocal "
                              "term (align nstpcouple with the MTS factor)")
-        out = cluster_forces_v2u(x, box, nlist, prep, consts,
-                                 compute_energy=need_energy,
-                                 compute_virial=need_virial)
+        if layout == "v2u":
+            out = cluster_forces_v2u(x, box, nlist, prep, consts,
+                                     compute_energy=need_energy,
+                                     compute_virial=need_virial)
+        else:
+            if need_virial and layout != "table":
+                raise NotImplementedError(
+                    f"the {layout} layout has no virial flavour (the JAX "
+                    "package takes an autograd pressure there): run "
+                    "pressure coupling on the v2u layout or the table "
+                    "route")
+            if prep.layout != layout:
+                raise ValueError(f"a {prep.layout} pack on the {layout} "
+                                 "force")
+            out = nb_cluster.cluster_forces(x, box, nlist, prep, consts,
+                                            compute_energy=need_energy,
+                                            compute_virial=need_virial)
         f_sorted, e_coul, e_lj = out[:3]
         f_cluster = f_sorted[nlist.inv_perm]
 
@@ -187,4 +247,5 @@ def make_cluster_force_fn(system: System, params: MdParams,
                 terms = terms.replace(dvdl=glam)
         return f, terms
 
+    force_fn.layout = layout
     return force_fn

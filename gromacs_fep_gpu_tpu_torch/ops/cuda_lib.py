@@ -25,7 +25,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("nb_v2u.cu", "pme_spline.cu")
+SOURCES = ("nb_v2u.cu", "nb_cluster.cu", "pme_spline.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,13 @@ SIGNATURES = {
         # energies, box(9); S, G, coulomb type, energy flag, virial flag,
         # minimum-image flag; 8 float constants; stream
         "nb_v2u_launch": [_P] * 20 + [_I] * 6 + [_F] * 8 + [_P],
+    },
+    "nb_cluster": {
+        # x, y, z, q, pv, s6, s12, types, nbfp, excl, nbr, cnt, shift,
+        # jmask, 3 force planes, energies, box(9); T, K, W, n_icl, layout,
+        # lj_table, flavour, coulomb type, modifier; 16 float constants;
+        # stream
+        "nb_cluster_launch": [_P] * 19 + [_I] * 9 + [_F] * 16 + [_P],
     },
     "pme_spline": {
         # x, q, box(9), grid; n, K1, K2, K3; stream

@@ -13,9 +13,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.types import CoulombType, FepParams, MdParams, SoftcoreType
-from .nonbonded_ref import (ewald_beta, rf_constants,  # noqa: F401
-                            vdw_shift_constants)
+from ..core.types import (CoulombType, FepParams, MdParams, SoftcoreType,
+                          VdwModifier)
+from .nonbonded_ref import (_potential_switch, ewald_beta,  # noqa: F401
+                            rf_constants, vdw_shift_constants)
 
 MIN_DIST_SQ = 1.0e-6
 MAX_RINV_SIX = 1.0e15
@@ -123,8 +124,17 @@ def softcore_pair_energies(r2, pair: FepPairData, lam_coul, lam_vdw,
     rinv6 = torch.clamp(rpinv_v, max=MAX_RINV_SIX)
     mask_v = ((r_v < params.rvdw).to(dtype)
               * ((c6 != 0) | (c12 != 0)).to(dtype) * inc)
-    cp6, cp12 = vdw_shift_constants(params)
-    v_v = (c12 * rinv6 * rinv6 - c6 * rinv6 + c12 * cp12 - c6 * cp6) * mask_v
+    v_v = c12 * rinv6 * rinv6 - c6 * rinv6
+    if params.vdw_modifier == VdwModifier.POTENTIAL_SWITCH:
+        # the switching polynomial of the soft-core radius
+        v_v = v_v * _potential_switch(r_v, params.rvdw_switch, params.rvdw)
+    else:
+        # potential-shift and force-switch apply only the constant shift
+        # (cpot), no switching polynomial (reference:
+        # nb_free_energy.cpp:344-345); none applies nothing
+        cp6, cp12 = vdw_shift_constants(params)
+        v_v = v_v + c12 * cp12 - c6 * cp6
+    v_v = v_v * mask_v
 
     v_coul = torch.sum(lfac_c * v_c, dim=0)
     v_vdw = torch.sum(lfac_v * v_v, dim=0)

@@ -22,14 +22,14 @@ csrc/nb_v2u.cu or raise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from ..core.types import CoulombType, MdParams
+from ..core.types import CoulombType, MdParams, VdwModifier
 from ..core.units import ONE_4PI_EPS0
 from . import cuda_lib
-from .nonbonded_ref import rf_constants
+from .nonbonded_ref import forceswitch_constants, rf_constants
 from .pairlist import CLUSTER, ClusterPairlist
 
 R2_FLOOR = 1e-6
@@ -81,7 +81,9 @@ def _pmecorr_f_recip(z2):
 
 @dataclasses.dataclass(frozen=True)
 class NbConstants:
-    """Scalar parameters of the kernel, derived once from MdParams."""
+    """Scalar parameters of the kernels, derived once from MdParams.  The
+    vdW modifier and its constants are read by the table route
+    (ops/nb_cluster.py) only: K1 and K7a/b/c are potential-shift kernels."""
     coulomb: CoulombType
     epsfac: float
     beta: float
@@ -91,18 +93,30 @@ class NbConstants:
     crf: float
     rcinv6: float
     inv_rc: float
+    modifier: VdwModifier = VdwModifier.POTENTIAL_SHIFT
+    rsw: float = 0.0            # rvdw-switch
+    rvdw: float = 1.0
+    # force-switch (c2, c3, cpot) of r^-6 then of r^-12
+    fsw: Tuple[float, ...] = (0.0,) * 6
 
     @staticmethod
     def from_params(params: MdParams, beta: Optional[float]):
         krf, crf = (rf_constants(params)
                     if params.coulomb == CoulombType.REACTION_FIELD
                     else (0.0, 0.0))
+        fsw = (0.0,) * 6
+        if params.vdw_modifier == VdwModifier.FORCE_SWITCH:
+            fsw = (forceswitch_constants(6.0, params.rvdw_switch, params.rvdw)
+                   + forceswitch_constants(12.0, params.rvdw_switch,
+                                           params.rvdw))
         return NbConstants(
             coulomb=params.coulomb,
             epsfac=float(ONE_4PI_EPS0 / params.epsilon_r),
             beta=float(beta or 0.0), rc2=params.rcoulomb ** 2,
             rv2=params.rvdw ** 2, krf=krf, crf=crf,
-            rcinv6=1.0 / params.rvdw ** 6, inv_rc=1.0 / params.rcoulomb)
+            rcinv6=1.0 / params.rvdw ** 6, inv_rc=1.0 / params.rcoulomb,
+            modifier=params.vdw_modifier, rsw=params.rvdw_switch,
+            rvdw=params.rvdw, fsw=tuple(float(v) for v in fsw))
 
 
 @dataclasses.dataclass

@@ -126,8 +126,11 @@ def _lj_pair_energy(c6, c12, r2, rinv2, incut, params: MdParams):
         v = v + c12 * (-4.0 * c2r * rs3 - 3.0 * c3r * rs3 * rs + cp12) \
             - c6 * (-2.0 * c2d * rs3 - 1.5 * c3d * rs3 * rs + cp6)
     elif params.vdw_modifier == VdwModifier.POTENTIAL_SWITCH:
-        v = v * _potential_switch(torch.sqrt(r2), params.rvdw_switch,
-                                  params.rvdw)
+        # r from the floored r^2, as force-switch: sqrt(r2) at the dense
+        # matrix's zero diagonal has an infinite derivative, and 0 * inf
+        # made every force NaN (the JAX oracle's fault, not copied)
+        r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-12))
+        v = v * _potential_switch(r, params.rvdw_switch, params.rvdw)
     return v * incut
 
 

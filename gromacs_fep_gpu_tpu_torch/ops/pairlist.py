@@ -4,13 +4,20 @@ _pack_valid, _cluster_neighbors, _cluster_neighbors_2level,
 _total_image_counts, build_cluster_pairlist, check_exclusions,
 build_fep_pairlist).
 
-Atoms are Hilbert-sorted into 8-atom clusters; each block of `super_block`
-i-clusters gets a FULL union list of j-clusters whose bounding boxes come
-within rlist, with build-time periodic shifts (box-vector counts) for the
-v2u kernel.  Capacity overflow is reported in flags and handled by the
-runner's grow-and-roll-back.  Only the v2u branch is ported: the
-per-cluster list (nnbr > 0) and triclinic shifts raise NotImplementedError.
-`torch.argsort(..., stable=True)` reproduces jnp.argsort's tie order.
+Atoms are Hilbert-sorted into 8-atom clusters.  Two FULL list forms, both
+of j-clusters whose bounding boxes come within rlist:
+- the per-cluster list (nnbr > 0): up to nnbr j-clusters per i-cluster,
+  nearest first (the table route, K7b and K7c read it); with
+  compute_shifts and no union list, per-entry build-time periodic shifts
+  (nbr_shift, box-vector counts) for K7c;
+- the union list (super_nnbr): one list per block of `super_block`
+  i-clusters (4 for the v2u kernel K1, 8 for the supercluster kernel K7a),
+  with per-(block, entry) shifts when compute_shifts is set.
+The bounding-box test runs in chunks of query rows, so no (C, C) matrix is
+ever held at once.  Capacity overflow is reported in flags and handled by
+the runner's grow-and-roll-back.  Triclinic shifts raise
+NotImplementedError.  `torch.sort(..., stable=True)` reproduces
+lax.top_k's tie order (lower index first).
 """
 from __future__ import annotations
 
@@ -37,9 +44,16 @@ class ClusterPairlist:
     pert: torch.Tensor          # (n_pad,) f32 1.0 if perturbed
     excl: torch.Tensor          # (n_pad, K) partners in SORTED ids, -1 pad
     n_clusters: int
-    nbr_super: torch.Tensor     # (S, NNBR_B) j-cluster ids (C = pad)
-    super_overflow: torch.Tensor   # () i32 blocks whose list exceeded NNBR_B
-    super_max_count: torch.Tensor  # () i32
+    # union list of super_block-cluster i-blocks (None without super_nnbr)
+    nbr_super: Optional[torch.Tensor] = None     # (S, NNBR_B) ids (C = pad)
+    super_overflow: Optional[torch.Tensor] = None  # () blocks over NNBR_B
+    super_max_count: Optional[torch.Tensor] = None
+    # per-cluster list (None without nnbr), nearest first
+    nbr: Optional[torch.Tensor] = None           # (C, NNBR) ids (C = pad)
+    nbr_mask: Optional[torch.Tensor] = None      # (C, NNBR) 1.0 valid
+    n_overflow: Optional[torch.Tensor] = None    # () clusters over NNBR
+    max_count: Optional[torch.Tensor] = None     # () largest need
+    nbr_shift: Optional[torch.Tensor] = None     # (C, NNBR, 3) int8
     super_shift: Optional[torch.Tensor] = None   # (S, NNBR_B, 3) int8
     img: Optional[torch.Tensor] = None           # (n_pad, 3) f32
     shift_overflow: Optional[torch.Tensor] = None
@@ -242,12 +256,14 @@ def build_cluster_pairlist(x, box, system: System, rlist: float,
                            triclinic: bool = False,
                            tile_cap: Optional[int] = None
                            ) -> ClusterPairlist:
-    """Rebuild the union (super-block) cluster pair list (NS step)."""
-    if nnbr != 0:
-        raise NotImplementedError("the per-cluster list (nnbr > 0) feeds "
-                                  "the non-v2u kernels, not ported yet")
-    if super_nnbr is None:
-        raise NotImplementedError("only the v2u union list is ported")
+    """Rebuild the cluster pair lists (NS step): the per-cluster list when
+    nnbr > 0, the union list of super_block-cluster blocks when super_nnbr
+    is given, at least one of them.  compute_shifts bakes periodic shifts
+    into the union list when there is one, else into the per-cluster
+    list."""
+    if nnbr <= 0 and super_nnbr is None:
+        raise ValueError("ask for the per-cluster list (nnbr > 0), the "
+                         "union list (super_nnbr) or both")
     if triclinic:
         raise NotImplementedError("triclinic baked shifts are not ported")
     dev = x.device
@@ -275,6 +291,13 @@ def build_cluster_pairlist(x, box, system: System, rlist: float,
     bb_lo = xref[:, 0] + dloc.min(dim=1).values
     bb_hi = xref[:, 0] + dloc.max(dim=1).values
 
+    rl2 = float(np.float32(rlist ** 2))
+    nbr = nbr_mask = n_overflow = max_count = None
+    if nnbr > 0:
+        nbr, n_overflow, max_count = _cluster_neighbors(
+            bb_lo, bb_hi, bb_lo, bb_hi, box, rl2, nnbr)
+        nbr_mask = (nbr < C).to(x.dtype)
+
     SB = super_block
     S = (C + SB - 1) // SB
     pad_s = S * SB - C
@@ -285,19 +308,37 @@ def build_cluster_pairlist(x, box, system: System, rlist: float,
     blk_lo = lo_s.min(dim=1).values
     blk_hi = torch.where(hi_s > 5e5, torch.full_like(hi_s, -1e6),
                          hi_s).max(dim=1).values
-    rl2 = float(np.float32(rlist ** 2))
+    nbr_super = super_overflow = super_max = None
     tile_overflow = tile_max = None
-    if C >= 4096:
+    if super_nnbr is not None and C >= 4096:
         (nbr_super, super_overflow, super_max, tile_overflow,
          tile_max) = _cluster_neighbors_2level(
             blk_lo, blk_hi, bb_lo, bb_hi, box, rl2, super_nnbr,
             tile_cap=tile_cap)
-    else:
+    elif super_nnbr is not None:
         nbr_super, super_overflow, super_max = _cluster_neighbors(
             blk_lo, blk_hi, bb_lo, bb_hi, box, rl2, super_nnbr)
 
-    super_shift = img = shift_overflow = None
-    if compute_shifts:
+    super_shift = nbr_shift = img = shift_overflow = None
+    if compute_shifts and nbr_super is None:
+        # one shift per (i-cluster, entry) from the cluster centres, valid
+        # for the whole nstlist window (the buffer bounds the motion)
+        cen = 0.5 * (bb_lo + bb_hi)
+        he = 0.5 * (bb_hi - bb_lo)
+        nbr_c = torch.clamp(nbr, max=C - 1)
+        rel = pbc_mod.frac_coords(cen[:, None, :] - cen[nbr_c], box)
+        nbr_shift = torch.round(rel).to(torch.int8)
+        # after the centre shift, the largest atom-pair displacement per
+        # component must stay below L - rlist, else another image of the
+        # pair could be the interacting one
+        diag = torch.diagonal(box)
+        dmax = (torch.abs(rel - torch.round(rel)) * diag + he[:, None, :]
+                + he[nbr_c])
+        bad = torch.any(dmax > (diag - rlist), dim=-1)
+        shift_overflow = torch.sum((bad & (nbr_mask > 0)).to(torch.int32))
+        img = _total_image_counts(x, box, perm, n, n_pad, xs, xref, dloc,
+                                  valid_lane)
+    elif compute_shifts:
         cen_b = 0.5 * (blk_lo + blk_hi)
         cen_c = 0.5 * (bb_lo + bb_hi)
         he_c = 0.5 * (bb_hi - bb_lo)
@@ -343,7 +384,9 @@ def build_cluster_pairlist(x, box, system: System, rlist: float,
         t_a=gather_pad(system.type_a, 0), t_b=gather_pad(system.type_b, 0),
         pert=gather_pad(system.perturbed.to(x.dtype), 0.0), excl=excl,
         n_clusters=C, nbr_super=nbr_super, super_overflow=super_overflow,
-        super_max_count=super_max, super_shift=super_shift, img=img,
+        super_max_count=super_max, nbr=nbr, nbr_mask=nbr_mask,
+        n_overflow=n_overflow, max_count=max_count, nbr_shift=nbr_shift,
+        super_shift=super_shift, img=img,
         shift_overflow=shift_overflow, tile_overflow=tile_overflow,
         tile_max=tile_max)
 

@@ -13,6 +13,7 @@ import torch
 from gromacs_fep_gpu_tpu.core.types import CoulombType as JCoulomb
 from gromacs_fep_gpu_tpu.core.types import FepParams as JFep
 from gromacs_fep_gpu_tpu.core.types import MdParams as JMdParams
+from gromacs_fep_gpu_tpu.core.types import VdwModifier as JVdw
 from gromacs_fep_gpu_tpu.models.solvation import solvation_system
 from gromacs_fep_gpu_tpu.ops import bonded as jbonded
 from gromacs_fep_gpu_tpu.ops.cluster_nb import fep_pair_energy as j_fep
@@ -28,12 +29,14 @@ from gromacs_fep_gpu_tpu_torch.ops.pairlist import FepPairlist
 from torch_bridge import t, to_port
 
 
-def _params(coulomb: str, sc_alpha=0.5, sc_coul=True):
-    kw = dict(rcoulomb=0.6, rvdw=0.6, rlist=0.65)
-    jp = JMdParams(coulomb=JCoulomb(coulomb), **kw,
-                   fep=JFep(enabled=True, sc_alpha=sc_alpha, sc_coul=sc_coul,
-                            sc_sigma=0.3))
-    tp = ttypes.MdParams(coulomb=ttypes.CoulombType(coulomb), **kw,
+def _params(coulomb: str, sc_alpha=0.5, sc_coul=True,
+            modifier="potential-shift"):
+    kw = dict(rcoulomb=0.6, rvdw=0.6, rlist=0.65, rvdw_switch=0.45)
+    jp = JMdParams(coulomb=JCoulomb(coulomb), vdw_modifier=JVdw(modifier),
+                   **kw, fep=JFep(enabled=True, sc_alpha=sc_alpha,
+                                  sc_coul=sc_coul, sc_sigma=0.3))
+    tp = ttypes.MdParams(coulomb=ttypes.CoulombType(coulomb),
+                         vdw_modifier=ttypes.VdwModifier(modifier), **kw,
                          fep=ttypes.FepParams(enabled=True, sc_alpha=sc_alpha,
                                               sc_coul=sc_coul, sc_sigma=0.3))
     return jp, tp
@@ -52,12 +55,21 @@ def system():
     return js, jst, jfl, ts, tst, tfl
 
 
-@pytest.mark.parametrize("coulomb,sc_alpha,sc_coul", [
-    ("pme", 0.5, True), ("reaction-field", 0.5, True),
-    ("reaction-field", 0.0, False)])
-def test_softcore_matches_jax(system, coulomb, sc_alpha, sc_coul):
+@pytest.mark.parametrize("coulomb,sc_alpha,sc_coul,modifier", [
+    pytest.param("pme", 0.5, True, "potential-shift", id="pme-0.5-True"),
+    pytest.param("reaction-field", 0.5, True, "potential-shift",
+                 id="reaction-field-0.5-True"),
+    pytest.param("reaction-field", 0.0, False, "potential-shift",
+                 id="reaction-field-0.0-False"),
+    # force-switch: the constant shift cpot only, no polynomial
+    pytest.param("pme", 0.5, True, "force-switch", id="pme-force-switch"),
+    # potential-switch: the switching polynomial of the soft-core radius
+    # (the port once applied the constant shift, 0, instead: rel 1.05e-2)
+    pytest.param("pme", 0.5, True, "potential-switch",
+                 id="pme-potential-switch")])
+def test_softcore_matches_jax(system, coulomb, sc_alpha, sc_coul, modifier):
     js, jst, jfl, ts, tst, tfl = system
-    jp, tp = _params(coulomb, sc_alpha, sc_coul)
+    jp, tp = _params(coulomb, sc_alpha, sc_coul, modifier)
     lam = (0.5, 0.3)
 
     def jtotal(x, lc, lv):

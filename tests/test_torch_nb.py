@@ -13,13 +13,12 @@ import torch
 
 from gromacs_fep_gpu_tpu.core.types import CoulombType, MdParams
 from gromacs_fep_gpu_tpu.models.water import water_box
-from gromacs_fep_gpu_tpu.ops.pairlist import build_cluster_pairlist
-from gromacs_fep_gpu_tpu.ops.pallas_nb import (pallas_cluster_forces_v2u,
-                                               pallas_prepare_v2u)
+from gromacs_fep_gpu_tpu.ops.pallas_nb import pallas_cluster_forces_v2u
 from gromacs_fep_gpu_tpu_torch.core import types as ttypes
 from gromacs_fep_gpu_tpu_torch.ops import nb_v2u
 
-from torch_bridge import port_cluster_list, t, to_port
+from torch_bridge import (jax_cluster_list, jax_prepare_v2u,
+                          port_cluster_list, t, to_port)
 
 
 @pytest.fixture(scope="module", params=[True, False],
@@ -31,13 +30,13 @@ def lists(request):
     # re-enter the rebuild frame through nlist.img
     x = state.x.at[30:33].add(jnp.array([2.0 * state.box[0, 0],
                                          -3.0 * state.box[1, 1], 0.0]))
-    jl = build_cluster_pairlist(x, state.box, system, 0.6, nnbr=0,
-                                super_nnbr=192, super_block=4,
-                                compute_shifts=baked)
+    jl = jax_cluster_list(x, state.box, system, 0.6, nnbr=0,
+                          super_nnbr=192, super_block=4,
+                          compute_shifts=baked)
     assert int(jl.super_overflow) == 0
     if baked:
         assert int(jl.shift_overflow) == 0
-    jprep = pallas_prepare_v2u(jl, system.nbfp)
+    jprep = jax_prepare_v2u(jl, system.nbfp)
     ts, _ = to_port(system, state.replace(x=x))
     tl = port_cluster_list(jl, jl.n_clusters)
     tprep = nb_v2u.prepare_v2u(tl, ts.nbfp)

@@ -1,7 +1,8 @@
 """The port stands alone: with jax (and the JAX package) made unimportable,
-every module of gromacs_fep_gpu_tpu_torch imports, and one MD step, two
-C-rescale NPT steps with the dispersion correction, and a two-step lambda
-window with its dhdl.xvg and BAR run on the CPU.  Run in a subprocess so this test's own interpreter, which has
+every module of gromacs_fep_gpu_tpu_torch imports, and one MD step, one
+step of the table route (Lorentz-Berthelot, force-switch) and of K7a and
+K7b, two C-rescale NPT steps with the dispersion correction, and a
+two-step lambda window with its dhdl.xvg and BAR run on the CPU.  Run in a subprocess so this test's own interpreter, which has
 JAX loaded, does not hide a stray import."""
 import os
 import subprocess
@@ -21,7 +22,8 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 for m in ("ops.nonbonded_ref", "ops.forces", "ops.foreign", "ops.dispcorr",
-          "io.xvgio", "analysis.bar", "analysis.mbar", "parallel.ensemble"):
+          "ops.nb_cluster", "io.xvgio", "analysis.bar", "analysis.mbar",
+          "parallel.ensemble"):
     assert pkg.__name__ + "." + m in mods, m
 from gromacs_fep_gpu_tpu_torch.core.types import (CoulombType, FepParams,
                                                   MdParams)
@@ -38,6 +40,26 @@ runner = MdRunner(system, params, RunnerConfig(super_nnbr=128,
 state, logs = runner.run(state, 1)
 assert state.step == 1 and bool(torch.isfinite(state.x).all())
 assert bool(torch.isfinite(logs[0].epot).all())
+# a Lorentz-Berthelot table with force-switch demotes the default layout
+# to the table route; K7a/b/c run on the same system's geometric table
+import dataclasses
+from gromacs_fep_gpu_tpu_torch.core.topology import lj_table_from_sigma_eps
+from gromacs_fep_gpu_tpu_torch.core.types import VdwModifier
+lb = torch.as_tensor(lj_table_from_sigma_eps(
+    [0.315061, 0.1, 0.35, 0.25, 0.1], [0.636386, 0.0, 0.45, 0.1, 0.0], 2))
+lb[1] = lb[:, 1] = lb[4] = lb[:, 4] = 0.0
+fsw = params.replace(vdw_modifier=VdwModifier.FORCE_SWITCH, rvdw_switch=0.5)
+table = MdRunner(dataclasses.replace(system, nbfp=lb), fsw,
+                 RunnerConfig(nnbr=96, fep_max_nbr=128))
+assert table.layout == "table"
+out, logs = table.run(state, 1)
+assert bool(torch.isfinite(logs[0].epot).all())
+for layout in ("super", "cluster"):
+    k7 = MdRunner(system, params, RunnerConfig(layout=layout, nnbr=96,
+                                               super_nnbr=256,
+                                               fep_max_nbr=128))
+    out, logs = k7.run(state, 1)
+    assert bool(torch.isfinite(out.x).all()), layout
 # NPT: C-rescale with the dispersion correction, a pressure step each step
 from gromacs_fep_gpu_tpu_torch.core.types import PcouplType
 npt = MdRunner(system, params.replace(pcoupl=PcouplType.C_RESCALE,

@@ -48,8 +48,7 @@ from gromacs_fep_gpu_tpu.ops import pairlist as jpl
 from gromacs_fep_gpu_tpu.ops import pme as jpme
 from gromacs_fep_gpu_tpu.ops.cluster_nb import \
     make_cluster_force_fn as j_cluster_force_fn
-from gromacs_fep_gpu_tpu.ops.pallas_nb import (pallas_cluster_forces_v2u,
-                                               pallas_prepare_v2u)
+from gromacs_fep_gpu_tpu.ops.pallas_nb import pallas_cluster_forces_v2u
 from gromacs_fep_gpu_tpu.parallel.ensemble import lambda_schedule as j_sched
 from gromacs_fep_gpu_tpu_torch.core import types as ttypes
 from gromacs_fep_gpu_tpu_torch.core.units import PRESFAC
@@ -67,7 +66,8 @@ from gromacs_fep_gpu_tpu_torch.ops.cluster_nb import make_cluster_force_fn
 from gromacs_fep_gpu_tpu_torch.ops.forces import dense_energy, get_beta
 from gromacs_fep_gpu_tpu_torch.parallel.ensemble import lambda_schedule
 
-from torch_bridge import md_params, port_cluster_list, t, to_port
+from torch_bridge import (jax_cluster_list, jax_prepare_v2u, md_params,
+                          port_cluster_list, t, to_port)
 
 LAM_HALF = np.array([0, 0, 0.5, 0.5, 0.5, 0, 0], np.float32)
 RLIST = 0.6
@@ -140,11 +140,11 @@ def test_dispcorr_tail_matches_jax(solvated, lam_v):
 def water_lists(request):
     system, state = jwater.water_box(8, spacing=0.31, seed=11,
                                      temperature=300.0)
-    jl = jpl.build_cluster_pairlist(state.x, state.box, system, 0.7, nnbr=0,
-                                    super_nnbr=256, super_block=4,
-                                    compute_shifts=request.param)
+    jl = jax_cluster_list(state.x, state.box, system, 0.7, nnbr=0,
+                          super_nnbr=256, super_block=4,
+                          compute_shifts=request.param)
     assert int(jl.super_overflow) == 0
-    jprep = pallas_prepare_v2u(jl, system.nbfp)
+    jprep = jax_prepare_v2u(jl, system.nbfp)
     ts, _ = to_port(system, state)
     tl = port_cluster_list(jl, jl.n_clusters)
     return system, state, jl, jprep, tl, nb_v2u.prepare_v2u(tl, ts.nbfp)
@@ -197,7 +197,7 @@ def cluster_virial(solvated):
     jp, tp = _fep_params(coulomb="pme", pme_grid=grid, dispcorr=True)
     recip_j = jpme.make_pme_recip_fn(js, jp)
     jff = j_cluster_force_fn(js, jp, recip_j, has_fep=True, block=16)
-    jl = jpl.build_cluster_pairlist(jst.x, jst.box, js, RLIST, nnbr=128)
+    jl = jax_cluster_list(jst.x, jst.box, js, RLIST, nnbr=128)
     assert int(jl.n_overflow) == 0
     pert = np.where(np.asarray(js.perturbed))[0]
     jfl = jpl.build_fep_pairlist(jst.x, jst.box, js, RLIST, pert,
@@ -320,7 +320,7 @@ def test_pairs14_in_cluster_force_matches_jax():
     assert js.pairs14.n == 2
     ts, tst = to_port(js, jst)
     jp, tp = _fep_params(coulomb="reaction-field")
-    jl = jpl.build_cluster_pairlist(jst.x, jst.box, js, RLIST, nnbr=128)
+    jl = jax_cluster_list(jst.x, jst.box, js, RLIST, nnbr=128)
     pert = np.where(np.asarray(js.perturbed))[0]
     jfl = jpl.build_fep_pairlist(jst.x, jst.box, js, RLIST, pert,
                                  max_nbr=256)

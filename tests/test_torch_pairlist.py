@@ -12,7 +12,7 @@ from gromacs_fep_gpu_tpu.models.solvation import solvation_system
 from gromacs_fep_gpu_tpu.ops import pairlist as jpl
 from gromacs_fep_gpu_tpu_torch.ops import pairlist as tpl
 
-from torch_bridge import t, to_port
+from torch_bridge import jax_cluster_list, t, to_port
 
 RLIST = 0.65
 
@@ -24,9 +24,8 @@ def lists():
     x = jst.x.at[40:43].add(jnp.array([2.0 * jst.box[0, 0], 0.0,
                                        -jst.box[2, 2]]))
     jst = jst.replace(x=x)
-    jl = jpl.build_cluster_pairlist(x, jst.box, js, RLIST, nnbr=0,
-                                    super_nnbr=192, super_block=4,
-                                    compute_shifts=True)
+    jl = jax_cluster_list(x, jst.box, js, RLIST, nnbr=0, super_nnbr=192,
+                          super_block=4, compute_shifts=True)
     ts, tst = to_port(js, jst)
     tl = tpl.build_cluster_pairlist(tst.x, tst.box, ts, RLIST,
                                     super_nnbr=192, super_block=4,
@@ -66,8 +65,8 @@ def test_neighbour_sets_and_flags(lists):
 
 def test_overflow_flags_when_capacity_short(lists):
     js, jst, _, ts, tst, _ = lists
-    jl = jpl.build_cluster_pairlist(jst.x, jst.box, js, RLIST, nnbr=0,
-                                    super_nnbr=32, super_block=4)
+    jl = jax_cluster_list(jst.x, jst.box, js, RLIST, nnbr=0,
+                          super_nnbr=32, super_block=4)
     tl = tpl.build_cluster_pairlist(tst.x, tst.box, ts, RLIST,
                                     super_nnbr=32, super_block=4)
     assert int(tl.super_overflow) == int(jl.super_overflow) > 0

@@ -10,6 +10,7 @@ forces and dE/dq 3e-5 of the largest (those kernels multiply in three bf16
 passes); reciprocal energy and dV/dlambda rel 1e-5, forces 1e-5 of the
 largest force (torch.fft in place of the matmul DFT).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -149,8 +150,9 @@ def test_recip_pair_matches_jax(lam_c):
     jp = JMdParams(coulomb=JCoulombType.PME, rcoulomb=0.6, rvdw=0.6,
                    pme_grid=grid)
     e_fn_j, f_fn_j = jpme.make_pme_recip_pair(js, jp)
-    e_j, f_j, dvdl_j = f_fn_j(jst.x, jst.box, lam_c)
-    e_ad_j = e_fn_j(jst.x, jst.box, lam_c)
+    # under jax.jit: one compile instead of an eager compile per operation
+    e_j, f_j, dvdl_j = jax.jit(f_fn_j)(jst.x, jst.box, lam_c)
+    e_ad_j = jax.jit(e_fn_j)(jst.x, jst.box, lam_c)
 
     ts, tst = to_port(js, jst)
     tp = ttypes.MdParams(coulomb=ttypes.CoulombType.PME, rcoulomb=0.6,

@@ -1,7 +1,10 @@
 """Numpy bridge between the JAX package and the PyTorch port for the
 tests: JAX pytrees -> dicts of numpy arrays -> the port's from_numpy; one
 set of run parameters -> either package's MdParams; a JAX cluster pair
-list -> the port's."""
+list -> the port's; JAX's list builder and v2u pack under jax.jit."""
+import functools
+
+import jax
 import numpy as np
 import torch
 
@@ -66,15 +69,36 @@ def md_params(types_mod, fep=None, **kw):
 
 
 def port_cluster_list(jl, n_clusters):
-    """The port's ClusterPairlist holding a JAX cluster list's arrays."""
+    """The port's ClusterPairlist holding a JAX cluster list's arrays (the
+    per-cluster list when the JAX list has one: nnbr > 0)."""
     opt = {k: (None if getattr(jl, k) is None else t(getattr(jl, k)))
            for k in ("super_shift", "img", "shift_overflow", "tile_overflow",
-                     "tile_max")}
+                     "tile_max", "super_overflow", "super_max_count",
+                     "nbr_shift")}
+    if jl.nbr_super is not None:
+        opt["nbr_super"] = t(jl.nbr_super, torch.int64)
+    if jl.nbr.shape[1] > 0:
+        opt.update(nbr=t(jl.nbr, torch.int64), nbr_mask=t(jl.nbr_mask),
+                   n_overflow=t(jl.n_overflow), max_count=t(jl.max_count))
     return ClusterPairlist(
         perm=t(jl.perm, torch.int64), inv_perm=t(jl.inv_perm, torch.int64),
         q_a=t(jl.q_a), q_b=t(jl.q_b), t_a=t(jl.t_a, torch.int64),
         t_b=t(jl.t_b, torch.int64), pert=t(jl.pert),
-        excl=t(jl.excl, torch.int64), n_clusters=n_clusters,
-        nbr_super=t(jl.nbr_super, torch.int64),
-        super_overflow=t(jl.super_overflow),
-        super_max_count=t(jl.super_max_count), **opt)
+        excl=t(jl.excl, torch.int64), n_clusters=n_clusters, **opt)
+
+
+def jax_cluster_list(x, box, system, rlist, **kw):
+    """JAX's build_cluster_pairlist under jax.jit (one compile in place of
+    an eager compile per operation), with its own default sort-cell
+    edge."""
+    from gromacs_fep_gpu_tpu.ops.pairlist import build_cluster_pairlist
+    vol = float(np.prod(np.diagonal(np.asarray(box))))
+    cell = max((8 * vol / system.n_atoms) ** (1.0 / 3.0), 0.15)
+    return jax.jit(functools.partial(build_cluster_pairlist, rlist=rlist,
+                                     cell_size=cell, **kw))(x, box, system)
+
+
+def jax_prepare_v2u(jl, nbfp):
+    """JAX's pallas_prepare_v2u under jax.jit."""
+    from gromacs_fep_gpu_tpu.ops.pallas_nb import pallas_prepare_v2u
+    return jax.jit(pallas_prepare_v2u)(jl, nbfp)
