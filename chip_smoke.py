@@ -73,7 +73,25 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    idle share under torch.profiler), then 100 C-rescale steps on the same
    route for its virial flavour;
 13. each of the layouts "super", "cluster" and "v2" drives 100 steps of
-   the main path from its production state, launches checked.
+   the main path from its production state, launches checked;
+14. domain decomposition (DD) on a (2, 2, 2) grid of eight domains, all
+   on the first card (the placement is printed; with more than one card
+   the force check is repeated with the domains spread round-robin over
+   them): K6 (the v2u body on each domain's halo-extended plane) in F and
+   VF against its plain version at the main path's shapes, per domain;
+   the whole DD force (K6 + sharded PME + FEP) against the single-domain
+   force at the production state (Epot rel 1e-4, F rel 5e-4 of max |F|,
+   dV/dlambda rel 1e-4 of max |dV/dlambda|); 400 MTS2 steps of the main
+   path under DD with exact launch counts (K6 8 per step, K2/K3 8 per
+   reciprocal step), ms/step and ns/day beside the single-domain figure;
+   then the CHARMM path under DD (the table route's kernel on each
+   domain's i-cluster range: F and VF against its plain version, then 100
+   steps, launches exact);
+15. 81,002 atoms (n_side 30, 9.3 nm box, 80^3 PME grid), first run at that
+   size: the DD force against the single-domain force at the lattice
+   start (the gates of 14), then 100 steps each of the single-domain and
+   the DD runner with the equilibration parameters (dt 0.5 fs, tau_t 0.1
+   ps), finite energies, no halo violation, ms/step of both.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
@@ -128,12 +146,22 @@ CHARMM_RC, CHARMM_RSW = 1.2, 1.0
 CHARMM_EQ_STEPS = 500
 CHARMM_NPT_STEPS = 100
 LAYOUT_STEPS = 100
+# domain decomposition: the grid and block of mdrun -dd 2x2x2, the steps
+# of each DD run, and the 81,002-atom system (26,999 waters + the ligand)
+DD_GRID = (2, 2, 2)
+DD_BLOCK = 8
+DD_STEPS = 400
+DD_CHARMM_STEPS = 100
+N_SIDE_BIG = 30
+BIG_STEPS = 100
 K7_LAYOUTS = ("super", "cluster", "v2")
 # TPU kernel each route replaces (file:line of the kernel body)
 REPLACES = {"super": "gromacs_fep_gpu_tpu/ops/pallas_nb.py:90",
             "cluster": "gromacs_fep_gpu_tpu/ops/pallas_nb.py:227",
             "v2": "gromacs_fep_gpu_tpu/ops/pallas_nb.py:748",
-            "table": "gromacs_fep_gpu_tpu/ops/cluster_nb.py:57"}
+            "table": "gromacs_fep_gpu_tpu/ops/cluster_nb.py:57",
+            "table_dd": "gromacs_fep_gpu_tpu/ops/cluster_nb.py:112",
+            "k6": "gromacs_fep_gpu_tpu/parallel/spatial.py:337"}
 
 
 def _say(msg):
@@ -233,10 +261,15 @@ def _decoupled(state):
 def _pme_suffix(grid):
     """The PME counters are keyed by grid shape: the 12,290-atom path's
     grid reports as pme_spread / pme_gather, the window path's as
-    pme_spread_small / pme_gather_small."""
+    pme_spread_small / pme_gather_small, the 81,002-atom system's as
+    pme_spread_big / pme_gather_big."""
     return {tuple(_params(True).pme_grid): "",
-            tuple(_params(True, N_SIDE_WINDOW).pme_grid): "_small"}[
-                tuple(grid)]
+            tuple(_params(True, N_SIDE_WINDOW).pme_grid): "_small",
+            tuple(_params(True, N_SIDE_BIG).pme_grid): "_big"}[tuple(grid)]
+
+
+PME_KEYS = tuple(f"pme_{k}{s}" for s in ("", "_small", "_big")
+                 for k in ("spread", "gather"))
 
 
 def _nb_counts():
@@ -255,8 +288,7 @@ def _counts():
     main path's)."""
     from gromacs_fep_gpu_tpu_torch.ops import pme_kernels
     out = _nb_counts()
-    out.update({"pme_spread": 0, "pme_gather": 0,
-                "pme_spread_small": 0, "pme_gather_small": 0})
+    out.update(dict.fromkeys(PME_KEYS, 0))
     for (kind, grid), n in pme_kernels.launches.items():
         out[f"pme_{kind}{_pme_suffix(grid)}"] += n
     return out
@@ -272,6 +304,15 @@ def _zero_counts():
     pme_kernels.launches.clear()
 
 
+def _nb_prefix(runner):
+    """The counter prefix of the runner's NB kernel: K6 under domain
+    decomposition on the v2u layout, the table kernel's i-range launches
+    on the other layouts, else the layout's kernel."""
+    if runner.mesh is None:
+        return f"nb_{runner.layout}_"
+    return "nb_v2u_DD_" if runner.layout == "v2u" else "nb_table_dd_"
+
+
 def _expected_counts(runner, start_step, nsteps):
     """Launches that the flavour pattern predicts: the runner's NB kernel
     (K1, or the per-cluster kernel of its layout) once per step (VF on the
@@ -279,18 +320,21 @@ def _expected_counts(runner, start_step, nsteps):
     'S'), no other NB kernel, spread and gather once per step that is not
     an MTS off-step (a pressure step's reciprocal virial reuses its force
     pass's grid), and per foreign sweep ('D', 'S') two more spreads (qA of
-    all atoms, dq of the perturbed ones) and one more gather."""
+    all atoms, dq of the perturbed ones) and one more gather.  Under
+    domain decomposition the NB kernel and the spread and gather run once
+    per domain."""
     pat = runner._flavor_pattern(start_step, nsteps)
     n_d = pat.count("D") + pat.count("S")
     sfx = _pme_suffix(runner.params.pme_grid)
+    nsh = 1 if runner.mesh is None else len(runner.mesh.spatial_devices)
     out = dict.fromkeys(_nb_counts(), 0)
-    out.update(dict.fromkeys(("pme_spread", "pme_gather",
-                              "pme_spread_small", "pme_gather_small"), 0))
-    nb = f"nb_{runner.layout}_"
-    out.update({nb + "F": pat.count("F") + pat.count("f"),
-                nb + "VF": pat.count("E") + pat.count("D"),
-                "pme_spread" + sfx: nsteps - pat.count("f") + 2 * n_d,
-                "pme_gather" + sfx: nsteps - pat.count("f") + n_d})
+    out.update(dict.fromkeys(PME_KEYS, 0))
+    nb = _nb_prefix(runner)
+    out.update({nb + "F": nsh * (pat.count("F") + pat.count("f")),
+                nb + "VF": nsh * (pat.count("E") + pat.count("D")),
+                "pme_spread" + sfx: nsh * (nsteps - pat.count("f"))
+                + 2 * n_d,
+                "pme_gather" + sfx: nsh * (nsteps - pat.count("f")) + n_d})
     n_vir = pat.count("R") + pat.count("S")
     if n_vir or nb + "VFV" in out:
         out[nb + "VFV"] = n_vir
@@ -304,6 +348,7 @@ def _drive(runner, state, nsteps, what, volumes=None):
     each is appended to it."""
     from gromacs_fep_gpu_tpu_torch.md.runner import concat_logs
     expected = _expected_counts(runner, state.step, nsteps)
+    pat = runner._flavor_pattern(state.step, nsteps)
     piece = nsteps if volumes is None else 100
     torch.cuda.synchronize()
     _zero_counts()
@@ -326,8 +371,7 @@ def _drive(runner, state, nsteps, what, volumes=None):
     lg = concat_logs(logs)
     on = torch.isfinite(lg.epot)
     n_on = int(on.sum())
-    nb = f"nb_{runner.layout}_"
-    n_ener = expected[nb + "VF"] + expected.get(nb + "VFV", 0)
+    n_ener = sum(pat.count(f) for f in "EDRS")
     if n_on != n_ener:
         raise AssertionError(f"{what}: {n_on} energy steps, expected "
                              f"{n_ener}")
@@ -338,7 +382,7 @@ def _drive(runner, state, nsteps, what, volumes=None):
         raise AssertionError(f"{what}: non-finite coordinates")
     fl = runner.last_flags
     left = {k: fl[k] for k in ("fep_ovf", "s_ovf", "n_ovf", "excl_bad",
-                               "shift_bad", "t_ovf")}
+                               "shift_bad", "t_ovf", "halo_bad")}
     if any(left.values()):
         raise AssertionError(f"{what}: list flags after growth {left}")
     return state, lg, seconds, counts
@@ -462,7 +506,7 @@ def phase_small_reference(device):
     k1, pme_by_kind = dict(nb_v2u.launches), {}
     for (kind, _), n in pme_kernels.launches.items():
         pme_by_kind[kind] = pme_by_kind.get(kind, 0) + n
-    if (k1, pme_by_kind) != ({"F": 0, "VF": 0, "VFV": 1},
+    if (k1, pme_by_kind) != (dict(dict.fromkeys(k1, 0), VFV=1),
                              {"spread": 1, "gather": 1}):
         raise AssertionError(f"a pressure step's force launched {k1}, "
                              f"{pme_by_kind}: expected one K1 VF+virial, "
@@ -1068,7 +1112,7 @@ def _pairs_in_cut(planes, box, prep, r2max, block=64):
         B = ci.shape[0]
         row = ci // 8 if prep.layout == "super" else ci
         jid = (prep.nbr[row].long()[..., None] * CLUSTER + ar).reshape(B, -1)
-        iid = ci[:, None] * CLUSTER + ar
+        iid = (prep.i0 + ci)[:, None] * CLUSTER + ar
         r2 = 0.0
         for p, L in zip(planes, bl):
             d = p[iid][..., None] - p[jid][:, None, :]
@@ -1083,9 +1127,19 @@ def _pairs_in_cut(planes, box, prep, r2max, block=64):
 def _cluster_bytes(prep, flavour):
     """Compulsory bytes of one launch: every input read once (the planes,
     the live list entries and counts, exclusions or shifts and lane masks,
-    the LJ table) and every output written once."""
+    the LJ table) and every output written once.  On a domain's halo plane
+    only the clusters that the live list and the i range address are
+    read."""
     n_rows, n_icl = prep.n_rows, prep.n_icl
     live = int(prep.cnt.sum())
+    if prep.halo:
+        W = prep.nbr.shape[1]
+        live_e = torch.arange(W, device=prep.nbr.device)[None, :] \
+            < prep.cnt[:, None].to(torch.int64)
+        n_rows = 8 * int(torch.unique(torch.cat([
+            prep.nbr[live_e].to(torch.int64),
+            torch.arange(prep.i0, prep.i0 + n_icl,
+                         device=prep.nbr.device)])).numel())
     per_atom = 5 + (1 if prep.nbfp is not None else 2)
     b = per_atom * 4 * n_rows + 4 * (live + prep.cnt.numel()) + 36
     if prep.nbfp is not None:
@@ -1308,7 +1362,8 @@ def phase_small_charmm(device):
 def phase_charmm(device, timer, smi, start):
     """Phase 12: the CHARMM path at 12,290 atoms from the main path's
     production state.  Returns the table kernel's rows (launches: F and VF
-    from the 400 production steps, VF+virial from the C-rescale steps)."""
+    from the 400 production steps, VF+virial from the C-rescale steps),
+    the production state and the grown per-cluster capacity."""
     from gromacs_fep_gpu_tpu_torch.core.types import PcouplType
     from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
     system = _lb_system(N_SIDE, device)
@@ -1360,6 +1415,7 @@ def phase_charmm(device, timer, smi, start):
         pcoupl=PcouplType.C_RESCALE, tau_p=1.0, compressibility=4.5e-5,
         nstpcouple=10), RunnerConfig(nnbr=prod.config.nnbr,
                                      fep_max_nbr=prod.config.fep_max_nbr))
+    prod_state = state
     state, lg, sec, counts = _drive(npt, state.replace(step=0),
                                     CHARMM_NPT_STEPS, "CHARMM C-rescale")
     p_on = lg.pres[torch.isfinite(lg.pres)]
@@ -1373,7 +1429,7 @@ def phase_charmm(device, timer, smi, start):
         raise AssertionError("CHARMM C-rescale: virial flavour launches or "
                              "pressure")
     rows[2]["launches"] = counts["nb_table_VFV"]
-    return rows
+    return rows, prod_state, prod.config.nnbr
 
 
 def phase_layouts(system, params, state, caps):
@@ -1397,6 +1453,269 @@ def phase_layouts(system, params, state, caps):
     return total
 
 
+def _dd_mesh(spread=False):
+    """Eight domains: all on the first card, or spread round-robin over
+    every card (make_mesh's devices=None)."""
+    from gromacs_fep_gpu_tpu_torch.parallel.mesh import make_mesh
+    if spread:
+        return make_mesh(n_spatial=8)
+    return make_mesh(n_spatial=8, devices=[torch.device("cuda", 0)] * 8)
+
+
+def _dd_runner(system, params, mesh, **kw):
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    return MdRunner(system, params, RunnerConfig(
+        mesh=mesh, dd_grid=DD_GRID, dd_block=DD_BLOCK, **kw))
+
+
+def _dd_kernel_rows(runner, state, timer, what):
+    """The DD runner's NB kernel (K6 on the v2u layout, the table kernel's
+    i-range elsewhere) in F and VF against its plain version on each
+    domain of one frame (F rel 5e-4 of max |F| over all domains, E rel
+    1e-4 of the summed energies); every call launches once per domain.
+    Times and bounds are per launch (a domain's share: the eight launches
+    timed together, divided by eight)."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster, nb_v2u
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
+    from gromacs_fep_gpu_tpu_torch.parallel.spatial import sort_state_arrays
+    params = runner.params
+    x, box = state.x, state.box
+    nlist, _, pack, fl = runner.lists(state)
+    consts = nb_v2u.NbConstants.from_params(params, get_beta(params))
+    nb = runner._dd_override
+    k6 = runner.layout == "v2u"
+    if k6:
+        cats = nb.planes(x, box, nlist, pack)
+        i_off = nb.halo.own_blk * pack.ps
+        doms = pack.domains
+    else:
+        cats = pack.planes(sort_state_arrays(x, nlist, pack.c_pad))
+        doms = pack.packs
+    nsh = len(cats)
+    boxes = [box.to(c.device) for c in cats]
+    n_pairs, n_bytes = 0, 0
+    if k6:
+        bit = torch.arange(32, device=x.device,
+                           dtype=torch.int32).reshape(1, -1, 1)
+        bl = torch.diagonal(box)
+        for cat, dom in zip(cats, doms):
+            ip, jp = nb_v2u.gather_cat(cat, i_off, box, dom)
+            S, G = dom.nbr2.shape[:2]
+            ixyz = [p.reshape(S, -1, 1) for p in ip]
+            for g in range(G):
+                pair = ((dom.pair_m[:, g, None, :] >> bit) & 1).bool() \
+                    & (g < dom.ng)[:, None, None]
+                d = [ixyz[a] - jp[a][:, g, None, :] for a in range(3)]
+                if dom.shift is None:
+                    d = [d[a] - torch.round(d[a] / bl[a]) * bl[a]
+                         for a in range(3)]
+                r2 = sum(da * da for da in d)
+                n_pairs += int((pair & (r2 < consts.rc2)).sum())
+            live_g = torch.arange(G, device=x.device)[None, :] \
+                < dom.ng[:, None].to(torch.int64)
+            live = int(live_g.sum())
+            # cat clusters the kernel reads: the live groups' j ids and the
+            # own block's i clusters, 8 atoms x 3 coordinates each
+            n_cat = int(torch.unique(torch.cat([
+                dom.nbr2[live_g].reshape(-1).to(torch.int64),
+                torch.arange(i_off, i_off + S * nb_v2u.BU,
+                             device=x.device)])).numel())
+            # i q, sqrt c6/c12, the live groups' static streams (q, sqrt
+            # c6/c12, two masks) and cat ids (and shifts), the cat
+            # coordinates read, ng, the outputs
+            n_bytes += (3 * S * 32 + 5 * live * 256 + live * 32
+                        + n_cat * 24 + S + 3 * S * 32 + 2 * S) * 4 + 36 \
+                + (3 * live * 32 if dom.shift is not None else 0)
+        n_pairs //= 2
+        flops = FLOPS_PAIR
+    else:
+        for cat, dom in zip(cats, doms):
+            n_pairs += _pairs_in_cut(list(cat), box, dom,
+                                     max(consts.rc2, consts.rv2))
+        flops = FLOPS_PAIR_TABLE
+    rows = []
+    for flavour in ("F", "VF"):
+        energy = flavour == "VF"
+        if k6:
+            name, key, counter = (f"nb_v2u_DD_{flavour}", f"DD_{flavour}",
+                                  nb_v2u.launches)
+
+            def kern(e=energy):
+                return [nb_v2u.nb_v2u_dd_cuda(c, i_off, b, d, consts, e)
+                        for c, b, d in zip(cats, boxes, doms)]
+
+            def plain(e=energy):
+                return [nb_v2u.nb_v2u_dd_plain(c, i_off, b, d, consts, e)
+                        for c, b, d in zip(cats, boxes, doms)]
+        else:
+            name, key, counter = (f"nb_table_dd_{flavour}", flavour,
+                                  nb_cluster.launches["table_dd"])
+
+            def kern(e=energy):
+                return [nb_cluster.nb_cluster_cuda(list(c), b, d, consts, e)
+                        for c, b, d in zip(cats, boxes, doms)]
+
+            def plain(e=energy):
+                return [nb_cluster.nb_cluster_plain(list(c), b, d, consts, e)
+                        for c, b, d in zip(cats, boxes, doms)]
+        before = counter[key]
+        out_k = kern()
+        if counter[key] != before + nsh:
+            raise AssertionError(f"{name}: {counter[key] - before} launches "
+                                 f"for {nsh} domains")
+        out_p = plain()
+        torch.cuda.synchronize()
+        f_k = torch.cat([torch.stack([o[0].reshape(-1), o[1].reshape(-1),
+                                      o[2].reshape(-1)], -1) for o in out_k])
+        f_p = torch.cat([torch.stack([o[0].reshape(-1), o[1].reshape(-1),
+                                      o[2].reshape(-1)], -1) for o in out_p])
+        f_rel, f_abs = _rel(f_k, f_p)
+        e_rel = 0.0
+        if energy:
+            ek, ep = (0.5 * sum(o[3][:, :2].double().sum(0) for o in out)
+                      for out in (out_k, out_p))
+            e_rel = float(((ek - ep).abs() / ep.abs()).max())
+        ok = f_rel <= F_REL and e_rel <= E_REL
+        ms = timer.ms(kern, reps=max(REPS // nsh, 4)) / nsh
+        plain_ms = _median_ms(plain, reps=3) / nsh
+        if k6:
+            b_bytes = n_bytes
+        else:
+            b_bytes = sum(_cluster_bytes(d, flavour) for d in doms)
+        bound, by = _bound_ms(b_bytes / nsh,
+                              n_pairs * (flops + FLOPS_JFORCE) / nsh)
+        _say(f"{name} ({what}, {x.shape[0]:,} atoms, "
+             f"{runner.mesh.placement()}): unique pairs in cut-off "
+             f"{n_pairs}; F rel {f_rel:.2e}, E rel {e_rel:.2e} -> "
+             f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms per domain launch "
+             f"(plain {plain_ms:.3f} ms, bound {bound:.5f} ms by {by}, "
+             f"library none)")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        rows.append(dict(
+            name=name, route="cuda",
+            source=("gromacs_fep_gpu_tpu_torch/csrc/nb_v2u.cu" if k6 else
+                    "gromacs_fep_gpu_tpu_torch/csrc/nb_cluster.cu"),
+            replaces=REPLACES["k6" if k6 else "table_dd"],
+            max_abs_err=f_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None))
+    return rows
+
+
+def _dd_force_check(single, dd, state, what):
+    """The whole force (non-bonded, PME, FEP and bonded terms) of the DD
+    runner against the single-domain runner's at one state: Epot rel 1e-4,
+    F rel 5e-4 of max |F|, dV/dlambda rel 1e-4 of max |dV/dlambda|."""
+    out = []
+    for r in (single, dd):
+        nlist, feplist, prep, _ = r.lists(state)
+        f, terms = r._force_fn(state.x, state.box, state.lam, nlist,
+                               feplist, prep, need_energy=True)
+        out.append((f.double(), terms))
+    (f1, t1), (f2, t2) = out
+    e_rel = abs(float(t2.epot) - float(t1.epot)) / abs(float(t1.epot))
+    f_rel, _ = _rel(f2, f1)
+    d_rel, _ = _rel(t2.dvdl.double(), t1.dvdl.double())
+    ok = e_rel <= E_REL and f_rel <= F_REL and d_rel <= E_REL
+    _say(f"DD force vs single-domain ({what}, {dd.mesh.placement()}): "
+         f"Epot {float(t2.epot):.2f} vs {float(t1.epot):.2f} (rel "
+         f"{e_rel:.2e}), F rel {f_rel:.2e}, dV/dl rel {d_rel:.2e} (coul "
+         f"{float(t2.dvdl[2]):.3f}, vdw {float(t2.dvdl[3]):.3f}) -> "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the DD force disagrees with the "
+                             "single-domain force")
+
+
+def phase_dd(system, params, state, caps, timer, smi, ms_single):
+    """Phase 14, the main path under DD (and the CHARMM path's table
+    kernel on the halo: phase_dd_charmm).  Returns the K6 rows."""
+    mesh = _dd_mesh()
+    _say(f"DD: grid {DD_GRID}, dd_block {DD_BLOCK}, "
+         f"{mesh.placement()} ({torch.cuda.device_count()} visible)")
+    kw = dict(super_nnbr=caps[0], fep_max_nbr=caps[1], seed=5)
+    dd = _dd_runner(system, params, mesh, **kw)
+    rows = _dd_kernel_rows(dd, state, timer, "main path")
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    single = MdRunner(system, params, RunnerConfig(**kw))
+    _dd_force_check(single, dd, state, "main path, production state")
+    if torch.cuda.device_count() > 1:
+        _dd_force_check(single, _dd_runner(system, params, _dd_mesh(True),
+                                           **kw),
+                        state, "main path, domains over every card")
+    st, lg, sec, counts = _drive(dd, state.replace(step=0), DD_STEPS,
+                                 "main path under DD")
+    ms_step = sec / DD_STEPS * 1e3
+    ns_day = DD_STEPS * params.dt / 1000.0 / sec * 86400.0
+    on = torch.isfinite(lg.epot)
+    _say(f"main path under DD (MTS2, dt 2 fs): {DD_STEPS} steps, "
+         f"{ms_step:.3f} ms/step, {ns_day:.2f} ns/day against "
+         f"{ms_single:.3f} ms/step on one domain, on {smi}; launches "
+         f"{ {k: v for k, v in counts.items() if v} }; regrows "
+         f"{dd.n_regrow} (super_nnbr {dd.config.super_nnbr}, baked shifts "
+         f"{dd.config.baked_shifts}); T {float(lg.temp.min()):.1f}.."
+         f"{float(lg.temp.max()):.1f} K; Epot "
+         f"{[round(float(e), 1) for e in lg.epot[on]]}")
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    return rows
+
+
+def phase_dd_charmm(device, start, nnbr, timer, smi):
+    """Phase 14, second half: the CHARMM path (Lorentz-Berthelot table,
+    force-switch) under DD runs the table kernel on each domain's
+    i-cluster range of its halo-extended plane.  Returns its rows."""
+    system = _lb_system(N_SIDE, device)
+    params = _charmm_params()
+    dd = _dd_runner(system, params, _dd_mesh(), nnbr=nnbr, seed=6)
+    if dd.layout != "table":
+        raise AssertionError("the CHARMM path under DD is not on the table "
+                             "route")
+    rows = _dd_kernel_rows(dd, start, timer, "CHARMM path")
+    st, lg, sec, counts = _drive(dd, start.replace(step=0),
+                                 DD_CHARMM_STEPS, "CHARMM path under DD")
+    _say(f"CHARMM path under DD: {DD_CHARMM_STEPS} steps, "
+         f"{sec / DD_CHARMM_STEPS * 1e3:.3f} ms/step on {smi}; launches "
+         f"{ {k: v for k, v in counts.items() if v} }; nnbr "
+         f"{dd.config.nnbr}")
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    return rows
+
+
+def phase_dd_big(device, smi):
+    """Phase 15: 81,002 atoms, single-domain and DD, from the lattice
+    start with the equilibration parameters."""
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    system, state = solvation_system(n_side=N_SIDE_BIG, seed=0,
+                                     device=device)
+    state = _decoupled(state)
+    params = _params(mts=False, n_side=N_SIDE_BIG).replace(
+        dt=0.0005, tau_t=0.1, nsttcouple=1)
+    _say(f"81k system: {system.n_atoms} atoms, box "
+         f"{float(state.box[0, 0]):.2f} nm, PME grid {params.pme_grid}")
+    kw = dict(super_nnbr=448, fep_max_nbr=512, seed=8)
+    single = MdRunner(system, params, RunnerConfig(**kw))
+    dd = _dd_runner(system, params, _dd_mesh(), **kw)
+    _dd_force_check(single, dd, state, f"{system.n_atoms:,} atoms, lattice "
+                    "start")
+    out = {}
+    for name, r in (("single-domain", single), ("DD", dd)):
+        st, lg, sec, counts = _drive(r, state, BIG_STEPS,
+                                     f"{system.n_atoms:,} atoms, {name}")
+        on = torch.isfinite(lg.epot)
+        out[name] = sec / BIG_STEPS * 1e3
+        _say(f"{system.n_atoms:,} atoms, {name}: {BIG_STEPS} steps (dt 0.5 "
+             f"fs), {out[name]:.3f} ms/step on {smi}; regrows {r.n_regrow} "
+             f"(super_nnbr {r.config.super_nnbr}, baked shifts "
+             f"{r.config.baked_shifts}); flags {r.last_flags}; Epot "
+             f"{[round(float(e), 1) for e in lg.epot[on]]}; T "
+             f"{float(lg.temp[-1]):.1f} K; NB launches "
+             f"{ {k: v for k, v in counts.items() if k.startswith('nb_') and v} }")
+    return out
+
+
 def run(device="cuda", smi=None):
     """All phases on `device`; returns the kernel rows."""
     import gromacs_fep_gpu_tpu_torch  # noqa: F401  (sets TF32 off)
@@ -1406,10 +1725,15 @@ def run(device="cuda", smi=None):
     smi = smi or _smi()
     _say(f"gpu: {smi}")
     _say(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t_start = time.perf_counter()
+
+    def done(what):
+        _say(f"-- {what} done at {time.perf_counter() - t_start:.1f} s")
     phase_build()
     timer = DeviceTimer()
 
     phase_small_reference(device)
+    done("small reference")
 
     system, state = solvation_system(n_side=N_SIDE, seed=0, device=device)
     state = _decoupled(state)
@@ -1424,6 +1748,7 @@ def run(device="cuda", smi=None):
          f"{counts}, regrows {eq.n_regrow}; T every 50 steps "
          f"{[round(float(v), 1) for v in lg.temp[::50]]} K, final "
          f"{float(lg.temp[-1]):.1f} K")
+    done("main path equilibration")
 
     params = _params(mts=True)
     prod = MdRunner(system, params, RunnerConfig(
@@ -1453,21 +1778,34 @@ def run(device="cuda", smi=None):
     for r in rows:
         r["launches"] = counts[r["name"]]
     phase_profile(prod, state, 2 * params.nstlist, ms_step)
+    done("main path kernels, production and profile")
 
     caps = (prod.config.super_nnbr, prod.config.fep_max_nbr)
     layout_counts = phase_layouts(system, params, state, caps)
     for r in cluster_rows:
         r["launches"] = layout_counts.get(r["name"], 0)
+    done("K7 layouts")
+    dd_rows = phase_dd(system, params, state, caps, timer, smi, ms_step)
+    done("main path under DD")
     phase_small_charmm(device)
-    table_rows = phase_charmm(device, timer, smi, state)
+    table_rows, charmm_state, charmm_nnbr = phase_charmm(device, timer, smi,
+                                                         state)
+    done("CHARMM path")
+    dd_rows += phase_dd_charmm(device, charmm_state, charmm_nnbr, timer,
+                               smi)
+    done("CHARMM path under DD")
+    phase_dd_big(device, smi)
+    done("81,002 atoms")
 
     window_rows, window_counts, npt_start = phase_window(device, timer, smi)
+    done("lambda windows")
     npt_rows, npt_counts = phase_npt(timer, smi, *npt_start)
+    done("NPT windows")
     for r in rows:
         if r["name"].startswith("nb_v2u"):    # K1 runs on every path
             r["launches_window"] = window_counts[r["name"]]
             r["launches_npt"] = npt_counts[r["name"]]
-    rows += cluster_rows + table_rows + window_rows + npt_rows
+    rows += cluster_rows + table_rows + dd_rows + window_rows + npt_rows
     for r in rows:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never ran on its path")

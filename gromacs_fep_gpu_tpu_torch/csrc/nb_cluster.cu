@@ -48,6 +48,14 @@
 // with shuffles; energies and virial sums reduce over the warp.  Exclusion
 // ids are tested only for j ids inside the i atom's [min, max] partner
 // range, so the K compares run for few pairs.
+//
+// An i-cluster range [i0, i0 + n_icl) of the planes: the table route under
+// domain decomposition (gromacs_fep_gpu_tpu/ops/cluster_nb.py
+// cluster_nb_kernel_core with block_offset / n_blocks, as
+// parallel/spatial.py make_halo_cluster_force calls it) runs a domain's own
+// i-clusters on its halo-extended plane.  Coordinates and j data are read
+// by plane id; the list rows, the exclusions of the i atoms and the
+// outputs are indexed from i0 (i0 = 0 outside domain decomposition).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,7 +106,7 @@ __device__ __forceinline__ float pmecorr_f(float z2) {
 // One i atom held by a lane.
 struct IAtom {
   float x, y, z, q, s6, s12, pv;
-  int id, type, ex_lo, ex_hi;
+  int id, lid, type, ex_lo, ex_hi;   // plane id, id from the range start
   float fx, fy, fz;
 };
 
@@ -139,7 +147,7 @@ __device__ __forceinline__ void pair(
     inclb = (float)((lane_mask >> (8 + ia)) & 1u);
   } else if (jid >= a.ex_lo && jid <= a.ex_hi) {
     for (int k = 0; k < K; ++k)
-      if (excl[(size_t)a.id * K + k] == jid) inclb = 0.f;
+      if (excl[(size_t)a.lid * K + k] == jid) inclb = 0.f;
   }
   const float rinv = rsqrtf(r2);
   const float rinv2 = rinv * rinv;
@@ -230,7 +238,7 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                   const int* __restrict__ jmask, float* __restrict__ fx_out,
                   float* __restrict__ fy_out, float* __restrict__ fz_out,
                   float* __restrict__ e_out, const float* __restrict__ box,
-                  int n_icl, int coul, int modifier, Consts c) {
+                  int i0, int n_icl, int coul, int modifier, Consts c) {
   constexpr int kNe = kFlav == kVFV ? 5 : 2;   // floats per i-cluster
   extern __shared__ float s_nbfp[];
   if (kTableLj) {
@@ -240,10 +248,11 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   }
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int ci = blockIdx.x * kWarps + warp;
-  if (ci >= n_icl) return;
+  const int cl = blockIdx.x * kWarps + warp;   // i-cluster of the range
+  if (cl >= n_icl) return;
+  const int ci = i0 + cl;                      // i-cluster of the planes
   // K7a reads its supercluster's union row, the others their own row
-  const int row = kLayout == kSuper ? blockIdx.x : ci;
+  const int row = kLayout == kSuper ? blockIdx.x : cl;
   const int ja = lane % kCluster;
   const int ia0 = lane / kCluster;     // i atoms ia0 and ia0 + 4
 
@@ -256,6 +265,7 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
     const int id = ci * kCluster + ia0 + 4 * h;
     IAtom& t = a[h];
     t.id = id;
+    t.lid = cl * kCluster + ia0 + 4 * h;
     t.x = xs[id];
     t.y = ys[id];
     t.z = zs[id];
@@ -268,7 +278,7 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
     t.ex_hi = -1;
     if (kLayout != kV2) {
       for (int k = 0; k < K; ++k) {
-        const int e = excl[(size_t)id * K + k];
+        const int e = excl[(size_t)t.lid * K + k];
         if (e >= 0) {
           t.ex_lo = min(t.ex_lo, e);
           t.ex_hi = max(t.ex_hi, e);
@@ -315,9 +325,9 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
       a[h].fz += __shfl_xor_sync(0xffffffffu, a[h].fz, off);
     }
     if (ja == 0) {
-      fx_out[a[h].id] = a[h].fx;
-      fy_out[a[h].id] = a[h].fy;
-      fz_out[a[h].id] = a[h].fz;
+      fx_out[a[h].lid] = a[h].fx;
+      fy_out[a[h].lid] = a[h].fy;
+      fz_out[a[h].lid] = a[h].fz;
     }
   }
   float part[kNe];
@@ -333,12 +343,12 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
 #pragma unroll
     for (int off = 16; off > 0; off /= 2)
       part[k] += __shfl_xor_sync(0xffffffffu, part[k], off);
-    if (lane == 0) e_out[(size_t)ci * kNe + k] = part[k];
+    if (lane == 0) e_out[(size_t)cl * kNe + k] = part[k];
   }
 }
 
 template <int kLayout, int kFlav, bool kTableLj>
-int launch(int n_icl, cudaStream_t st, const float* const* p, const int* ty,
+int launch(int i0, int n_icl, cudaStream_t st, const float* const* p, const int* ty,
            const float* nbfp, int T, const int* excl, int K, const int* nbr,
            const int* cnt, int W, const float* shift, const int* jmask,
            float* fx, float* fy, float* fz, float* e, const float* box,
@@ -347,7 +357,8 @@ int launch(int n_icl, cudaStream_t st, const float* const* p, const int* ty,
   const size_t smem = kTableLj ? sizeof(float) * T * T * 2 : 0;
   nb_cluster_kernel<kLayout, kFlav, kTableLj><<<blocks, kThreads, smem, st>>>(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], ty, nbfp, T, excl, K, nbr,
-      cnt, W, shift, jmask, fx, fy, fz, e, box, n_icl, coul, modifier, c);
+      cnt, W, shift, jmask, fx, fy, fz, e, box, i0, n_icl, coul, modifier,
+      c);
   return (int)cudaGetLastError();
 }
 
@@ -355,13 +366,15 @@ int launch(int n_icl, cudaStream_t st, const float* const* p, const int* ty,
 
 // layout: 0 K7a (super), 1 K7b (cluster), 2 K7c (v2), 3 the table route;
 // flavour: 0 F, 1 VF, 2 VF+virial (table route only); lj_table: LJ from
-// the (T, T, 2) table (table route only).  Unused pointers may be null.
+// the (T, T, 2) table (table route only); i0: first i-cluster of the
+// planes (the range [i0, i0 + n_icl)).  Unused pointers may be null.
 extern "C" int nb_cluster_launch(
     const float* x, const float* y, const float* z, const float* q,
     const float* pv, const float* s6, const float* s12, const int* types,
     const float* nbfp, const int* excl, const int* nbr, const int* cnt,
     const float* shift, const int* jmask, float* fx, float* fy, float* fz,
-    float* e, const float* box, int T, int K, int W, int n_icl, int layout,
+    float* e, const float* box, int T, int K, int W, int i0, int n_icl,
+    int layout,
     int lj_table, int flavour, int coulomb, int modifier, float epsfac,
     float beta, float rc2, float rv2, float krf, float crf, float rcinv6,
     float inv_rc, float rsw, float rvdw, float c2d, float c3d, float cp6,
@@ -371,11 +384,13 @@ extern "C" int nb_cluster_launch(
            rsw, rvdw, c2d, c3d, cp6, c2r, c3r, cp12};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_icl <= 0) return 0;
-  if (n_icl % kWarps != 0 || (lj_table && (T <= 0 || T > kMaxTypes)))
+  // K7a's CTA is one supercluster: whole CTAs only
+  if ((layout == kSuper && n_icl % kWarps != 0) || i0 < 0
+      || (lj_table && (T <= 0 || T > kMaxTypes)))
     return (int)cudaErrorInvalidValue;
   if (layout != kTable && (lj_table || flavour == kVFV))
     return (int)cudaErrorInvalidValue;
-#define ARGS n_icl, st, planes, types, nbfp, T, excl, K, nbr, cnt, W, shift, \
+#define ARGS i0, n_icl, st, planes, types, nbfp, T, excl, K, nbr, cnt, W, shift, \
     jmask, fx, fy, fz, e, box, coulomb, modifier, c
   switch (layout * 3 + flavour) {
     case kSuper * 3 + kF: return launch<kSuper, kF, false>(ARGS);

@@ -39,6 +39,21 @@
 // virial sums reduce over the CTA (shuffles, then 8 warp partials in
 // shared memory) to one row per block: e_out[s*ne + 0..1] = (coulomb, lj),
 // with ne = 5 in the virial flavour and e_out[s*5 + 2..4] = (xx, yy, zz).
+//
+// K6, the same body under domain decomposition (gromacs_fep_gpu_tpu/
+// parallel/spatial.py make_dd_v2u_override, F and VF), is the kGatherJ
+// flavour launched by nb_v2u_dd_launch: one launch per domain over its S
+// i-blocks, whose i planes are the domain's own clusters of its
+// halo-extended ("cat") coordinate plane.  Instead of pre-gathered j
+// coordinate streams, each thread stages its j lane from that plane by
+// cat-space cluster id, plane[nbr_cat[s, g, lane / 8] * 8 + lane % 8],
+// plus the baked shift times the box diagonal (the gather and shift of
+// spatial.py:486-497, which K1 receives pre-materialized); the charges,
+// sqrt(c6), sqrt(c12) and both masks stay per-rebuild streams.  The
+// kGatherJ = false instantiations are K1 unchanged.  A K6 launch holds
+// one domain's i-blocks only (50 at 12,290 atoms on 8 domains), less than
+// one wave of CTAs on the H100's 132 SMs, so its time is the slowest
+// CTA's: latency, not bytes, bounds it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,7 +95,8 @@ __device__ __forceinline__ float pmecorr_f(float z2) {
   return fn0 / fd0;
 }
 
-template <bool kEnergy, int kCoul, bool kMinImage, bool kVirial>
+template <bool kEnergy, int kCoul, bool kMinImage, bool kVirial,
+          bool kGatherJ>
 __global__ void __launch_bounds__(kLanes)
 nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
               const float* __restrict__ iz, const float* __restrict__ iq,
@@ -92,7 +108,8 @@ nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
               const int* __restrict__ ng, float* __restrict__ fx_out,
               float* __restrict__ fy_out, float* __restrict__ fz_out,
               float* __restrict__ e_out, const float* __restrict__ box,
-              int G, Consts c) {
+              int G, Consts c, const int* __restrict__ nbr_cat,
+              const signed char* __restrict__ shift) {
   __shared__ float s_x[kLanes], s_y[kLanes], s_z[kLanes], s_q[kLanes];
   __shared__ float s_6[kLanes], s_12[kLanes];
   __shared__ unsigned s_pm[kLanes], s_em[kLanes];
@@ -125,9 +142,25 @@ nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
   for (int g = 0; g < ngroups; ++g) {
     const size_t base = ((size_t)s * G + g) * kLanes + t;
     __syncthreads();                 // previous group fully consumed
-    s_x[t] = jx[base];
-    s_y[t] = jy[base];
-    s_z[t] = jz[base];
+    if (kGatherJ) {
+      // j lane t of group g: atom t % 8 of cat cluster nbr_cat[s, g, t / 8]
+      const size_t ent = ((size_t)s * G + g) * (kLanes / 8) + t / 8;
+      const int row = nbr_cat[ent] * 8 + t % 8;
+      float xj = jx[row], yj = jy[row], zj = jz[row];
+      if (!kMinImage) {
+        // rounded as the plain gather: x + (shift * L), no fused multiply
+        xj = __fadd_rn(xj, __fmul_rn((float)shift[ent * 3], box[0]));
+        yj = __fadd_rn(yj, __fmul_rn((float)shift[ent * 3 + 1], box[4]));
+        zj = __fadd_rn(zj, __fmul_rn((float)shift[ent * 3 + 2], box[8]));
+      }
+      s_x[t] = xj;
+      s_y[t] = yj;
+      s_z[t] = zj;
+    } else {
+      s_x[t] = jx[base];
+      s_y[t] = jy[base];
+      s_z[t] = jz[base];
+    }
     s_q[t] = jq[base];
     s_6[t] = js6[base];
     s_12[t] = js12[base];
@@ -240,21 +273,23 @@ nb_v2u_kernel(const float* __restrict__ ix, const float* __restrict__ iy,
   }
 }
 
-template <bool kEnergy, bool kMinImage, bool kVirial>
+template <bool kEnergy, bool kMinImage, bool kVirial, bool kGatherJ = false>
 void launch_flavour(int coul, dim3 grid, cudaStream_t st,
                     const float* const* p, const int* pm, const int* em,
                     const int* ng, float* fx, float* fy, float* fz, float* e,
-                    const float* box, int G, Consts c) {
+                    const float* box, int G, Consts c,
+                    const int* nbr_cat = nullptr,
+                    const signed char* shift = nullptr) {
 #define NB_ARGS p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], \
-    p[10], p[11], pm, em, ng, fx, fy, fz, e, box, G, c
+    p[10], p[11], pm, em, ng, fx, fy, fz, e, box, G, c, nbr_cat, shift
   if (coul == kPme)
-    nb_v2u_kernel<kEnergy, kPme, kMinImage, kVirial>
+    nb_v2u_kernel<kEnergy, kPme, kMinImage, kVirial, kGatherJ>
         <<<grid, kLanes, 0, st>>>(NB_ARGS);
   else if (coul == kReactionField)
-    nb_v2u_kernel<kEnergy, kReactionField, kMinImage, kVirial>
+    nb_v2u_kernel<kEnergy, kReactionField, kMinImage, kVirial, kGatherJ>
         <<<grid, kLanes, 0, st>>>(NB_ARGS);
   else
-    nb_v2u_kernel<kEnergy, kCutoff, kMinImage, kVirial>
+    nb_v2u_kernel<kEnergy, kCutoff, kMinImage, kVirial, kGatherJ>
         <<<grid, kLanes, 0, st>>>(NB_ARGS);
 #undef NB_ARGS
 }
@@ -292,6 +327,41 @@ extern "C" int nb_v2u_launch(
     launch_flavour<false, true, false>(FLAVOUR_ARGS);
   else
     launch_flavour<false, false, false>(FLAVOUR_ARGS);
+#undef FLAVOUR_ARGS
+  return (int)cudaGetLastError();
+}
+
+// K6: one domain's S i-blocks on its cat plane (x, y, z: the plane's
+// coordinate rows; the i planes start at cluster i_off).  nbr_cat (S, G,
+// 32) cat-space cluster ids; shift (S, G, 32, 3) box-vector counts, or null
+// for the in-loop minimum image; the other streams as nb_v2u_launch.
+extern "C" int nb_v2u_dd_launch(
+    const float* x, const float* y, const float* z, const float* iq,
+    const float* is6, const float* is12, const int* nbr_cat,
+    const signed char* shift, const float* jq, const float* js6,
+    const float* js12, const int* pair_m, const int* excl_m, const int* ng,
+    float* fx, float* fy, float* fz, float* e, const float* box, int i_off,
+    int S, int G, int coulomb, int compute_energy, int min_image,
+    float epsfac, float beta, float rc2, float rv2, float krf, float crf,
+    float rcinv6, float inv_rc, void* stream) {
+  const size_t i0 = (size_t)i_off * 8;
+  const float* planes[12] = {x + i0, y + i0, z + i0, iq, is6, is12,
+                             x, y, z, jq, js6, js12};
+  Consts c{epsfac, beta, rc2, rv2, krf, crf, rcinv6, inv_rc};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S <= 0) return 0;
+  if (!min_image && shift == nullptr) return (int)cudaErrorInvalidValue;
+  dim3 grid(S);
+#define FLAVOUR_ARGS coulomb, grid, st, planes, pair_m, excl_m, ng, fx, fy, \
+    fz, e, box, G, c, nbr_cat, shift
+  if (compute_energy && min_image)
+    launch_flavour<true, true, false, true>(FLAVOUR_ARGS);
+  else if (compute_energy)
+    launch_flavour<true, false, false, true>(FLAVOUR_ARGS);
+  else if (min_image)
+    launch_flavour<false, true, false, true>(FLAVOUR_ARGS);
+  else
+    launch_flavour<false, false, false, true>(FLAVOUR_ARGS);
 #undef FLAVOUR_ARGS
   return (int)cudaGetLastError();
 }

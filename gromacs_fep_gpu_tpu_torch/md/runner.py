@@ -2,7 +2,8 @@
 (RunnerConfig, MdRunner: _foreign_factory, _flavor_pattern, the rebuild ->
 nstlist-step chunk, _grow and roll-back on overflow) for the single-device
 cluster paths (RunnerConfig.layout: v2u, super, cluster, v2 and the table
-route) and the dense oracle path (use_dense).  With a lambda ladder
+route), the dense oracle path (use_dense) and spatial domain decomposition
+(RunnerConfig.mesh, dd_grid, dd_block).  With a lambda ladder
 (all_lambda) the step loop records Delta H to every window each
 fep.nstdhdl steps; expanded-ensemble and AWH moves are not ported.  With
 pressure coupling the steps at step % nstpcouple == 0 take the virial
@@ -19,6 +20,17 @@ contract (need = max(flag, cap) * 1.25 + 8, rounded up to 32 for the union
 list and to 16 for the per-cluster list) and the chunk restarts from its
 verified start state, so no step ever runs on an overflowed list.
 Excluded pairs beyond rlist fail hard.
+
+Domain decomposition (a mesh whose spatial axis has more than one domain):
+the rebuild sorts atoms so that each domain owns a contiguous cluster range
+(slab-major along x on a 1-D ring, the hierarchical equal-count sort on a
+dd_grid), the non-bonded force runs per domain on its halo-extended plane
+(K6 on the v2u layout, the table route's kernel on every other layout, as
+the JAX runner demotes them) and the PME reciprocal part is sharded
+(parallel/spatial.py).  A pair beyond the +-1 halo (a domain thinner than
+the list cut-off) fails hard at the rebuild: no growth can cure it.  The
+FEP list, the bonded terms, SETTLE, the update and the Delta H sweep stay
+on the home device (the system's).  Pressure coupling under DD raises.
 """
 from __future__ import annotations
 
@@ -35,12 +47,12 @@ from ..ops.forces import dense_energy, get_beta, make_dense_force_fn
 from ..ops.foreign import make_foreign_delta_fn
 from ..ops.nb_v2u import BU, prepare_v2u
 from ..ops.pairlist import (build_cluster_pairlist, build_fep_pairlist,
-                            check_exclusions)
+                            check_exclusions, dd_geometry)
 from .simulator import StepLog, make_step_fn, stack_logs
 from .verletbuf import effective_rlist
 
 FLAGS = ("fep_ovf", "s_ovf", "s_max", "n_ovf", "n_max", "excl_bad",
-         "shift_bad", "t_ovf", "t_max")
+         "shift_bad", "t_ovf", "t_max", "halo_bad")
 
 
 @dataclasses.dataclass
@@ -77,6 +89,13 @@ class RunnerConfig:
     # dense O(N^2) oracle force (ops/forces.py) instead of the pair lists
     # and the K1 kernel: small systems only
     use_dense: bool = False
+    # spatial domain decomposition: a parallel/mesh.py DeviceMesh whose
+    # spatial axis holds the domains; dd_grid (P0, P1, P2) with prod ==
+    # that axis' size, None = a 1-D ring of slabs along x; dd_block:
+    # clusters per kernel block (each domain owns a multiple of it)
+    mesh: Optional[object] = None
+    dd_block: int = 8
+    dd_grid: Optional[Tuple[int, ...]] = None
 
 
 class MdRunner:
@@ -96,6 +115,7 @@ class MdRunner:
                 np.asarray(all_lambda, np.float32), device=self.device)
         self.pert_idx = np.where(system.perturbed.cpu().numpy())[0]
         self.has_fep = self.pert_idx.size > 0
+        self._dd_setup()
         self.recip_fn = self.recip_force_fn = self.recip_slope_fn = None
         if params.coulomb == CoulombType.PME:
             if params.pme_grid is None:
@@ -103,11 +123,23 @@ class MdRunner:
             from ..ops.pme import make_pme_recip_fns
             (self.recip_fn, self.recip_force_fn,
              self.recip_slope_fn) = make_pme_recip_fns(system, params)
+            if self.mesh is not None:
+                from ..parallel.spatial import make_sharded_pme
+                self.recip_force_fn = make_sharded_pme(system, params,
+                                                       self.mesh)
         if self.config.use_dense:
             dense = make_dense_force_fn(system, params, self.recip_fn)
             self._force_fn = (lambda x, box, lam, nl, fl, prep=None,
                               **_flavor_kwargs: dense(x, box, lam))
             self.layout = None
+        elif self.mesh is not None:
+            self._dd_override = self._make_dd_override()
+            self._force_fn = make_cluster_force_fn(
+                system, params, has_fep=self.has_fep,
+                pme_recip_force_fn=self.recip_force_fn,
+                layout=self._dd_override.layout,
+                nb_kernel_override=self._dd_override)
+            self.layout = self._dd_override.layout
         else:
             self._force_fn = make_cluster_force_fn(
                 system, params, has_fep=self.has_fep,
@@ -121,6 +153,53 @@ class MdRunner:
         self._rlist = None
         self.last_flags = None      # flags of the newest accepted rebuild
         self.n_regrow = 0           # chunks restarted after an overflow
+
+    def _dd_setup(self):
+        """Domain decomposition from config.mesh (JAX runner.py:143-163):
+        self.mesh (None without DD), the domain grid and the DD sort."""
+        cfg = self.config
+        self.mesh, self._dd_grid, self._dd_sort = None, None, None
+        if cfg.mesh is None or cfg.use_dense:
+            return
+        from ..parallel.mesh import SPATIAL_AXIS
+        nsh = cfg.mesh.shape[SPATIAL_AXIS]
+        if nsh <= 1:
+            return
+        kinds = {d.type for d in cfg.mesh.spatial_devices}
+        if kinds != {self.device.type}:
+            raise ValueError(
+                f"the mesh's domains lie on {sorted(kinds)} but the system "
+                f"on {self.device.type}: domains run on the system's kind "
+                "of device")
+        if self.params.pcoupl != PcouplType.NO:
+            raise NotImplementedError(
+                "pressure coupling under domain decomposition is not ported "
+                "(the JAX runner keeps its decomposed virial off under DD)")
+        self.mesh = cfg.mesh
+        self._dd_grid = nsh
+        if cfg.dd_grid is not None:
+            grid = tuple(cfg.dd_grid) + (1,) * (3 - len(cfg.dd_grid))
+            if int(np.prod(grid)) != nsh:
+                raise ValueError(f"dd_grid {grid} does not cover the "
+                                 f"{nsh}-device spatial mesh axis")
+            ps, _ = dd_geometry(self.system.n_atoms, grid, cfg.dd_block)
+            self._dd_grid = grid
+            self._dd_sort = (grid, ps)
+
+    def _make_dd_override(self):
+        """K6 on the v2u layout; every other layout (and a v2u layout that
+        demotes: a non-geometric LJ table or another vdW modifier) runs the
+        table route under DD, as the JAX runner drops use_pallas."""
+        from ..parallel.spatial import (make_dd_nb_override,
+                                        make_dd_v2u_override)
+        from ..ops.cluster_nb import effective_layout
+        layout = effective_layout(self.system.nbfp.cpu().numpy(),
+                                  self.params, self.config.layout)
+        make = make_dd_v2u_override if layout == "v2u" \
+            else make_dd_nb_override
+        return make(self.system, self.params, self.mesh,
+                    get_beta(self.params), block=self.config.dd_block,
+                    grid=self._dd_grid)
 
     def _foreign_factory(self):
         """(factory, n_foreign): factory(feplist) -> delta(x, box, lam), the
@@ -217,7 +296,11 @@ class MdRunner:
             compute_shifts=(layout == "v2"
                             or (layout == "v2u" and cfg.baked_shifts)),
             super_block=8 if layout == "super" else BU,
-            tile_cap=cfg.tile_cap)
+            tile_cap=cfg.tile_cap,
+            # DD: slab-major along x on a 1-D ring, else the N-D sort
+            slab_axis=(0 if self.mesh is not None and self._dd_sort is None
+                       else None),
+            dd_sort=self._dd_sort)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         feplist, fep_ovf = None, zero
         if self.has_fep:
@@ -231,7 +314,13 @@ class MdRunner:
             excl_bad = check_exclusions(state.x, state.box, self.system,
                                         self._rlist, skip_perturbed=True)
         nbfp = self.system.nbfp
-        if layout == "v2u":
+        halo_bad = zero
+        if self.mesh is not None:
+            from ..parallel.spatial import halo_violations
+            halo_bad = halo_violations(nlist, self._dd_grid, cfg.dd_block)
+            prep = self._dd_override.prepare(
+                nlist, prepare_v2u(nlist, nbfp) if layout == "v2u" else None)
+        elif layout == "v2u":
             prep = prepare_v2u(nlist, nbfp)
         elif layout == "table":
             prep = nb_cluster.prepare_table(
@@ -245,7 +334,7 @@ class MdRunner:
             fep_ovf, flag(nlist.super_overflow), flag(nlist.super_max_count),
             flag(nlist.n_overflow), flag(nlist.max_count), excl_bad,
             flag(nlist.shift_overflow), flag(nlist.tile_overflow),
-            flag(nlist.tile_max)]).to(torch.int64)
+            flag(nlist.tile_max), halo_bad.to(zero.device)]).to(torch.int64)
         return nlist, feplist, prep, dict(zip(FLAGS, flags.cpu().tolist()))
 
     def _grow(self, fl: dict) -> bool:
@@ -342,6 +431,14 @@ class MdRunner:
                     f"pair-list cutoff ({self._rlist:.3f} nm): their "
                     "RF/Ewald exclusion corrections would be lost "
                     "(reference: nbnxm/exclusionchecker.cpp fails hard)")
+            if fl["halo_bad"] > 0:
+                raise RuntimeError(
+                    f"{fl['halo_bad']} pair(s) reach beyond the "
+                    "ring-halo neighbourhood: the spatial slabs are "
+                    "thinner than the pair-list cutoff for this mesh. "
+                    "Use fewer spatial shards or a larger box "
+                    "(reference behavior: domdec cell-size-vs-cutoff "
+                    "fatal error, domdec.cpp)")
             if fl["shift_bad"] > 0:
                 if self.layout == "v2":
                     raise RuntimeError(

@@ -117,7 +117,8 @@ def fep_pair_energy(x, box, lam_c, lam_v, feplist: FepPairlist,
 def make_cluster_force_fn(system: System, params: MdParams,
                           has_fep: Optional[bool] = None,
                           pme_recip_force_fn: Optional[Callable] = None,
-                          layout: str = "v2u"):
+                          layout: str = "v2u",
+                          nb_kernel_override: Optional[Callable] = None):
     """force_fn(x, box, lam, nlist, feplist, prep, need_energy=True,
     need_virial=False, recip_scale=1.0, skip_recip=False) -> (f,
     EnergyTerms); force_fn.layout is the layout it runs
@@ -130,11 +131,21 @@ def make_cluster_force_fn(system: System, params: MdParams,
     and raise) and fills terms.vir_diag.  recip_scale / skip_recip are
     multiple time stepping of the PME reciprocal force: on-steps apply the
     recip force scaled by the MTS factor, off-steps skip it; energies, dvdl
-    and the virial stay unscaled."""
+    and the virial stay unscaled.
+
+    nb_kernel_override(x, box, nlist, prep=prep, need_energy=...) ->
+    (f_sorted, e_coul, e_lj) replaces the plain non-bonded kernel: the
+    domain-decomposition routes of parallel/spatial.py plug in here (the
+    JAX hook of the same name), prep being their per-rebuild pack.  It has
+    no virial flavour: pressure coupling raises."""
     beta = get_beta(params)
     if has_fep is None:
         has_fep = bool(system.perturbed.any())
     layout = effective_layout(system.nbfp.cpu().numpy(), params, layout)
+    if params.pcoupl != PcouplType.NO and nb_kernel_override is not None:
+        raise NotImplementedError(
+            "pressure coupling under domain decomposition is not ported "
+            "(the JAX runner keeps its decomposed virial off under DD)")
     if params.pcoupl != PcouplType.NO and layout not in ("v2u", "table"):
         raise NotImplementedError(
             f"pressure coupling on the {layout} layout: its kernel has no "
@@ -176,7 +187,13 @@ def make_cluster_force_fn(system: System, params: MdParams,
         if need_virial and pme_recip_force_fn is not None and skip_recip:
             raise ValueError("a pressure step must evaluate the reciprocal "
                              "term (align nstpcouple with the MTS factor)")
-        if layout == "v2u":
+        if nb_kernel_override is not None:
+            if need_virial:
+                raise NotImplementedError("the virial under domain "
+                                          "decomposition is not ported")
+            out = nb_kernel_override(x, box, nlist, prep=prep,
+                                     need_energy=need_energy)
+        elif layout == "v2u":
             out = cluster_forces_v2u(x, box, nlist, prep, consts,
                                      compute_energy=need_energy,
                                      compute_virial=need_virial)

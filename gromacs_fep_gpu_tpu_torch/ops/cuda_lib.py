@@ -39,13 +39,18 @@ SIGNATURES = {
         # energies, box(9); S, G, coulomb type, energy flag, virial flag,
         # minimum-image flag; 8 float constants; stream
         "nb_v2u_launch": [_P] * 20 + [_I] * 6 + [_F] * 8 + [_P],
+        # K6: 3 cat planes, iq, is6, is12, cat ids, shift (or null), jq,
+        # js6, js12, pair/excl masks, ng, 3 force planes, energies,
+        # box(9); i_off, S, G, coulomb type, energy flag, minimum-image
+        # flag; 8 float constants; stream
+        "nb_v2u_dd_launch": [_P] * 19 + [_I] * 6 + [_F] * 8 + [_P],
     },
     "nb_cluster": {
         # x, y, z, q, pv, s6, s12, types, nbfp, excl, nbr, cnt, shift,
-        # jmask, 3 force planes, energies, box(9); T, K, W, n_icl, layout,
-        # lj_table, flavour, coulomb type, modifier; 16 float constants;
-        # stream
-        "nb_cluster_launch": [_P] * 19 + [_I] * 9 + [_F] * 16 + [_P],
+        # jmask, 3 force planes, energies, box(9); T, K, W, i0, n_icl,
+        # layout, lj_table, flavour, coulomb type, modifier; 16 float
+        # constants; stream
+        "nb_cluster_launch": [_P] * 19 + [_I] * 10 + [_F] * 16 + [_P],
     },
     "pme_spline": {
         # x, q, box(9), grid; n, K1, K2, K3; stream

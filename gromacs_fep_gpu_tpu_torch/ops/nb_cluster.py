@@ -50,18 +50,24 @@ _MOD_CODE = {VdwModifier.NONE: 0, VdwModifier.POTENTIAL_SHIFT: 1,
              VdwModifier.FORCE_SWITCH: 2, VdwModifier.POTENTIAL_SWITCH: 3}
 
 # launches of the CUDA kernel, by layout and flavour (F = force only, VF =
-# energies, VFV = energies and virial)
+# energies, VFV = energies and virial); table_dd: the table route on a
+# domain's i-cluster range (PrepCluster.halo), one per domain launch
 launches = {"super": {"F": 0, "VF": 0}, "cluster": {"F": 0, "VF": 0},
-            "v2": {"F": 0, "VF": 0}, "table": {"F": 0, "VF": 0, "VFV": 0}}
+            "v2": {"F": 0, "VF": 0}, "table": {"F": 0, "VF": 0, "VFV": 0},
+            "table_dd": {"F": 0, "VF": 0}}
 
 
 @dataclasses.dataclass
 class PrepCluster:
     """Per-rebuild data of one layout: static planes over n_rows = (C_pad
     + 1) * 8 sorted atoms (C_pad = 8 ceil(C / 8) i-clusters plus the
-    trailing dummy cluster that the padded id C may name), and the list."""
+    trailing dummy cluster that the padded id C may name), and the list.
+    Under domain decomposition (parallel/spatial.py, halo=True) the planes
+    are a domain's halo-extended plane and the i-clusters the range [i0,
+    i0 + n_icl) of it; the list rows, the exclusions of the i atoms and the
+    outputs are indexed from i0."""
     layout: str
-    n_icl: int                    # C_pad
+    n_icl: int                    # C_pad (i-clusters of the range)
     q: torch.Tensor               # (n_rows,) f32 charges (state A)
     pv: torch.Tensor              # (n_rows,) f32 valid * (1 - perturbed)
     nbr: torch.Tensor             # (R, W) i32 j-cluster ids, valid first
@@ -74,6 +80,8 @@ class PrepCluster:
     shift: Optional[torch.Tensor] = None  # (R, W, 3) f32 box counts (v2)
     jmask: Optional[torch.Tensor] = None  # (R, W, 8) i32 lane bits (v2)
     img: Optional[torch.Tensor] = None    # (n_pad, 3) f32 image counts (v2)
+    i0: int = 0                   # first i-cluster of the planes
+    halo: bool = False            # a domain's pack (counted as table_dd)
 
     @property
     def n_rows(self) -> int:
@@ -320,7 +328,8 @@ def cluster_nb_kernel_core(xs_pad, qs_pad, pv_pad, excl_pad, nbr_p, box,
                            consts: NbConstants, s6_pad=None, s12_pad=None,
                            ts_pad=None, nbfp=None,
                            compute_energy: bool = True,
-                           compute_virial: bool = False, block: int = 64):
+                           compute_virial: bool = False, block: int = 64,
+                           i0: int = 0):
     """Plain PyTorch version of the table route: the XLA kernel of
     cluster_nb.py (cluster_nb_kernel_core) over sorted padded rows.
     xs_pad (n_rows, 3), qs_pad, pv_pad = valid * (1 - perturbed), excl_pad
@@ -331,7 +340,9 @@ def cluster_nb_kernel_core(xs_pad, qs_pad, pv_pad, excl_pad, nbr_p, box,
     lj[, vir_xx, vir_yy, vir_zz]) sums over the full list, not yet halved
     or scaled (zeros in the force flavour).  Every vdW modifier; exact
     erfc; rectangular minimum image round(d / L) (the XLA kernel's
-    triclinic sequence on a rectangular box).  The rows may be float64."""
+    triclinic sequence on a rectangular box).  The rows may be float64.
+    i0: the i-clusters are [i0, i0 + n_icl) of the rows (the JAX core's
+    block_offset); nbr_p, excl_pad and the outputs count from i0."""
     if compute_virial and not compute_energy:
         raise ValueError("the virial rides the energy flavour")
     c = consts
@@ -344,8 +355,9 @@ def cluster_nb_kernel_core(xs_pad, qs_pad, pv_pad, excl_pad, nbr_p, box,
     if c.modifier == VdwModifier.FORCE_SWITCH:
         c2d, c3d, cp6, c2r, c3r, cp12 = c.fsw
     for c0, B in _icluster_blocks(n_icl, block):
-        iid = (torch.arange(c0, c0 + B, device=dev)[:, None] * CLUSTER
+        lid = (torch.arange(c0, c0 + B, device=dev)[:, None] * CLUSTER
                + torch.arange(CLUSTER, device=dev))              # (B, 8)
+        iid = lid + i0 * CLUSTER
         jc = nbr_p[c0:c0 + B].to(torch.int64)
         jid = (jc[..., None] * CLUSTER
                + torch.arange(CLUSTER, device=dev)).reshape(B, W * CLUSTER)
@@ -359,7 +371,7 @@ def cluster_nb_kernel_core(xs_pad, qs_pad, pv_pad, excl_pad, nbr_p, box,
         rinv2 = rinv * rinv
         pairm = (pv_pad[iid][..., None] * pv_pad[jid][:, None, :]
                  * (iid[..., None] != jid[:, None, :]))
-        ei = excl_pad[iid].to(torch.int64)
+        ei = excl_pad[lid].to(torch.int64)
         exm = torch.zeros(pairm.shape, dtype=torch.bool, device=dev)
         for k in range(ei.shape[-1]):
             exm |= ei[:, :, k, None] == jid[:, None, :]
@@ -434,7 +446,7 @@ def table_plain(planes, box, prep: PrepCluster, consts: NbConstants,
         torch.stack(planes, dim=-1), prep.q, prep.pv, prep.excl, prep.nbr,
         box, consts, s6_pad=prep.s6, s12_pad=prep.s12, ts_pad=prep.types,
         nbfp=prep.nbfp, compute_energy=compute_energy,
-        compute_virial=compute_virial)
+        compute_virial=compute_virial, i0=prep.i0)
     return f[:, 0], f[:, 1], f[:, 2], e
 
 
@@ -476,7 +488,12 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
         _check(prep.jmask, "jmask", i32, (R, W, CLUSTER))
     else:
         K = prep.excl.shape[1]
-        _check(prep.excl, "excl", i32, (n_rows, K))
+        _check(prep.excl, "excl", i32, (prep.excl.shape[0], K))
+        if prep.excl.shape[0] < n_icl * CLUSTER:
+            raise ValueError("excl: fewer rows than the range's i atoms")
+    if prep.i0 < 0 or (prep.i0 + n_icl) * CLUSTER > n_rows:
+        raise ValueError(f"i-clusters [{prep.i0}, {prep.i0 + n_icl}) do "
+                         f"not lie in planes of {n_rows} rows")
     dev = planes[0].device
     fx = torch.empty((n_icl * CLUSTER,), dtype=f32, device=dev)
     fy, fz = torch.empty_like(fx), torch.empty_like(fx)
@@ -494,13 +511,14 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
         ptr(prep.nbfp), ptr(prep.excl if layout != "v2" else None),
         prep.nbr.data_ptr(), prep.cnt.data_ptr(), ptr(prep.shift),
         ptr(prep.jmask), fx.data_ptr(), fy.data_ptr(), fz.data_ptr(),
-        e.data_ptr(), box.data_ptr(), T, K, W, n_icl, _LAYOUT_CODE[layout],
+        e.data_ptr(), box.data_ptr(), T, K, W, prep.i0, n_icl,
+        _LAYOUT_CODE[layout],
         int(lj_table), _FLAVOUR_CODE[flavour], _COUL_CODE[c.coulomb],
         _MOD_CODE[c.modifier], c.epsfac, c.beta, c.rc2, c.rv2, c.krf, c.crf,
         c.rcinv6, c.inv_rc, c.rsw, c.rvdw, *c.fsw,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(code, f"nb_cluster ({layout})")
-    launches[layout][flavour] += 1
+    launches["table_dd" if prep.halo else layout][flavour] += 1
     return fx, fy, fz, e
 
 

@@ -18,6 +18,13 @@ caller turns into the diagonal pair virial Xi_aa = -1/4 sum).
 `nb_v2u_forces` dispatches by the tensors' device: CPU tensors take the
 plain PyTorch version `nb_v2u_plain`; CUDA tensors launch the kernel of
 csrc/nb_v2u.cu or raise.
+
+K6, the same body under domain decomposition (the JAX package's
+parallel/spatial.py make_dd_v2u_override), is `nb_v2u_dd_forces`: one
+domain's i-blocks on its halo-extended ("cat") coordinate plane, each j
+lane read from that plane by cat-space cluster id plus its baked shift
+(the gather that K1 receives pre-materialized); its plain version is
+`nb_v2u_dd_plain`, the gather followed by `nb_v2u_plain`.
 """
 from __future__ import annotations
 
@@ -41,8 +48,8 @@ _COUL_CODE = {CoulombType.CUTOFF: 0, CoulombType.REACTION_FIELD: 1,
               CoulombType.PME: 2}
 
 # launches of the CUDA kernel, by flavor (F = force only, VF = energies,
-# VFV = energies and virial)
-launches = {"F": 0, "VF": 0, "VFV": 0}
+# VFV = energies and virial; DD_F and DD_VF: K6, one per domain launch)
+launches = {"F": 0, "VF": 0, "VFV": 0, "DD_F": 0, "DD_VF": 0}
 
 
 def _erfc_poly(x):
@@ -431,3 +438,83 @@ def cluster_forces_v2u(x, box, nlist: ClusterPairlist, prep: PrepV2U,
         vir = -0.25 * torch.sum(e[:, 2:5].to(torch.float64), dim=0)
         return out + (vir.to(e.dtype),)
     return out
+
+
+def gather_cat(cat_planes, i_off: int, box, prep: PrepV2U):
+    """K6's per-step gather on one domain: i planes (S, BU, 8) from the
+    cat plane's clusters [i_off, i_off + S * BU), j planes (S, G, 256)
+    from cat cluster ids prep.nbr2 plus shift * box diagonal (the JAX
+    make_dd_v2u_override:486-504).  cat_planes: (3, n_cat_rows)."""
+    S, G = prep.nbr2.shape[:2]
+    packed = cat_planes.reshape(3, -1, CLUSTER)
+    g = packed[:, prep.nbr2.to(torch.int64)]              # (3, S, G, GJU, 8)
+    if prep.shift is not None:
+        sL = prep.shift.to(cat_planes.dtype) * torch.diagonal(box)
+        g = g + sL.permute(3, 0, 1, 2)[..., None]
+    j = [g[d].reshape(S, G, LANES).contiguous() for d in range(3)]
+    i = [packed[d, i_off:i_off + S * BU].reshape(S, BU, CLUSTER)
+         .contiguous() for d in range(3)]
+    return i, j
+
+
+def nb_v2u_dd_plain(cat_planes, i_off: int, box, prep: PrepV2U,
+                    consts: NbConstants, compute_energy: bool):
+    """Plain version of K6: gather_cat then nb_v2u_plain; same outputs as
+    nb_v2u_plain on the domain's S blocks."""
+    i_planes, j_planes = gather_cat(cat_planes, i_off, box, prep)
+    return nb_v2u_plain(i_planes, j_planes, box, prep, consts,
+                        compute_energy)
+
+
+def nb_v2u_dd_cuda(cat_planes, i_off: int, box, prep: PrepV2U,
+                   consts: NbConstants, compute_energy: bool):
+    """Launch K6 (csrc/nb_v2u.cu nb_v2u_dd_launch, the kGatherJ flavour)
+    on the current stream; same outputs as nb_v2u_dd_plain."""
+    S, G = prep.nbr2.shape[:2]
+    f32, i32 = torch.float32, torch.int32
+    n_rows = cat_planes.shape[1]
+    _check(cat_planes, "cat planes", f32, (3, n_rows))
+    if n_rows % CLUSTER or (i_off + S * BU) * CLUSTER > n_rows:
+        raise ValueError(f"i-blocks [{i_off}, {i_off + S * BU}) do not lie "
+                         f"in a cat plane of {n_rows} rows")
+    for k, t in enumerate((prep.iq, prep.is6, prep.is12)):
+        _check(t, f"i plane {k}", f32, (S, BU, CLUSTER))
+    for k, t in enumerate((prep.jq, prep.js6, prep.js12)):
+        _check(t, f"j plane {k}", f32, (S, G, LANES))
+    _check(prep.nbr2, "nbr2 (cat ids)", i32, (S, G, GJU))
+    if prep.shift is not None:
+        _check(prep.shift, "shift", torch.int8, (S, G, GJU, 3))
+    _check(prep.pair_m, "pair_m", i32, (S, G, LANES))
+    _check(prep.excl_m, "excl_m", i32, (S, G, LANES))
+    _check(prep.ng, "ng", i32, (S,))
+    _check(box, "box", f32, (3, 3))
+    dev = cat_planes.device
+    fx = torch.empty((S, BU * CLUSTER), dtype=f32, device=dev)
+    fy, fz = torch.empty_like(fx), torch.empty_like(fx)
+    e = torch.empty((S, 2), dtype=f32, device=dev)
+    c = consts
+    lib = cuda_lib.library("nb_v2u")
+    code = lib.nb_v2u_dd_launch(
+        cat_planes[0].data_ptr(), cat_planes[1].data_ptr(),
+        cat_planes[2].data_ptr(), prep.iq.data_ptr(), prep.is6.data_ptr(),
+        prep.is12.data_ptr(), prep.nbr2.data_ptr(),
+        None if prep.shift is None else prep.shift.data_ptr(),
+        prep.jq.data_ptr(), prep.js6.data_ptr(), prep.js12.data_ptr(),
+        prep.pair_m.data_ptr(), prep.excl_m.data_ptr(), prep.ng.data_ptr(),
+        fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), e.data_ptr(),
+        box.data_ptr(), i_off, S, G, _COUL_CODE[c.coulomb],
+        int(compute_energy), int(prep.shift is None),
+        c.epsfac, c.beta, c.rc2, c.rv2, c.krf, c.crf, c.rcinv6, c.inv_rc,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(code, "nb_v2u_dd")
+    launches["DD_VF" if compute_energy else "DD_F"] += 1
+    return fx, fy, fz, e
+
+
+def nb_v2u_dd_forces(cat_planes, i_off: int, box, prep: PrepV2U,
+                     consts: NbConstants, compute_energy: bool):
+    """K6 dispatch by device: the plain version on CPU tensors, the CUDA
+    kernel on CUDA tensors."""
+    fn = nb_v2u_dd_plain if cat_planes.device.type == "cpu" \
+        else nb_v2u_dd_cuda
+    return fn(cat_planes, i_off, box, prep, consts, compute_energy)

@@ -1,6 +1,7 @@
 """Cluster pair-list construction — PyTorch counterpart of
-gromacs_fep_gpu_tpu/ops/pairlist.py (_hilbert3, sort_atoms_by_cell,
-_pack_valid, _cluster_neighbors, _cluster_neighbors_2level,
+gromacs_fep_gpu_tpu/ops/pairlist.py (_hilbert3, sort_atoms_by_cell with
+its slab order, the domain-decomposition sort dd_geometry / sort_atoms_dd /
+_morton2, _pack_valid, _cluster_neighbors, _cluster_neighbors_2level,
 _total_image_counts, build_cluster_pairlist, check_exclusions,
 build_fep_pairlist).
 
@@ -109,8 +110,12 @@ def _hilbert3(ix, iy, iz, bits: int = 8):
     return key
 
 
-def sort_atoms_by_cell(x, box, cell_size: float):
-    """Hilbert ordering of atoms on one power-of-two cell grid."""
+def sort_atoms_by_cell(x, box, cell_size: float,
+                       slab_axis: Optional[int] = None):
+    """Hilbert ordering of atoms on one power-of-two cell grid.  slab_axis:
+    that axis becomes the primary key (slab-major order, a 2-D Morton key
+    inside the slab), so contiguous cluster ranges are spatial slabs: the
+    1-D ring of the domain decomposition (parallel/spatial.py)."""
     diag = torch.diagonal(box)
     raw = torch.clamp(torch.exp(torch.mean(torch.log(
         torch.clamp(diag / cell_size, 1.0, 255.0)))), 1.0, 127.0)
@@ -119,8 +124,76 @@ def sort_atoms_by_cell(x, box, cell_size: float):
     frac = frac - torch.floor(frac)
     ic = torch.minimum(torch.clamp((frac * ncell).to(torch.int32), min=0),
                        ncell - 1)
-    key = _hilbert3(ic[:, 0], ic[:, 1], ic[:, 2])
+    if slab_axis is None:
+        key = _hilbert3(ic[:, 0], ic[:, 1], ic[:, 2])
+    else:
+        oth = [d for d in range(3) if d != slab_axis]
+        key = (ic[:, slab_axis] << 16) | _morton2(ic[:, oth[0]],
+                                                   ic[:, oth[1]])
     return torch.argsort(key, stable=True)
+
+
+def _morton2(a, b):
+    """2-D Morton interleave of two 8-bit cell indices (a high)."""
+    m2 = torch.zeros_like(a)
+    for bit in range(7, -1, -1):
+        m2 = (m2 << 2) | (((a >> bit) & 1) << 1) | ((b >> bit) & 1)
+    return m2
+
+
+def dd_geometry(n_atoms: int, grid, block: int):
+    """(ps, c_pad): clusters per domain of an N-D domain grid, aligned to
+    the kernel block, and the padded total cluster count — shared by the
+    DD sort and the halo machinery (parallel/spatial.py) so that domain
+    boundaries agree."""
+    C = (n_atoms + CLUSTER - 1) // CLUSTER
+    nsh = int(np.prod(grid))
+    ps = -(-C // nsh)
+    ps = -(-ps // block) * block
+    return ps, ps * nsh
+
+
+def sort_atoms_dd(x, box, cell_size: float, grid, ps: int):
+    """Hierarchical equal-count sort of an N-D domain grid (the JAX
+    sort_atoms_dd): axis 0 is split into P0 equal-count groups by rank,
+    each group is re-ranked along axis 1 and split into P1 chunks, and so
+    on, so domain d owns clusters [d*ps, (d+1)*ps) of a compact box.  The
+    keys are packed in int32 exactly as in JAX and every argsort is
+    stable (jnp.argsort's order), so the permutation is JAX's."""
+    n = x.shape[0]
+    dev = x.device
+    diag = torch.diagonal(box)
+    raw = torch.clamp(diag / cell_size, 1.0, 255.0)
+    ncell = torch.exp2(torch.ceil(torch.log2(raw))).to(torch.int32)
+    frac = pbc_mod.frac_coords(x, box)
+    frac = frac - torch.floor(frac)
+    ic = torch.minimum(torch.clamp((frac * ncell).to(torch.int32), min=0),
+                       ncell - 1)
+    P0, P1, P2 = grid
+    if P0 * P1 * P2 > 127:
+        raise ValueError("sort_atoms_dd int32 key packing supports up "
+                         "to 127 devices per spatial grid")
+    a0 = ps * P1 * P2 * CLUSTER
+    a1 = ps * P2 * CLUSTER
+    a2 = ps * CLUSTER
+
+    def ranks(key):
+        order = torch.argsort(key, stable=True)
+        r = torch.empty((n,), dtype=torch.int32, device=dev)
+        r[order] = torch.arange(n, dtype=torch.int32, device=dev)
+        return r
+
+    i0, i1, i2 = (ic[:, d] for d in range(3))
+    r0 = ranks((i0 << 16) | _morton2(i1, i2))
+    g0 = torch.clamp(r0 // a0, max=P0 - 1)
+    r1 = ranks((g0 << 16) | (i1 << 8) | i2)
+    g1 = torch.clamp((r1 - g0 * a0) // a1, max=P1 - 1)
+    g01 = g0 * P1 + g1
+    r2 = ranks((g01 << 24) | (i2 << 16) | _morton2(i0, i1))
+    g2 = torch.clamp((r2 - g01 * a1) // a2, max=P2 - 1)
+    dev_id = g01 * P2 + g2
+    key3 = (dev_id << 24) | (i2 << 16) | (i1 << 8) | i0
+    return torch.argsort(key3, stable=True)
 
 
 def _pack_valid(ok, k: int):
@@ -254,13 +327,17 @@ def build_cluster_pairlist(x, box, system: System, rlist: float,
                            compute_shifts: bool = False,
                            super_block: int = 4,
                            triclinic: bool = False,
-                           tile_cap: Optional[int] = None
-                           ) -> ClusterPairlist:
+                           tile_cap: Optional[int] = None,
+                           slab_axis: Optional[int] = None,
+                           dd_sort=None) -> ClusterPairlist:
     """Rebuild the cluster pair lists (NS step): the per-cluster list when
     nnbr > 0, the union list of super_block-cluster blocks when super_nnbr
     is given, at least one of them.  compute_shifts bakes periodic shifts
     into the union list when there is one, else into the per-cluster
-    list."""
+    list.  Domain decomposition: slab_axis sorts slab-major along that
+    axis (the 1-D ring); dd_sort = ((P0, P1, P2), ps) takes the N-D
+    hierarchical equal-count sort (sort_atoms_dd) instead, domain d owning
+    clusters [d*ps, (d+1)*ps)."""
     if nnbr <= 0 and super_nnbr is None:
         raise ValueError("ask for the per-cluster list (nnbr > 0), the "
                          "union list (super_nnbr) or both")
@@ -274,7 +351,10 @@ def build_cluster_pairlist(x, box, system: System, rlist: float,
         vol = float(np.prod(np.diagonal(box.detach().cpu().numpy())))
         cell_size = max((CLUSTER * vol / max(n, 1)) ** (1.0 / 3.0), 0.15)
 
-    perm = sort_atoms_by_cell(x, box, cell_size)
+    if dd_sort is not None:
+        perm = sort_atoms_dd(x, box, cell_size, dd_sort[0], dd_sort[1])
+    else:
+        perm = sort_atoms_by_cell(x, box, cell_size, slab_axis=slab_axis)
     perm = torch.cat([perm, torch.full((n_pad - n,), n, dtype=perm.dtype,
                                        device=dev)])
     inv_perm = torch.empty((n,), dtype=torch.int64, device=dev)

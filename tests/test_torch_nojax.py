@@ -1,8 +1,9 @@
 """The port stands alone: with jax (and the JAX package) made unimportable,
 every module of gromacs_fep_gpu_tpu_torch imports, and one MD step, one
-step of the table route (Lorentz-Berthelot, force-switch) and of K7a and
-K7b, two C-rescale NPT steps with the dispersion correction, and a
-two-step lambda window with its dhdl.xvg and BAR run on the CPU.  Run in a subprocess so this test's own interpreter, which has
+step on a (2, 2, 2) domain grid of eight CPU domains, one step of the
+table route (Lorentz-Berthelot, force-switch) and of K7a and K7b, two
+C-rescale NPT steps with the dispersion correction, and a two-step lambda
+window with its dhdl.xvg and BAR run on the CPU.  Run in a subprocess so this test's own interpreter, which has
 JAX loaded, does not hide a stray import."""
 import os
 import subprocess
@@ -23,7 +24,7 @@ for m in mods:
     importlib.import_module(m)
 for m in ("ops.nonbonded_ref", "ops.forces", "ops.foreign", "ops.dispcorr",
           "ops.nb_cluster", "io.xvgio", "analysis.bar", "analysis.mbar",
-          "parallel.ensemble"):
+          "parallel.ensemble", "parallel.mesh", "parallel.spatial"):
     assert pkg.__name__ + "." + m in mods, m
 from gromacs_fep_gpu_tpu_torch.core.types import (CoulombType, FepParams,
                                                   MdParams)
@@ -40,6 +41,15 @@ runner = MdRunner(system, params, RunnerConfig(super_nnbr=128,
 state, logs = runner.run(state, 1)
 assert state.step == 1 and bool(torch.isfinite(state.x).all())
 assert bool(torch.isfinite(logs[0].epot).all())
+# domain decomposition: eight domains on the CPU, K6's plain version and
+# the sharded PME
+from gromacs_fep_gpu_tpu_torch.parallel.mesh import make_mesh
+dd = MdRunner(system, params, RunnerConfig(
+    super_nnbr=128, fep_max_nbr=128, dd_block=4, dd_grid=(2, 2, 2),
+    mesh=make_mesh(n_spatial=8, devices=["cpu"] * 8)))
+out, logs = dd.run(state, 1)
+assert bool(torch.isfinite(out.x).all())
+assert float((logs[0].epot - runner.run(state, 1)[1][0].epot).abs()) < 1.0
 # a Lorentz-Berthelot table with force-switch demotes the default layout
 # to the table route; K7a/b/c run on the same system's geometric table
 import dataclasses
