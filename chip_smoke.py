@@ -17,7 +17,11 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    tau_t 0.1 ps, no MTS, 2000 steps (1 ps), through MdRunner.run;
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (equilibrated state, production pair list), with
-   its time, its plain version's time and its bound;
+   its time, its plain version's time and its bound; then the spread
+   kernel's edge cases (spread_edge_cases: supports that wrap on each
+   axis, a triclinic box, 4,096 atoms in one grid cell, n = 1, 17 and 0, a
+   non-finite atom of zero charge, a 5-atom perturbed subset) against
+   spread_plain, grid rel 1e-4 and NaN exactly where it has NaN;
 5. main path, production: >= 400 steps at dt 2 fs with MTS2 through
    MdRunner.run; the launch counters must rise by what the flavour pattern
    predicts, energies and dV/dlambda must be finite, the temperature sane
@@ -139,6 +143,9 @@ FLOPS_PAIR_TABLE = 80
 # so the operations bound counts unique pairs x (pair flops + 6)
 FLOPS_JFORCE = 6
 FLOPS_SPREAD_ATOM = 72 + 16 + 128
+# atoms per CTA of the spread kernel (csrc/pme_spline.cu kSpreadAtoms: 16
+# tap threads per atom in CTAs of 128)
+SPREAD_ATOMS_PER_CTA = 8
 FLOPS_GATHER_ATOM = 90 + 256 + 192
 TEMP_BAND = (260.0, 380.0)      # K, every production step
 # the CHARMM path (GROMACS manual, "Force fields in GROMACS -> CHARMM")
@@ -667,10 +674,13 @@ def _pme_kernel_rows(x, box, q, params, timer, small):
     # the kernel's atomics add in an order that changes from run to run:
     # the grid is held at the energy gate, rel 1e-4 of its largest value
     ok = s_rel <= E_REL
-    _say(f"pme_spread{sfx}: n={n} grid {K}; grid rel {s_rel:.2e} -> "
+    ctas = -(-n // SPREAD_ATOMS_PER_CTA)
+    _say(f"pme_spread{sfx}: n={n} ({int((q == 0).sum())} neutral) grid {K}, "
+         f"{ctas} CTAs; grid rel {s_rel:.2e} -> "
          f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms, of which the grid's "
-         f"memset {memset_ms:.4f} ms (plain {plain_ms:.3f} ms, index_add_ "
-         f"{lib_ms:.4f} ms, bound {bound:.5f} ms by {by})")
+         f"memset {memset_ms:.4f} ms (share {memset_ms / ms:.2f}) (plain "
+         f"{plain_ms:.3f} ms, index_add_ {lib_ms:.4f} ms, bound "
+         f"{bound:.5f} ms by {by})")
     if not ok:
         raise AssertionError(f"pme_spread{sfx} disagrees with its plain "
                              "version")
@@ -724,6 +734,108 @@ def _pme_kernel_rows(x, box, q, params, timer, small):
         max_abs_err=max(gf_abs, gq_abs), ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None))
     return rows
+
+
+def spread_edge_cases(seed=7):
+    """The spread kernel's edge cases, made with numpy from `seed`: a list
+    of (name, x (n, 3), box (3, 3), q (n,), grid) in float32, on the main
+    path's box and grid unless named otherwise.
+    - wrap_x, wrap_y, wrap_z: 96 atoms whose grid coordinate on that axis
+      lies in [0, 1) (the support wraps below cell 0) or in [K - 1, K),
+      and 4 on the faces (0, L, a hair below 0 where u rounds to K, a hair
+      below L);
+    - triclinic: 2,000 atoms in and around a lower-triangular box on a
+      (40, 36, 45) grid;
+    - crowd: 4,096 atoms inside one grid cell (every tap contends);
+    - n1, n17, n0: one atom, 17 atoms (a tail CTA), no atom;
+    - nonfinite_q0: 300 atoms, one with a NaN coordinate and q = 0;
+    - perturbed5: the foreign sweep's energy-only E[dq] spread, 5 atoms of
+      one molecule (within ~0.1 nm) with charge differences as charges."""
+    rng = np.random.RandomState(seed)
+    L = np.float32(N_SIDE * 0.31)
+    from gromacs_fep_gpu_tpu_torch.ops.pme import pme_grid_size
+    K = tuple(pme_grid_size((float(L),) * 3, 0.12))
+    cubic = np.eye(3, dtype=np.float32) * L
+
+    def charges(n):
+        return rng.uniform(-1.0, 1.0, n).astype(np.float32)
+
+    def uniform(n):
+        return rng.uniform(0.0, L, (n, 3)).astype(np.float32)
+    cases = []
+    for d, axis in enumerate("xyz"):
+        x = uniform(100)
+        u = np.concatenate([rng.uniform(0.0, 1.0, 48),
+                            rng.uniform(K[d] - 1.0, K[d], 48)])
+        x[:96, d] = u / K[d] * L
+        x[96:, d] = [0.0, L, -1e-7, L * (1 - 1e-7)]
+        cases.append((f"wrap_{axis}", x, cubic, charges(100), K))
+    tri = np.array([[L, 0, 0], [0.3 * L, 0.9 * L, 0],
+                    [-0.25 * L, 0.2 * L, 0.85 * L]], np.float32)
+    s = rng.uniform(-0.5, 1.5, (2000, 3)).astype(np.float32)
+    cases.append(("triclinic", (s @ tri).astype(np.float32), tri,
+                  charges(2000), (40, 36, 45)))
+    cell = np.array([20, 11, 33])
+    u = cell + rng.uniform(0.0, 1.0, (4096, 3))
+    cases.append(("crowd", (u / np.array(K) * L).astype(np.float32), cubic,
+                  charges(4096), K))
+    for n in (1, 17, 0):
+        cases.append((f"n{n}", uniform(n), cubic, charges(n), K))
+    x, q = uniform(300), charges(300)
+    x[7, 1], q[7] = np.nan, 0.0
+    cases.append(("nonfinite_q0", x, cubic, q, K))
+    c = rng.uniform(0.0, L, 3)
+    x = (c + rng.normal(0.0, 0.06, (5, 3))).astype(np.float32)
+    cases.append(("perturbed5", x, cubic,
+                  rng.uniform(-0.8, 0.8, 5).astype(np.float32), K))
+    return cases
+
+
+def phase_spread_edges(timer):
+    """The spread kernel against spread_plain on each of spread_edge_cases:
+    NaN in exactly the cells where the plain grid has NaN, the other cells
+    at rel 1e-4 of the largest (the atomics add in an order that changes
+    from run to run); n = 0 launches nothing and leaves the grid zero.
+    Then the cost of contention (the crowd's time) and of neutral atoms
+    (2,000 atoms of zero charge against the same atoms charged)."""
+    from gromacs_fep_gpu_tpu_torch.ops import pme_kernels
+    t0 = time.perf_counter()
+    cases = spread_edge_cases()
+    by_name = {c[0]: c[1:] for c in cases}
+
+    def on_card(name):
+        x, box, q, K = by_name[name]
+        return (*(torch.as_tensor(a, device="cuda") for a in (x, box, q)),
+                K)
+    for name, *_ in cases:
+        x, box, q, K = on_card(name)
+        g_k = pme_kernels.spread_cuda(x, box, q, K)
+        g_p = pme_kernels.spread_plain(x, box, q, K)
+        torch.cuda.synchronize()
+        nan_k, nan_p = torch.isnan(g_k), torch.isnan(g_p)
+        same_nan = torch.equal(nan_k, nan_p)
+        if x.shape[0] == 0:
+            ok, rel = bool((g_k == 0).all()) and same_nan, 0.0
+        else:
+            rel, _ = _rel(g_k[~nan_p], g_p[~nan_p])
+            ok = same_nan and rel <= E_REL
+        _say(f"spread edge {name}: n={x.shape[0]} grid {K}, "
+             f"{-(-x.shape[0] // SPREAD_ATOMS_PER_CTA)} CTAs; grid rel "
+             f"{rel:.2e}, NaN cells {int(nan_k.sum())} (plain "
+             f"{int(nan_p.sum())}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"spread edge case {name}: the kernel "
+                                 "disagrees with spread_plain")
+    x, box, q, K = on_card("crowd")
+    crowd_ms = timer.ms(lambda: pme_kernels.spread_cuda(x, box, q, K))
+    x, box, q, K = on_card("triclinic")
+    q0 = torch.zeros_like(q)
+    charged_ms = timer.ms(lambda: pme_kernels.spread_cuda(x, box, q, K))
+    neutral_ms = timer.ms(lambda: pme_kernels.spread_cuda(x, box, q0, K))
+    _say(f"spread edge timings: crowd (4,096 atoms in one cell) "
+         f"{crowd_ms:.4f} ms; triclinic 2,000 atoms {charged_ms:.4f} ms "
+         f"charged, {neutral_ms:.4f} ms all neutral (skipped after the "
+         f"barrier); the edge phase took {time.perf_counter() - t0:.1f} s")
 
 
 def phase_profile(runner, state, nsteps, ms_step):
@@ -1755,6 +1867,7 @@ def run(device="cuda", smi=None):
         super_nnbr=eq.config.super_nnbr, fep_max_nbr=eq.config.fep_max_nbr,
         seed=1))
     rows = phase_kernels(prod, state, timer)
+    phase_spread_edges(timer)
     cluster_rows = phase_cluster_kernels(
         system, params, state, timer,
         (eq.config.super_nnbr, eq.config.fep_max_nbr))

@@ -1,31 +1,48 @@
-// Order-4 B-spline PME charge spread (K2) and potential gather (K3) for
-// Hopper (sm_90a).
+// Order-4 B-spline PME charge spread (K2, K4) and potential gather (K3, K5)
+// for Hopper (sm_90a).
 //
 // Replace the TPU kernels gromacs_fep_gpu_tpu/ops/pme_blocked.py
 // _spread_kernel (via blocked_spread_pallas, then _fold_blocks_axis) and
-// _gather_kernel (via blocked_phi_gather_pallas).  The TPU design buckets
-// atoms onto coarse blocks at each pair-list rebuild and contracts one-hot
-// spline rows against per-block grid windows on the MXU, then overlap-adds
-// the windows.  Hopper needs none of that: each thread owns one atom and
-// touches exactly its 4x4x4 support of the global (K1, K2, K3) grid,
-// spreading with atomicAdd (as the reference's pme_spread.cu does) and
-// gathering with plain loads.  There is no bucketing, so no stale bucket
-// can drop charge.  The same two kernels replace the small-system TPU pair
+// _gather_kernel (via blocked_phi_gather_pallas), and the small-system pair
 // gromacs_fep_gpu_tpu/ops/pme_pallas.py _spread_kernel (via
-// spread_charges_pallas) and _gather_kernel (via phi_gather_pallas), which
-// contract whole-grid one-hot rows in three bf16 passes because the MXU
-// makes O(N K^3) free; without tensor cores in fp32 the 4x4x4 support is
-// the right work at every size, so there is no size threshold here.
-// The TPU kernels' "fail hard" rule keeps its meaning:
-// an atom whose grid coordinate is not finite poisons the grid (spread) or
-// its own output row (gather) with NaN instead of being skipped.
+// spread_charges_pallas) and _gather_kernel (via phi_gather_pallas).  The
+// blocked TPU design buckets atoms onto coarse blocks at each pair-list
+// rebuild, contracts one-hot spline rows against per-block grid windows on
+// the MXU and overlap-adds the windows; the small-system one contracts
+// whole-grid one-hot rows in three bf16 passes, because the MXU makes
+// O(N K^3) free.  Without tensor cores in fp32 the 4x4x4 support is the
+// right work at every size: both kernels touch only it, on the global
+// (K1, K2, K3) grid, so there is no bucketing (no stale bucket can drop
+// charge) and no size threshold.  The TPU kernels' "fail hard" rule keeps
+// its meaning: an atom whose grid coordinate is not finite is spread as
+// the plain version spreads it, a NaN charge on the support of u = 0, and
+// gathered as a NaN output row, instead of being skipped.
 //
-// What bounds them on the H100: neither bytes nor operations.  At 12,290
-// atoms and a 42^3 grid the spread moves ~0.5 MB and does ~3 Mflop, less
-// than a microsecond of either resource, so both kernels run at launch
-// and atomic latency.  The atomics land in L2 (the 296 KB grid stays
-// resident); threads of one warp are neighbours in atom order, so their
-// supports overlap little.
+// The spread.  What bounds it on the H100 is neither HBM bytes nor flops:
+// at 12,290 atoms on a 42^3 grid it reads 0.2 MB, writes the 0.3 MB grid
+// and does 2.7 Mflop, well under a microsecond of either.  It is the L2's
+// atomic throughput, 64 float atomicAdds per atom (786,560 at 12,290 atoms)
+// into the L2-resident grid, plus the grid's memset in the wrapper.  One
+// thread per atom issuing its 64 atomics in series left the kernel to the
+// latency chain of its slowest threads; the design keeps the atomics in
+// flight and lets the L2 merge them:
+//   - order^2 = 16 threads per atom, 8 atoms per CTA of 128 threads (1,537
+//     CTAs at 12,290 atoms), each thread issuing 4 atomics;
+//   - each atom's support (the cell floor(u) and the four weights on each
+//     axis) is computed once, by 3 threads per atom, one per axis, and
+//     staged in shared memory for the atom's 16 tap threads;
+//   - tap thread t owns the (y, z) taps (j, k) = (t / 4, t % 4) and loops
+//     over the 4 x taps, as the reference's pme_spread.cu does: the 4
+//     threads of one grid row add to 4 neighbouring cells in one
+//     instruction, which the L2 takes as one sector request (two where
+//     the cells cross a 32-byte sector or the row wraps at K3);
+//   - the tail CTA's missing atoms and atoms of zero charge are staged with
+//     q = 0 and masked after the barrier, never returned from before it.
+// Each tap's value is ((q wx) wy) wz, the plain version's product, so only
+// the order of the sums differs from it (atomics, from run to run).
+//
+// The gather: one thread per atom reads its 4x4x4 support with plain loads
+// (no atomics, 64 loads from the L2-resident potential grid).
 //
 // Weights: closed-form M4(w + j), j = 0..3 (the _w4 of the TPU kernel),
 // tap j at grid cell (floor(u) - j) mod K; derivative taps
@@ -73,43 +90,53 @@ __device__ __forceinline__ int wrap(int i, int K) {
   return r < 0 ? r + K : r;
 }
 
-__global__ void pme_spread_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ q,
-                                  const float* __restrict__ box,
-                                  float* __restrict__ grid, int n, int K1,
-                                  int K2, int K3) {
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  if (a >= n) return;
-  const Box b = load_box(box);
-  float u[3];
-  grid_coords(x + 3 * a, b, K1, K2, K3, u);
-  const float qa = q[a];
-  if (!(isfinite(u[0]) && isfinite(u[1]) && isfinite(u[2])
-        && isfinite(qa))) {
-    atomicAdd(grid, nanf(""));      // fail hard: never drop the charge
-    return;
-  }
-  const int g0 = (int)floorf(u[0]), g1 = (int)floorf(u[1]),
-            g2 = (int)floorf(u[2]);
-  float wx[4], wy[4], wz[4], m3[3];
-  weights4(u[0] - (float)g0, wx, m3);
-  weights4(u[1] - (float)g1, wy, m3);
-  weights4(u[2] - (float)g2, wz, m3);
-  int iz[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) iz[k] = wrap(g2 - k, K3);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rx = wrap(g0 - i, K1) * K2;
-    const float qx = qa * wx[i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float* row = grid + (size_t)(rx + wrap(g1 - j, K2)) * K3;
-      const float qxy = qx * wy[j];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) atomicAdd(row + iz[k], qxy * wz[k]);
+// the spread: order^2 tap threads per atom, kSpreadAtoms atoms per CTA
+constexpr int kSpreadThreads = 128;
+constexpr int kTaps = 16;
+constexpr int kSpreadAtoms = kSpreadThreads / kTaps;
+
+__global__ void __launch_bounds__(kSpreadThreads)
+pme_spread_kernel(const float* __restrict__ x, const float* __restrict__ q,
+                  const float* __restrict__ box, float* __restrict__ grid,
+                  int n, int K1, int K2, int K3) {
+  __shared__ int s_g[kSpreadAtoms][3];
+  __shared__ float s_w[kSpreadAtoms][3][4];
+  __shared__ float s_q[kSpreadAtoms];
+  const int a0 = blockIdx.x * kSpreadAtoms;
+  if (threadIdx.x < 3 * kSpreadAtoms) {
+    // stage: thread (atom la, axis d) computes that axis of the support
+    const int la = threadIdx.x / 3, d = threadIdx.x - 3 * la;
+    const int a = a0 + la;
+    float qa = 0.0f;              // a missing atom is masked by q = 0
+    if (a < n) {
+      float u[3];
+      grid_coords(x + 3 * a, load_box(box), K1, K2, K3, u);
+      const bool finite = isfinite(u[0]) && isfinite(u[1])
+                          && isfinite(u[2]);
+      // fail hard as spread_plain does: a NaN charge at u = 0
+      const float ud = !finite ? 0.0f : d == 0 ? u[0] : d == 1 ? u[1] : u[2];
+      const int g = (int)floorf(ud);
+      float m3[3];
+      weights4(ud - (float)g, s_w[la][d], m3);
+      s_g[la][d] = g;
+      qa = finite ? q[a] : nanf("");
     }
+    if (d == 0) s_q[la] = qa;
   }
+  __syncthreads();
+  const int la = threadIdx.x / kTaps, t = threadIdx.x % kTaps;
+  const float qa = s_q[la];
+  if (qa == 0.0f) return;         // neutral or missing: nothing to add
+  const int j = t / 4, k = t % 4;
+  const float wy = s_w[la][1][j], wz = s_w[la][2][k];
+  const size_t K23 = (size_t)K2 * K3;
+  const size_t yz = (size_t)wrap(s_g[la][1] - j, K2) * K3
+                    + wrap(s_g[la][2] - k, K3);
+  const int gx = s_g[la][0];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    atomicAdd(grid + wrap(gx - i, K1) * K23 + yz,
+              qa * s_w[la][0][i] * wy * wz);
 }
 
 __global__ void pme_gather_kernel(const float* __restrict__ x,
@@ -178,7 +205,8 @@ extern "C" int pme_spread_launch(const float* x, const float* q,
                                  const float* box, float* grid, int n,
                                  int K1, int K2, int K3, void* stream) {
   if (n > 0)
-    pme_spread_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+    pme_spread_kernel<<<(n + kSpreadAtoms - 1) / kSpreadAtoms,
+                        kSpreadThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         x, q, box, grid, n, K1, K2, K3);
   return (int)cudaGetLastError();

@@ -5,13 +5,19 @@ blocked_phi_gather_pallas) and of gromacs_fep_gpu_tpu/ops/pme_pallas.py
 (_spread_kernel / spread_charges_pallas, _gather_kernel /
 phi_gather_pallas).
 
-The Hopper kernels (csrc/pme_spline.cu) work per atom on the global grid,
-so the TPU designs' atom bucketing (build_pme_blocks), block windows and
+The Hopper kernels (csrc/pme_spline.cu) work on the global grid, so the
+TPU designs' atom bucketing (build_pme_blocks), block windows and
 overlap-add fold (K2/K3), and whole-grid one-hot matmuls in three bf16
 passes (K4/K5), are not needed: `spread` returns the folded (K1, K2, K3)
 grid directly and `gather` reads each atom's 4x4x4 support, at any atom
-count.  An atom with a non-finite grid coordinate poisons the result with
-NaN (the fail-hard rule of blocked_spread) instead of being dropped.
+count.  The spread is bound by the L2's atomic throughput (64 atomicAdds
+per atom; 786,560 at 12,290 atoms) and the grid's memset, not by bytes or
+flops: it runs 16 tap threads per atom, with each atom's spline support
+computed once and staged in shared memory, and the four threads of a grid
+row add to neighbouring cells in one instruction.  The gather runs one
+thread per atom with plain loads.  An atom with a non-finite grid
+coordinate poisons the result with NaN (the fail-hard rule of
+blocked_spread) instead of being dropped.
 
 Dispatch is by device: CPU tensors take the plain PyTorch versions, CUDA
 tensors launch the kernels or raise.

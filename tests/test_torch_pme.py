@@ -8,8 +8,14 @@ order); against the small-system TPU kernels spread_charges_pallas and
 phi_gather_pallas the gates of tests/test_pme.py, grid atol 1e-5 and
 forces and dE/dq 3e-5 of the largest (those kernels multiply in three bf16
 passes); reciprocal energy and dV/dlambda rel 1e-5, forces 1e-5 of the
-largest force (torch.fft in place of the matmul DFT).
+largest force (torch.fft in place of the matmul DFT).  The spread kernel's
+edge cases (chip_smoke.spread_edge_cases) hold the grid at test_pme.py's
+atol 1e-5 scaled by max(1, the largest grid value): 4,096 atoms summed
+into one cell's support reach 8.6, where float32 sums differ by ~2e-6 of
+the value.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +32,7 @@ from gromacs_fep_gpu_tpu_torch.core import types as ttypes
 from gromacs_fep_gpu_tpu_torch.ops import pme as tpme
 from gromacs_fep_gpu_tpu_torch.ops import pme_kernels
 
+import chip_smoke
 from torch_bridge import t, to_port
 
 
@@ -229,3 +236,57 @@ def test_pme_entry_points_dispatch_on_device_type_alone(monkeypatch):
     tpme._spread_dispatch(xc, torch.eye(3), torch.ones(4), K, 4)
     assert called == ["phi_gather_plain", "spread_plain"]
     assert not pme_kernels.launches
+
+
+EDGE_CASES = ("wrap_x", "wrap_y", "wrap_z", "triclinic", "crowd", "n1",
+              "n17", "n0", "nonfinite_q0", "perturbed5")
+EDGE_PAD = 4096
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_cases():
+    cases = {c[0]: c[1:] for c in chip_smoke.spread_edge_cases()}
+    assert tuple(cases) == EDGE_CASES
+    return cases
+
+
+@functools.partial(jax.jit, static_argnums=3)
+def _jax_spreads(x, box, q, K):
+    return (jpme.spread_charges(x, box, q, K),
+            pp.spread_charges_pallas(x, box, q, K, interpret=True))
+
+
+def _jax_grids(x, box, q, K):
+    """JAX's XLA spread and the small-system Pallas spread (interpret mode)
+    of the atoms padded to EDGE_PAD with zero-charge atoms at the origin,
+    which add exact zeros, so that each grid shape compiles once."""
+    pad = EDGE_PAD - x.shape[0]
+    x = np.concatenate([x, np.zeros((pad, 3), np.float32)])
+    q = np.concatenate([q, np.zeros(pad, np.float32)])
+    return [np.asarray(g) for g in _jax_spreads(
+        jnp.asarray(x), jnp.asarray(box), jnp.asarray(q), K)]
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_spread_edge_cases_match_jax(name):
+    """spread_plain, which chip_smoke.py holds the spread kernel against on
+    the card, on the card's edge-case inputs (supports that wrap on each
+    axis, a triclinic box, 4,096 atoms in one cell, n = 1, 17 and 0, a
+    non-finite atom of zero charge, a 5-atom perturbed subset) against
+    JAX's spread_charges and spread_charges_pallas.  A non-finite atom
+    fails hard in all three: JAX has NaN in every cell where spread_plain
+    has NaN, and the other cells match JAX's grid without that atom."""
+    x, box, q, K = _edge_cases()[name]
+    g = pme_kernels.spread_plain(t(x), t(box), t(q), K).numpy()
+    refs = _jax_grids(x, box, q, K)
+    bad = ~np.isfinite(x).all(1)
+    nan = np.isnan(g)
+    assert nan.any() == bad.any()
+    if bad.any():
+        assert nan.sum() == 64        # the support of u = 0, NaN charge
+        for r in refs:
+            assert np.isnan(r[nan]).all()
+        refs = _jax_grids(x[~bad], box, q[~bad], K)
+    atol = 1e-5 * max(1.0, float(np.abs(g[~nan]).max(initial=0.0)))
+    for r in refs:
+        np.testing.assert_allclose(g[~nan], r[~nan], rtol=0, atol=atol)
