@@ -21,7 +21,13 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    kernel's edge cases (spread_edge_cases: supports that wrap on each
    axis, a triclinic box, 4,096 atoms in one grid cell, n = 1, 17 and 0, a
    non-finite atom of zero charge, a 5-atom perturbed subset) against
-   spread_plain, grid rel 1e-4 and NaN exactly where it has NaN;
+   spread_plain, grid rel 1e-4 and NaN exactly where it has NaN; then the
+   v2u kernel's edge cases (phase_v2u_edges: a pair placed on its tile's
+   box distance at rc^2 (1 -+ 1e-6), a NaN atom, the minimum image on a
+   small box and at 12,290 atoms, a skewed ng that splits) against
+   plane_gather + nb_v2u_plain at the gates, NaN in exactly its rows;
+   K1's rows print the tiles that the cull keeps, the split and the
+   unsplit time;
 5. main path, production: >= 400 steps at dt 2 fs with MTS2 through
    MdRunner.run; the launch counters must rise by what the flavour pattern
    predicts, energies and dV/dlambda must be finite, the temperature sane
@@ -397,7 +403,8 @@ def _drive(runner, state, nsteps, what, volumes=None):
 
 def phase_build():
     """Build every source; per source, the kernels' register range and the
-    bytes they spill (ptxas -v)."""
+    bytes they spill (ptxas -v); per instantiation of the v2u kernel (K1 and
+    K6), its registers and static shared memory."""
     import re
     from gromacs_fep_gpu_tpu_torch.ops import cuda_lib
     cuda_lib.build_all()
@@ -410,6 +417,24 @@ def phase_build():
         _say(f"  {stem}.cu: {len(regs)} kernels, registers "
              f"{min(regs)}-{max(regs)}, {spill} bytes of spill stores and "
              f"loads")
+    coul = {"0": "cutoff", "1": "RF", "2": "PME"}
+    fn = None
+    for line in cuda_lib.build_logs.get("nb_v2u", "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = re.search(r"nb_v2u_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)E",
+                           m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            e, c, mi, v = fn.groups()
+            smem = re.search(r"(\d+) bytes smem", line)
+            flav = "VF+virial" if v == "1" else "VF" if e == "1" else "F"
+            _say(f"  nb_v2u {flav:9s} {coul[c]:6s} "
+                 f"{'minimum image' if mi == '1' else 'baked shifts '}: "
+                 f"{m.group(1)} registers, "
+                 f"{smem.group(1) if smem else 0} bytes of shared memory")
+            fn = None
 
 
 def phase_small_reference(device):
@@ -551,17 +576,54 @@ def phase_kernels(runner, state, timer):
     return rows
 
 
+def _v2u_bytes(prep, i_off, ne):
+    """Compulsory bytes of one v2u launch (K1 or K6) over prep's S blocks:
+    the i blocks' q, sqrt c6, sqrt c12; the live groups' q, sqrt c6, sqrt
+    c12 and two mask streams, their cluster ids (and shifts); the plane
+    clusters that the live groups and the i blocks address (8 atoms x 3
+    coordinates each); ng, the box; the outputs (3 force planes, ne floats
+    per block)."""
+    from gromacs_fep_gpu_tpu_torch.ops.nb_v2u import BU
+    S, G = prep.nbr2.shape[:2]
+    dev = prep.ng.device
+    live_g = torch.arange(G, device=dev)[None, :] \
+        < prep.ng[:, None].to(torch.int64)
+    live = int(live_g.sum())
+    n_cl = int(torch.unique(torch.cat([
+        prep.nbr2[live_g].reshape(-1).to(torch.int64),
+        torch.arange(i_off, i_off + S * BU, device=dev)])).numel())
+    return (3 * S * 32 + 5 * live * 256 + live * 32 + n_cl * 24 + S
+            + 3 * S * 32 + ne * S) * 4 + 36 \
+        + (3 * live * 32 if prep.shift is not None else 0)
+
+
+def _tiles_kept(plane, i_off, box, prep, consts):
+    """Share of the live groups' (4 i x 8 j) tiles that the kernel's cull
+    keeps (cull_tiles_plain, its plain mirror)."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_v2u
+    keep = nb_v2u.cull_tiles_plain(plane, i_off, box, prep, consts)
+    G = prep.nbr2.shape[1]
+    live = torch.arange(G, device=keep.device)[None, :] \
+        < prep.ng[:, None].to(torch.int64)
+    return float(keep[live].float().mean())
+
+
 def _k1_kernel_rows(runner, state, timer, flavours):
     """K1 in each flavour ('F', 'VF', 'VFV') against its plain version on
-    one frame of `runner`'s path.  Gates: forces rel 5e-4, energies rel
-    1e-4, the virial Xi_aa = -1/4 sum of the per-block partials (float64
-    sum) rel 1e-4 of max |Xi_aa|."""
+    one frame of `runner`'s path: the kernel reads the sorted plane
+    (sorted_plane), the plain version the gathered i and j planes
+    (gather_coordinates).  Gates: forces rel 5e-4, energies rel 1e-4, the
+    virial Xi_aa = -1/4 sum of the per-block partials (float64 sum) rel
+    1e-4 of max |Xi_aa|; one call, one launch.  The unsplit launch
+    (split 1) is held to the same gates and timed beside the wrapper's
+    split."""
     from gromacs_fep_gpu_tpu_torch.ops import nb_v2u
     from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
     params = runner.params
     x, box = state.x, state.box
     nlist, _, prep, fl = runner.lists(state)
     consts = nb_v2u.NbConstants.from_params(params, get_beta(params))
+    plane = nb_v2u.sorted_plane(x, box, nlist, prep)
     ip, jp = nb_v2u.gather_coordinates(x, box, nlist, prep)
     S, G = prep.nbr2.shape[:2]
     rows = []
@@ -582,44 +644,66 @@ def _k1_kernel_rows(runner, state, timer, flavours):
         r2 = sum(da * da for da in d)
         n_pairs += int((pair & (r2 < consts.rc2)).sum())
     n_pairs //= 2
-    k1_bytes = (6 * S * 32 + 8 * live_groups * 256 + S) * 4 + 36 \
+    kept = _tiles_kept(plane, 0, box, prep, consts)
+    # the count of a kernel that reads 8 pre-gathered (S, G, 256) streams
+    # per live group, beside this one's (5 streams, the ids, plane rows)
+    gathered_bytes = (6 * S * 32 + 8 * live_groups * 256 + S) * 4 + 36 \
         + (3 * S * 32 + 2 * S) * 4
     for flavour in flavours:
         name = "nb_v2u_" + flavour
         energy, virial = flavour != "F", flavour == "VFV"
+        split = nb_v2u.launch_split(plane, prep, consts, energy, virial)
 
         def kern(e=energy, v=virial):
-            return nb_v2u.nb_v2u_cuda(ip, jp, box, prep, consts, e, v)
+            return nb_v2u.nb_v2u_cuda(plane, box, prep, consts, e, v)
+
+        def unsplit(e=energy, v=virial):
+            return nb_v2u._launch(plane, 0, box, prep, consts, e, v, split=1)
 
         def plain(e=energy, v=virial):
             return nb_v2u.nb_v2u_plain(ip, jp, box, prep, consts, e, v)
-        fk, fp = kern(), plain()
+        before = nb_v2u.launches[flavour]
+        fk = kern()
+        if nb_v2u.launches[flavour] != before + 1:
+            raise AssertionError(f"{name}: one call, "
+                                 f"{nb_v2u.launches[flavour] - before} "
+                                 "launches")
+        fu, fp = unsplit(), plain()
         torch.cuda.synchronize()
-        f_k = torch.stack(fk[:3], -1)
         f_p = torch.stack(fp[:3], -1)
-        f_rel, f_abs = _rel(f_k, f_p)
+        f_rel, f_abs = _rel(torch.stack(fk[:3], -1), f_p)
+        u_rel, _ = _rel(torch.stack(fu[:3], -1), f_p)
+        f_rel = max(f_rel, u_rel)
         e_rel = v_rel = 0.0
         if energy:
-            ek, ep = 0.5 * fk[3][:, :2].sum(0), 0.5 * fp[3][:, :2].sum(0)
-            e_rel = float(((ek - ep).abs() / ep.abs()).max())
+            ep = 0.5 * fp[3][:, :2].double().sum(0)
+            for o in (fk, fu):
+                ek = 0.5 * o[3][:, :2].double().sum(0)
+                e_rel = max(e_rel, float(((ek - ep).abs() / ep.abs()).max()))
         if virial:
-            vk, vp = (-0.25 * e[3][:, 2:5].double().sum(0) for e in (fk, fp))
-            v_rel, v_abs = _rel(vk, vp)
-            f_abs = max(f_abs, v_abs)
+            vp = -0.25 * fp[3][:, 2:5].double().sum(0)
+            for o in (fk, fu):
+                rel, v_abs = _rel(-0.25 * o[3][:, 2:5].double().sum(0), vp)
+                v_rel = max(v_rel, rel)
+                f_abs = max(f_abs, v_abs)
         ok = f_rel <= F_REL and e_rel <= E_REL and v_rel <= E_REL
         ms = timer.ms(kern)
+        ms_unsplit = timer.ms(unsplit)
         plain_ms = _median_ms(plain, reps=3)
-        # the virial flavour writes 3 more floats per block and does 9
-        # more flops per pair
-        bound, by = _bound_ms(k1_bytes + (12 * S if virial else 0),
+        ne = 5 if virial else 2
+        bound, by = _bound_ms(_v2u_bytes(prep, 0, ne),
                               n_pairs * (FLOPS_PAIR + FLOPS_JFORCE
                                          + (9 if virial else 0)))
+        gathered_bound, _ = _bound_ms(gathered_bytes + (12 * S if virial else 0), 0)
         _say(f"{name} ({x.shape[0]:,} atoms): S={S} G={G} live "
-             f"groups {live_groups} unique pairs in cut-off {n_pairs}; F "
-             f"rel "
+             f"groups {live_groups} unique pairs in cut-off {n_pairs}; "
+             f"tiles kept {kept:.4f}; split {split}; F rel "
              f"{f_rel:.2e}, E rel {e_rel:.2e}, virial rel {v_rel:.2e} -> "
-             f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (plain {plain_ms:.3f} "
-             f"ms, bound {bound:.5f} ms by {by})")
+             f"{'ok' if ok else 'FAIL'}; {ms:.5f} ms (unsplit "
+             f"{ms_unsplit:.5f} ms; plain {plain_ms:.3f} ms, bound "
+             f"{bound:.5f} ms by {by}; pre-gathered j byte count "
+             f"{gathered_bytes + (12 * S if virial else 0)} B -> "
+             f"{gathered_bound:.5f} ms, now {_v2u_bytes(prep, 0, ne)} B)")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         rows.append(dict(
@@ -836,6 +920,196 @@ def phase_spread_edges(timer):
          f"{crowd_ms:.4f} ms; triclinic 2,000 atoms {charged_ms:.4f} ms "
          f"charged, {neutral_ms:.4f} ms all neutral (skipped after the "
          f"barrier); the edge phase took {time.perf_counter() - t0:.1f} s")
+
+
+def place_boundary_pair(plane, box, prep, rmax2, sign, first_block=0,
+                        want_shift=None):
+    """Move one j cluster of a live tile so that a masked-in pair sits on
+    the tile's box distance at r^2 = rmax2 (1 + sign 1e-6): the cluster is
+    translated along x until its lowest-x atom B (after the entry's baked
+    shift) lies r from the i half-cluster's highest-x atom A, and B takes
+    A's y and z, so the box-to-box distance of the tile is the pair's.  The
+    tile is the first one from block `first_block` on whose cluster lies
+    outside the block, both atoms carry LJ (sqrt c6 > 0) and, with
+    want_shift True/False, whose entry has a nonzero/zero shift.  Returns
+    (the moved plane, (s, g, h, k, a, b)): block, group, i half, j cluster,
+    A's and B's plane rows.  Works on the CPU (the search reads the list
+    there) and returns the plane on its own device."""
+    from gromacs_fep_gpu_tpu_torch.ops.nb_v2u import BU, GJU
+    cpu = torch.device("cpu")
+    p = plane.to(cpu)
+    nbr2, sh = prep.nbr2.to(cpu), prep.shift.to(cpu)
+    pm, ng = prep.pair_m.to(cpu), prep.ng.to(cpu)
+    is6, js6 = prep.is6.to(cpu).reshape(-1), prep.js6.to(cpu)
+    L = torch.diagonal(box).to(cpu)
+    ar4, ar8 = torch.arange(4), torch.arange(8)
+    r = float(np.sqrt(np.float64(rmax2) * (1.0 + sign * 1e-6)))
+    S = nbr2.shape[0]
+    for s in range(first_block, S):
+        for g in range(int(ng[s])):
+            for k in range(GJU):
+                cid = int(nbr2[s, g, k])
+                if cid // BU == s or (cid + 2) * 8 > p.shape[1]:
+                    continue
+                nonzero = bool(sh[s, g, k].any())
+                if want_shift is not None and nonzero != want_shift:
+                    continue
+                rows_j = cid * 8 + ar8
+                shl = sh[s, g, k].to(torch.float32) * L
+                xj = p[:, rows_j] + shl[:, None]
+                m = int(torch.argmin(xj[0]))
+                if float(js6[s, g, 8 * k + m]) <= 0.0:
+                    continue
+                for h in range(2 * BU):
+                    rows_i = s * 32 + h * 4 + ar4
+                    a = int(rows_i[torch.argmax(p[0, rows_i])])
+                    if float(is6[a]) <= 0.0 or not (
+                            int(pm[s, g, 8 * k + m]) >> (a - s * 32)) & 1:
+                        continue
+                    out = p.clone()
+                    xj[0] += p[0, a] + r - xj[0, m]
+                    xj[1, m], xj[2, m] = p[1, a], p[2, a]
+                    out[:, rows_j] = xj - shl[:, None]
+                    return (out.to(plane.device),
+                            (s, g, h, k, a, cid * 8 + m))
+    raise AssertionError("no live tile with a masked-in LJ pair to place")
+
+
+def _prep_head(prep, n):
+    """prep's first n i-blocks (their lists unchanged)."""
+    cut = {f.name: getattr(prep, f.name)[:n].contiguous()
+           for f in dataclasses.fields(prep)
+           if isinstance(getattr(prep, f.name), torch.Tensor)}
+    return dataclasses.replace(prep, **cut,
+                               ng_max=int(cut["ng"].max()) if n else 0)
+
+
+def _v2u_check(name, plane, box, prep, consts, flavours=("F", "VF", "VFV")):
+    """K1's launch (i_off 0, the wrapper's split) against plane_gather +
+    nb_v2u_plain on the same plane: NaN in exactly the plain version's
+    force rows and energy rows, the rest at the gates (F rel 5e-4 of max
+    |F|, E and virial rel 1e-4).  Returns {flavour: (kernel, plain)}."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_v2u
+    ip, jp = nb_v2u.plane_gather(plane, box, prep)
+    out = {}
+    for flavour in flavours:
+        e, v = flavour != "F", flavour == "VFV"
+        split = nb_v2u.launch_split(plane, prep, consts, e, v)
+        fk = nb_v2u._launch(plane, 0, box, prep, consts, e, v)
+        fp = nb_v2u.nb_v2u_plain(ip, jp, box, prep, consts, e, v)
+        torch.cuda.synchronize()
+        Fk, Fp = torch.stack(fk[:3], -1), torch.stack(fp[:3], -1)
+        same_nan = (torch.equal(torch.isnan(Fk), torch.isnan(Fp))
+                    and torch.equal(torch.isnan(fk[3]), torch.isnan(fp[3])))
+        fin = ~torch.isnan(Fp).any(-1)
+        f_rel, _ = _rel(Fk[fin], Fp[fin])
+        rows = ~torch.isnan(fp[3]).any(1)
+        e_rel = v_rel = 0.0
+        if e:
+            ek, ep = (0.5 * o[3][rows, :2].double().sum(0) for o in (fk, fp))
+            e_rel = float(((ek - ep).abs() / ep.abs()).max())
+        if v:
+            v_rel, _ = _rel(*(-0.25 * o[3][rows, 2:5].double().sum(0)
+                              for o in (fk, fp)))
+        ok = same_nan and f_rel <= F_REL and e_rel <= E_REL and v_rel <= E_REL
+        _say(f"v2u edge {name} {flavour}: S={prep.nbr2.shape[0]} G="
+             f"{prep.nbr2.shape[1]} ng max {prep.ng_max}, split {split}, "
+             f"{'minimum image' if prep.shift is None else 'baked shifts'};"
+             f" NaN atoms {int((~fin).sum())} (kernel "
+             f"{int(torch.isnan(Fk).any(-1).sum())}), NaN energy rows "
+             f"{int((~rows).sum())}; F rel {f_rel:.2e}, E rel {e_rel:.2e}, "
+             f"virial rel {v_rel:.2e} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"v2u edge case {name} {flavour}: the "
+                                 "kernel disagrees with its plain version")
+        out[flavour] = (Fk, Fp)
+    return out
+
+
+def phase_v2u_edges(runner, state, caps):
+    """K1/K6's edge cases (one body; K6 is the same launch with a cat
+    plane and a block offset) against plane_gather + nb_v2u_plain:
+    - boundary: on the main path's frame, a masked-in LJ pair placed on its
+      tile's box distance at r^2 = rmax2 (1 -+ 1e-6), once with a baked
+      shift and once without; beside the gates, the force on its i atom A
+      (whose tile sits on the boundary; the moved cluster may land close
+      to other atoms, so B's own force can be large) must match the plain
+      version to a quarter of the pair's own force (A's force with the
+      pair inside minus outside, kernel against plain);
+    - nan: one NaN coordinate (an i atom of block 10, and a j lane of its
+      neighbours' lists);
+    - minimum image on a small box (650 atoms, rc 0.6, no baked shifts)
+      and at 12,290 atoms;
+    - ng skew: every block ng = 1 but block 0 with ng = G (its groups
+      past its own list hold the pad cluster), over all blocks and over the
+      first 48 (a split launch);
+    each in F, VF and VF+virial."""
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    from gromacs_fep_gpu_tpu_torch.ops import nb_v2u
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
+    from gromacs_fep_gpu_tpu_torch.ops.pme import pme_grid_size
+    t0 = time.perf_counter()
+    params = runner.params
+    x, box = state.x, state.box
+    nlist, _, prep, _ = runner.lists(state)
+    consts = nb_v2u.NbConstants.from_params(params, get_beta(params))
+    plane = nb_v2u.sorted_plane(x, box, nlist, prep)
+    rmax2 = max(consts.rc2, consts.rv2)
+    for want_shift in (True, False):
+        res = {}
+        for sign, where in ((-1.0, "inside"), (1.0, "outside")):
+            moved, (s, g, h, k, a, b) = place_boundary_pair(
+                plane, box, prep, rmax2, sign, want_shift=want_shift)
+            keep = nb_v2u.cull_tiles_plain(moved, 0, box, prep, consts)
+            _say(f"v2u edge boundary ({'with' if want_shift else 'no'} "
+                 f"shift, {where}): block {s} group {g} half {h} cluster "
+                 f"{k}, rows {a} and {b}; tile kept by the cull: "
+                 f"{bool(keep[s, g, h, k])}")
+            res[where] = _v2u_check(f"boundary {where}", moved, box, prep,
+                                    consts, ("F", "VF"))
+        for flavour in ("F", "VF"):
+            # A's force inside minus outside: the placed pair's own force
+            # (A's other pairs are the same sums in both runs)
+            fk, fp = ((res["inside"][flavour][i].reshape(-1, 3)[a]
+                       - res["outside"][flavour][i].reshape(-1, 3)[a])
+                      for i in (0, 1))
+            pf, dk = float(fp.norm()), float((fk - fp).norm())
+            _say(f"  row {a} {flavour}: the pair's own force {pf:.4e} "
+                 f"(plain), kernel's minus plain's {dk:.3e}")
+            if not (pf > 0.0 and dk <= 0.25 * pf):
+                raise AssertionError("v2u edge boundary: the kernel lost or "
+                                     "gained the placed pair")
+    nan_plane = plane.clone()
+    nan_plane[0, 32 * 10 + 5] = float("nan")
+    _v2u_check("nan", nan_plane, box, prep, consts)
+
+    small = 6
+    sparams = params.replace(
+        rcoulomb=0.6, rvdw=0.6, rlist=0.6,
+        pme_grid=pme_grid_size((small * 0.31,) * 3, 0.12))
+    ssys, sst = solvation_system(n_side=small, seed=0, device=x.device)
+    srun = MdRunner(ssys, sparams, RunnerConfig(super_nnbr=128,
+                                                baked_shifts=False))
+    snl, _, sprep, _ = srun.lists(sst)
+    sconsts = nb_v2u.NbConstants.from_params(sparams, get_beta(sparams))
+    _v2u_check("minimum image, 650 atoms",
+               nb_v2u.sorted_plane(sst.x, sst.box, snl, sprep), sst.box,
+               sprep, sconsts)
+    mrun = MdRunner(runner.system, params, RunnerConfig(
+        super_nnbr=caps[0], fep_max_nbr=caps[1], baked_shifts=False))
+    mnl, _, mprep, _ = mrun.lists(state)
+    _v2u_check(f"minimum image, {x.shape[0]:,} atoms",
+               nb_v2u.sorted_plane(x, box, mnl, mprep), box, mprep, consts)
+
+    S, G = prep.nbr2.shape[:2]
+    ng = torch.ones_like(prep.ng)
+    ng[0] = G
+    skew = dataclasses.replace(prep, ng=ng, ng_max=G)
+    _v2u_check("ng skew", plane, box, skew, consts)
+    _v2u_check("ng skew, 48 blocks", plane, box, _prep_head(skew, 48),
+               consts)
+    _say(f"v2u edge phase took {time.perf_counter() - t0:.1f} s")
 
 
 def phase_profile(runner, state, nsteps, ms_step):
@@ -1605,7 +1879,7 @@ def _dd_kernel_rows(runner, state, timer, what):
         doms = pack.packs
     nsh = len(cats)
     boxes = [box.to(c.device) for c in cats]
-    n_pairs, n_bytes = 0, 0
+    n_pairs, n_bytes, kept = 0, 0, []
     if k6:
         bit = torch.arange(32, device=x.device,
                            dtype=torch.int32).reshape(1, -1, 1)
@@ -1623,21 +1897,8 @@ def _dd_kernel_rows(runner, state, timer, what):
                          for a in range(3)]
                 r2 = sum(da * da for da in d)
                 n_pairs += int((pair & (r2 < consts.rc2)).sum())
-            live_g = torch.arange(G, device=x.device)[None, :] \
-                < dom.ng[:, None].to(torch.int64)
-            live = int(live_g.sum())
-            # cat clusters the kernel reads: the live groups' j ids and the
-            # own block's i clusters, 8 atoms x 3 coordinates each
-            n_cat = int(torch.unique(torch.cat([
-                dom.nbr2[live_g].reshape(-1).to(torch.int64),
-                torch.arange(i_off, i_off + S * nb_v2u.BU,
-                             device=x.device)])).numel())
-            # i q, sqrt c6/c12, the live groups' static streams (q, sqrt
-            # c6/c12, two masks) and cat ids (and shifts), the cat
-            # coordinates read, ng, the outputs
-            n_bytes += (3 * S * 32 + 5 * live * 256 + live * 32
-                        + n_cat * 24 + S + 3 * S * 32 + 2 * S) * 4 + 36 \
-                + (3 * live * 32 if dom.shift is not None else 0)
+            n_bytes += _v2u_bytes(dom, i_off, 2)
+            kept.append(_tiles_kept(cat, i_off, box, dom, consts))
         n_pairs //= 2
         flops = FLOPS_PAIR
     else:
@@ -1696,9 +1957,17 @@ def _dd_kernel_rows(runner, state, timer, what):
             b_bytes = sum(_cluster_bytes(d, flavour) for d in doms)
         bound, by = _bound_ms(b_bytes / nsh,
                               n_pairs * (flops + FLOPS_JFORCE) / nsh)
+        detail = ""
+        if k6:
+            splits = [nb_v2u.launch_split(c, d, consts, energy)
+                      for c, d in zip(cats, doms)]
+            detail = (f"; tiles kept {min(kept):.4f}-{max(kept):.4f}, "
+                      f"split {min(splits)}-{max(splits)} (S "
+                      f"{doms[0].nbr2.shape[0]}, ng max "
+                      f"{max(d.ng_max for d in doms)})")
         _say(f"{name} ({what}, {x.shape[0]:,} atoms, "
              f"{runner.mesh.placement()}): unique pairs in cut-off "
-             f"{n_pairs}; F rel {f_rel:.2e}, E rel {e_rel:.2e} -> "
+             f"{n_pairs}{detail}; F rel {f_rel:.2e}, E rel {e_rel:.2e} -> "
              f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms per domain launch "
              f"(plain {plain_ms:.3f} ms, bound {bound:.5f} ms by {by}, "
              f"library none)")
@@ -1868,6 +2137,8 @@ def run(device="cuda", smi=None):
         seed=1))
     rows = phase_kernels(prod, state, timer)
     phase_spread_edges(timer)
+    phase_v2u_edges(prod, state, (eq.config.super_nnbr,
+                                  eq.config.fep_max_nbr))
     cluster_rows = phase_cluster_kernels(
         system, params, state, timer,
         (eq.config.super_nnbr, eq.config.fep_max_nbr))

@@ -35,15 +35,13 @@ _F = ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "nb_v2u": {
-        # 6 i planes, 6 j planes, pair/excl masks, ng, 3 force planes,
-        # energies, box(9); S, G, coulomb type, energy flag, virial flag,
-        # minimum-image flag; 8 float constants; stream
-        "nb_v2u_launch": [_P] * 20 + [_I] * 6 + [_F] * 8 + [_P],
-        # K6: 3 cat planes, iq, is6, is12, cat ids, shift (or null), jq,
-        # js6, js12, pair/excl masks, ng, 3 force planes, energies,
-        # box(9); i_off, S, G, coulomb type, energy flag, minimum-image
-        # flag; 8 float constants; stream
-        "nb_v2u_dd_launch": [_P] * 19 + [_I] * 6 + [_F] * 8 + [_P],
+        # K1 and K6: 3 plane rows, iq, is6, is12, plane cluster ids, shift
+        # (or null), jq, js6, js12, pair/excl masks, ng, 3 force planes,
+        # energies, box(9); i_off, S, G, split, coulomb type, energy flag,
+        # virial flag, minimum-image flag; 8 float constants; stream
+        "nb_v2u_launch": [_P] * 19 + [_I] * 8 + [_F] * 8 + [_P],
+        # coulomb type, energy flag, virial flag, minimum-image flag
+        "nb_v2u_ctas_per_sm": [_I] * 4,
     },
     "nb_cluster": {
         # x, y, z, q, pv, s6, s12, types, nbfp, excl, nbr, cnt, shift,

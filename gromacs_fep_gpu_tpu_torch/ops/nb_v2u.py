@@ -6,31 +6,44 @@ pallas_cluster_forces_v2u and the kernel body _make_kernel_v2u).
 Data contract (unchanged from the TPU kernel): S i-blocks of BU=4
 Hilbert-sorted 8-atom clusters (32 i atoms); each block walks its union
 j-stream in G groups of GJU=32 j-clusters (256 j lanes) with build-time
-periodic shifts baked into the gathered j coordinates; per-lane 32-bit
-pair and exclusion masks (bit c*8+a for i atom a of cluster c); `ng` trip
-counts.  Perturbed atoms are masked out here and handled by the FEP list.
+periodic shifts; per-lane 32-bit pair and exclusion masks (bit c*8+a for i
+atom a of cluster c); `ng` trip counts.  Perturbed atoms are masked out
+here and handled by the FEP list.
 
 Three flavours, as in the TPU kernel: F (forces), VF (forces and the
 per-block energies) and VF+virial (compute_virial, the pressure steps of an
 NPT run: also the per-block sums of fscal * d_a^2 per axis, which the
 caller turns into the diagonal pair virial Xi_aa = -1/4 sum).
 
-`nb_v2u_forces` dispatches by the tensors' device: CPU tensors take the
-plain PyTorch version `nb_v2u_plain`; CUDA tensors launch the kernel of
-csrc/nb_v2u.cu or raise.
+Two routes of `cluster_forces_v2u`, chosen by the tensors' device:
+- CPU: `gather_coordinates` materialises the i planes (S, BU, 8) and the
+  j planes (S, G, 256) with the shifts folded in, as the JAX package does,
+  and `nb_v2u_plain` evaluates them (the plain version, bit for bit the
+  route the tests hold against JAX);
+- CUDA: only the sorted coordinate plane (3, (S * BU + 1) * 8) is built
+  (`sorted_plane`: the image removal and the dummy rows of
+  `gather_coordinates`), and the kernel of csrc/nb_v2u.cu reads each j
+  lane from it by cluster id (`PrepV2U.nbr32`, an int32 copy of `nbr2`
+  made once per rebuild) plus its baked shift; no j plane is built.  A CUDA
+  tensor launches the kernel or raises.
+The kernel culls whole (4 i atoms x 8 j atoms) tiles whose bounding boxes
+lie beyond the cut-off; `cull_tiles_plain` is the plain mirror of that
+cull, for the tests (nothing on the CUDA path calls it).
 
 K6, the same body under domain decomposition (the JAX package's
 parallel/spatial.py make_dd_v2u_override), is `nb_v2u_dd_forces`: one
 domain's i-blocks on its halo-extended ("cat") coordinate plane, each j
-lane read from that plane by cat-space cluster id plus its baked shift
-(the gather that K1 receives pre-materialized); its plain version is
-`nb_v2u_dd_plain`, the gather followed by `nb_v2u_plain`.
+lane read from that plane by cat-space cluster id plus its baked shift;
+its plain version is `nb_v2u_dd_plain`, `gather_cat` followed by
+`nb_v2u_plain`.  K1's CUDA route is the same launch with i_off = 0 on the
+sorted plane.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.types import CoulombType, MdParams, VdwModifier
@@ -44,6 +57,15 @@ TWO_OVER_SQRT_PI = 1.1283791670955126
 BU = 4          # i-clusters per union block (32 atoms)
 GJU = 32        # j-clusters per group (256 lanes)
 LANES = GJU * CLUSTER
+# the kernel skips a tile only where its box distance^2 exceeds
+# rmax2 * (1 + CULL_MARGIN): a few ulp of rounding between the box test and
+# the pair's r^2 can never cull a pair inside the cut-off
+CULL_MARGIN = 1e-5
+# the split fills this many waves of resident CTAs (split_count): on an
+# NVIDIA H100 80GB HBM3 at 700 W, K1 at 12,290 atoms ran fastest at split 5
+# (3.6 waves) of 1-10, and K6 per domain launch at a split near its ng max
+# (chip_smoke.py's K1 rows print the unsplit time beside the split one)
+SPLIT_WAVES = 3
 _COUL_CODE = {CoulombType.CUTOFF: 0, CoulombType.REACTION_FIELD: 1,
               CoulombType.PME: 2}
 
@@ -133,7 +155,9 @@ class PrepV2U:
     is6: torch.Tensor
     is12: torch.Tensor
     ng: torch.Tensor       # (S,) i32 j-group trip count
+    ng_max: int            # ng.max(), read once per rebuild (the split)
     nbr2: torch.Tensor     # (S, G, GJU) i64 union j-cluster ids (pad C)
+    nbr32: torch.Tensor    # (S, G, GJU) i32 copy of nbr2, read by the kernel
     jq: torch.Tensor       # (S, G, 256) f32
     js6: torch.Tensor
     js12: torch.Tensor
@@ -220,23 +244,25 @@ def prepare_v2u(nlist: ClusterPairlist, nbfp: torch.Tensor,
     def i3(a):
         return a[:C_pad].reshape(S, BU, CLUSTER)
 
-    return PrepV2U(iq=i3(q), is6=i3(s6), is12=i3(s12), ng=ng, nbr2=nbr2,
+    return PrepV2U(iq=i3(q), is6=i3(s6), is12=i3(s12), ng=ng,
+                   ng_max=int(ng.max()) if S else 0, nbr2=nbr2,
+                   nbr32=nbr2.to(torch.int32).contiguous(),
                    jq=jgather(nlist.q_a), js6=jgather(diag6[nlist.t_a]),
                    js12=jgather(diag12[nlist.t_a]),
                    pair_m=pair_m.to(torch.int32),
                    excl_m=excl_m.to(torch.int32), shift=shift)
 
 
-def gather_coordinates(x, box, nlist: ClusterPairlist, prep: PrepV2U):
-    """Per-step i planes (S, BU, 8) and j planes (S, G, 256) of the
-    coordinates; with baked shifts, the rebuild's image counts are removed
-    and the shifts folded into j (pallas_cluster_forces_v2u:1524-1584).
-    Box-row expansions are elementwise, never a matrix product."""
+def sorted_plane(x, box, nlist: ClusterPairlist, prep: PrepV2U):
+    """The per-step sorted coordinate plane (3, (S * BU + 1) * 8) that both
+    routes read: the atoms in cluster order, the padding rows at 1e4 + i,
+    with baked shifts the rebuild's image counts removed
+    (pallas_cluster_forces_v2u:1524-1584), then the dummy cluster (the pad
+    id of nbr2 past the last block) at 2e4 + i.  Box-row expansions are
+    elementwise, never a matrix product."""
     n = nlist.inv_perm.shape[0]
     n_pad = nlist.n_pad
-    S, G = prep.nbr2.shape[:2]
-    C_pad = S * BU
-    ncl = C_pad + 1
+    ncl = prep.nbr2.shape[0] * BU + 1
     dev = x.device
     valid_atom = nlist.perm < n
     xs = torch.where(
@@ -250,18 +276,64 @@ def gather_coordinates(x, box, nlist: ClusterPairlist, prep: PrepV2U):
     dummy = (2e4 + torch.arange(n_rows - n_pad, dtype=x.dtype,
                                 device=dev)[:, None]
              * torch.ones(3, dtype=x.dtype, device=dev))
-    xs = torch.cat([xs, dummy])
-    planes = [xs[:, d].reshape(ncl, CLUSTER) for d in range(3)]
+    return torch.cat([xs, dummy]).t().contiguous()
+
+
+def plane_gather(plane, box, prep: PrepV2U):
+    """i planes (S, BU, 8) and j planes (S, G, 256) of a sorted plane, the
+    shifts folded into j by box rows (pallas_cluster_forces_v2u:1524-1584)."""
+    S, G = prep.nbr2.shape[:2]
+    ncl = plane.shape[1] // CLUSTER
+    planes = [plane[d].reshape(ncl, CLUSTER) for d in range(3)]
     g = torch.cat(planes, dim=1)[prep.nbr2]                  # (S,G,GJU,24)
     if prep.shift is not None:
-        sh = prep.shift.to(x.dtype)
+        sh = prep.shift.to(plane.dtype)
         sL = (sh[..., 0:1] * box[0] + sh[..., 1:2] * box[1]
               + sh[..., 2:3] * box[2])                       # (S,G,GJU,3)
         g = g + torch.repeat_interleave(sL, CLUSTER, dim=-1)
     j = [g[..., d * CLUSTER:(d + 1) * CLUSTER].reshape(S, G, LANES)
          .contiguous() for d in range(3)]
-    i = [p[:C_pad].reshape(S, BU, CLUSTER).contiguous() for p in planes]
+    i = [p[:S * BU].reshape(S, BU, CLUSTER).contiguous() for p in planes]
     return i, j
+
+
+def gather_coordinates(x, box, nlist: ClusterPairlist, prep: PrepV2U):
+    """Per-step i planes (S, BU, 8) and j planes (S, G, 256) of the
+    coordinates, the CPU route's input to nb_v2u_plain: plane_gather of
+    sorted_plane."""
+    return plane_gather(sorted_plane(x, box, nlist, prep), box, prep)
+
+
+def cull_tiles_plain(plane, i_off: int, box, prep: PrepV2U,
+                     consts: "NbConstants"):
+    """Plain mirror of the kernel's tile cull, for the tests: (S, G, 8, 32)
+    bool, True where the kernel evaluates the tile of i half-cluster h
+    (block atoms 4h .. 4h+3) and j cluster k of group g.  The boxes come
+    from the coordinates the kernel reads (gather_cat: plane rows plus the
+    shift, rounded as the kernel); a tile is skipped only where its
+    box-to-box distance^2 exceeds rmax2 * (1 + CULL_MARGIN) in float32 and
+    neither box holds a non-finite coordinate.  Without baked shifts the
+    kernel resolves the minimum image per pair and culls nothing.  Groups
+    at or past ng are reported too (the kernel never visits them)."""
+    S, G = prep.nbr2.shape[:2]
+    if prep.shift is None:
+        return torch.ones((S, G, 2 * BU, GJU), dtype=torch.bool,
+                          device=plane.device)
+    i_planes, j_planes = gather_cat(plane, i_off, box, prep)
+    ic = torch.stack([p.reshape(S, 2 * BU, 4) for p in i_planes], -1)
+    jc = torch.stack([p.reshape(S, G, GJU, CLUSTER) for p in j_planes], -1)
+    ilo, ihi = ic.amin(2), ic.amax(2)                     # (S, 8, 3)
+    jlo, jhi = jc.amin(3), jc.amax(3)                     # (S, G, 32, 3)
+    d = torch.clamp(torch.maximum(jlo[:, :, None] - ihi[:, None, :, None],
+                                  ilo[:, None, :, None] - jhi[:, :, None]),
+                    min=0.0)                              # (S, G, 8, 32, 3)
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    f32 = np.float32
+    lim = float(f32(max(f32(consts.rc2), f32(consts.rv2)))
+                * (f32(1.0) + f32(CULL_MARGIN)))
+    i_bad = ~torch.isfinite(ic).all(-1).all(-1)          # (S, 8)
+    j_bad = ~torch.isfinite(jc).all(-1).all(-1)          # (S, G, 32)
+    return ~(d2 > lim) | i_bad[:, None, :, None] | j_bad[:, :, None, :]
 
 
 def nb_v2u_plain(i_planes, j_planes, box, prep: PrepV2U,
@@ -371,53 +443,115 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def nb_v2u_cuda(i_planes, j_planes, box, prep: PrepV2U,
-                consts: NbConstants, compute_energy: bool,
-                compute_virial: bool = False):
-    """Launch csrc/nb_v2u.cu on the current stream; same outputs as
-    nb_v2u_plain."""
+def split_count(S: int, ng_max: int, n_sm: int, ctas_per_sm: int) -> int:
+    """CTAs per i-block: 1 when the S blocks fill SPLIT_WAVES waves of
+    resident CTAs (n_sm x ctas_per_sm), else as many as fill them, at most
+    ng_max (CTA k of a block walks its groups k, k + split, ...)."""
+    target = SPLIT_WAVES * n_sm * ctas_per_sm
+    if S <= 0 or S >= target:
+        return 1
+    return max(1, min(ng_max, -(-target // S)))
+
+
+_ctas_per_sm = {}
+
+
+def launch_split(plane, prep: PrepV2U, consts: NbConstants,
+                 compute_energy: bool, compute_virial: bool = False) -> int:
+    """The split that a launch of this flavour on plane's card takes:
+    split_count of S, prep.ng_max, the card's SM count and the kernel's
+    occupancy (queried once per card and flavour)."""
+    dev = plane.device
+    flav = (_COUL_CODE[consts.coulomb], int(compute_energy),
+            int(compute_virial), int(prep.shift is None))
+    key = (dev.index, flav)
+    per_sm = _ctas_per_sm.get(key)
+    if per_sm is None:
+        with torch.cuda.device(dev):
+            per_sm = cuda_lib.library("nb_v2u").nb_v2u_ctas_per_sm(*flav)
+        if per_sm <= 0:
+            raise RuntimeError(f"nb_v2u: occupancy query failed ({per_sm})")
+        _ctas_per_sm[key] = per_sm
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return split_count(prep.nbr2.shape[0], prep.ng_max, n_sm, per_sm)
+
+
+def _launch(plane, i_off: int, box, prep: PrepV2U, consts: NbConstants,
+            compute_energy: bool, compute_virial: bool, split=None):
+    """Launch csrc/nb_v2u.cu on the current stream over prep's S blocks:
+    the i atoms from cluster i_off of `plane` (3, rows), the j lanes by
+    prep.nbr32; split None takes launch_split.  Counts nothing (the
+    wrappers count their launches)."""
     if compute_virial and not compute_energy:
         raise ValueError("the virial rides the energy flavour")
-    S, G = j_planes[0].shape[:2]
+    S, G = prep.nbr2.shape[:2]
     f32, i32 = torch.float32, torch.int32
-    i_in = list(i_planes) + [prep.iq, prep.is6, prep.is12]
-    j_in = list(j_planes) + [prep.jq, prep.js6, prep.js12]
-    for k, t in enumerate(i_in):
+    n_rows = plane.shape[1]
+    _check(plane, "plane", f32, (3, n_rows))
+    if n_rows % CLUSTER or (i_off + S * BU) * CLUSTER > n_rows:
+        raise ValueError(f"i-blocks [{i_off}, {i_off + S * BU}) do not lie "
+                         f"in a plane of {n_rows} rows")
+    for k, t in enumerate((prep.iq, prep.is6, prep.is12)):
         _check(t, f"i plane {k}", f32, (S, BU, CLUSTER))
-    for k, t in enumerate(j_in):
+    for k, t in enumerate((prep.jq, prep.js6, prep.js12)):
         _check(t, f"j plane {k}", f32, (S, G, LANES))
+    _check(prep.nbr32, "nbr32", i32, (S, G, GJU))
+    if prep.shift is not None:
+        _check(prep.shift, "shift", torch.int8, (S, G, GJU, 3))
     _check(prep.pair_m, "pair_m", i32, (S, G, LANES))
     _check(prep.excl_m, "excl_m", i32, (S, G, LANES))
     _check(prep.ng, "ng", i32, (S,))
     _check(box, "box", f32, (3, 3))
-    dev = j_planes[0].device
-    fx = torch.empty((S, BU * CLUSTER), dtype=f32, device=dev)
-    fy, fz = torch.empty_like(fx), torch.empty_like(fx)
-    e = torch.empty((S, 5 if compute_virial else 2), dtype=f32, device=dev)
+    if split is None:
+        split = launch_split(plane, prep, consts, compute_energy,
+                             compute_virial)
+    dev = plane.device
+    ne = 5 if compute_virial else 2
+    n_i = S * BU * CLUSTER
+    # one buffer, zeroed (one memset) only where split CTAs add into it
+    out = (torch.zeros if split > 1 else torch.empty)(
+        3 * n_i + S * ne, dtype=f32, device=dev)
+    fx, fy, fz = (out[k * n_i:(k + 1) * n_i].view(S, BU * CLUSTER)
+                  for k in range(3))
+    e = out[3 * n_i:].view(S, ne)
     c = consts
-    lib = cuda_lib.library("nb_v2u")
-    code = lib.nb_v2u_launch(
-        *(t.data_ptr() for t in i_in), *(t.data_ptr() for t in j_in),
+    code = cuda_lib.library("nb_v2u").nb_v2u_launch(
+        plane[0].data_ptr(), plane[1].data_ptr(), plane[2].data_ptr(),
+        prep.iq.data_ptr(), prep.is6.data_ptr(), prep.is12.data_ptr(),
+        prep.nbr32.data_ptr(),
+        None if prep.shift is None else prep.shift.data_ptr(),
+        prep.jq.data_ptr(), prep.js6.data_ptr(), prep.js12.data_ptr(),
         prep.pair_m.data_ptr(), prep.excl_m.data_ptr(), prep.ng.data_ptr(),
         fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), e.data_ptr(),
-        box.data_ptr(), S, G, _COUL_CODE[c.coulomb], int(compute_energy),
-        int(compute_virial), int(prep.shift is None),
+        box.data_ptr(), i_off, S, G, split, _COUL_CODE[c.coulomb],
+        int(compute_energy), int(compute_virial), int(prep.shift is None),
         c.epsfac, c.beta, c.rc2, c.rv2, c.krf, c.crf, c.rcinv6, c.inv_rc,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(code, "nb_v2u")
-    launches["VFV" if compute_virial
-             else "VF" if compute_energy else "F"] += 1
     return fx, fy, fz, e
 
 
-def nb_v2u_forces(i_planes, j_planes, box, prep: PrepV2U,
-                  consts: NbConstants, compute_energy: bool,
-                  compute_virial: bool = False):
-    """Kernel dispatch by device: the plain version on CPU tensors, the
-    CUDA kernel on CUDA tensors."""
-    fn = nb_v2u_plain if j_planes[0].device.type == "cpu" else nb_v2u_cuda
-    return fn(i_planes, j_planes, box, prep, consts, compute_energy,
-              compute_virial)
+def nb_v2u_cuda(plane, box, prep: PrepV2U, consts: NbConstants,
+                compute_energy: bool, compute_virial: bool = False):
+    """K1: csrc/nb_v2u.cu on the sorted plane (sorted_plane), on the
+    current stream; same outputs as nb_v2u_plain on plane_gather(plane)."""
+    out = _launch(plane, 0, box, prep, consts, compute_energy,
+                  compute_virial)
+    launches["VFV" if compute_virial
+             else "VF" if compute_energy else "F"] += 1
+    return out
+
+
+def nb_v2u_forces(plane, box, prep: PrepV2U, consts: NbConstants,
+                  compute_energy: bool, compute_virial: bool = False):
+    """Kernel dispatch by device: the plain version on CPU tensors (the
+    plane gathered into i and j planes), the CUDA kernel on CUDA tensors."""
+    if plane.device.type == "cpu":
+        i_planes, j_planes = plane_gather(plane, box, prep)
+        return nb_v2u_plain(i_planes, j_planes, box, prep, consts,
+                            compute_energy, compute_virial)
+    return nb_v2u_cuda(plane, box, prep, consts, compute_energy,
+                       compute_virial)
 
 
 def cluster_forces_v2u(x, box, nlist: ClusterPairlist, prep: PrepV2U,
@@ -426,10 +560,12 @@ def cluster_forces_v2u(x, box, nlist: ClusterPairlist, prep: PrepV2U,
     """(f_sorted (n_pad, 3), e_coul, e_lj) over the union lists — the
     counterpart of pallas_cluster_forces_v2u; with compute_virial also the
     (3,) diagonal pair virial Xi_aa = -1/4 sum fscal d_a^2 (each pair is
-    counted twice), its per-block partials summed in float64."""
-    i_planes, j_planes = gather_coordinates(x, box, nlist, prep)
-    fx, fy, fz, e = nb_v2u_forces(i_planes, j_planes, box, prep, consts,
-                                  compute_energy, compute_virial)
+    counted twice), its per-block partials summed in float64.  The only
+    per-step coordinate array it builds is the sorted plane; on CUDA the
+    kernel gathers the j lanes from it."""
+    fx, fy, fz, e = nb_v2u_forces(sorted_plane(x, box, nlist, prep), box,
+                                  prep, consts, compute_energy,
+                                  compute_virial)
     n_pad = nlist.n_pad
     f_sorted = torch.stack([fx.reshape(-1)[:n_pad], fy.reshape(-1)[:n_pad],
                             fz.reshape(-1)[:n_pad]], dim=-1)
@@ -441,10 +577,13 @@ def cluster_forces_v2u(x, box, nlist: ClusterPairlist, prep: PrepV2U,
 
 
 def gather_cat(cat_planes, i_off: int, box, prep: PrepV2U):
-    """K6's per-step gather on one domain: i planes (S, BU, 8) from the
-    cat plane's clusters [i_off, i_off + S * BU), j planes (S, G, 256)
-    from cat cluster ids prep.nbr2 plus shift * box diagonal (the JAX
-    make_dd_v2u_override:486-504).  cat_planes: (3, n_cat_rows)."""
+    """The gather that the kernel does, in plain PyTorch: i planes (S, BU,
+    8) from the plane's clusters [i_off, i_off + S * BU), j planes (S, G,
+    256) from its cluster ids prep.nbr2 plus shift * box diagonal, rounded
+    as the kernel rounds it (the JAX make_dd_v2u_override:486-504).  K6's
+    plain version on a domain's cat plane; on the sorted plane with
+    i_off = 0 it equals gather_coordinates bit for bit (rectangular
+    boxes).  cat_planes: (3, n_rows)."""
     S, G = prep.nbr2.shape[:2]
     packed = cat_planes.reshape(3, -1, CLUSTER)
     g = packed[:, prep.nbr2.to(torch.int64)]              # (3, S, G, GJU, 8)
@@ -468,47 +607,13 @@ def nb_v2u_dd_plain(cat_planes, i_off: int, box, prep: PrepV2U,
 
 def nb_v2u_dd_cuda(cat_planes, i_off: int, box, prep: PrepV2U,
                    consts: NbConstants, compute_energy: bool):
-    """Launch K6 (csrc/nb_v2u.cu nb_v2u_dd_launch, the kGatherJ flavour)
-    on the current stream; same outputs as nb_v2u_dd_plain."""
-    S, G = prep.nbr2.shape[:2]
-    f32, i32 = torch.float32, torch.int32
-    n_rows = cat_planes.shape[1]
-    _check(cat_planes, "cat planes", f32, (3, n_rows))
-    if n_rows % CLUSTER or (i_off + S * BU) * CLUSTER > n_rows:
-        raise ValueError(f"i-blocks [{i_off}, {i_off + S * BU}) do not lie "
-                         f"in a cat plane of {n_rows} rows")
-    for k, t in enumerate((prep.iq, prep.is6, prep.is12)):
-        _check(t, f"i plane {k}", f32, (S, BU, CLUSTER))
-    for k, t in enumerate((prep.jq, prep.js6, prep.js12)):
-        _check(t, f"j plane {k}", f32, (S, G, LANES))
-    _check(prep.nbr2, "nbr2 (cat ids)", i32, (S, G, GJU))
-    if prep.shift is not None:
-        _check(prep.shift, "shift", torch.int8, (S, G, GJU, 3))
-    _check(prep.pair_m, "pair_m", i32, (S, G, LANES))
-    _check(prep.excl_m, "excl_m", i32, (S, G, LANES))
-    _check(prep.ng, "ng", i32, (S,))
-    _check(box, "box", f32, (3, 3))
-    dev = cat_planes.device
-    fx = torch.empty((S, BU * CLUSTER), dtype=f32, device=dev)
-    fy, fz = torch.empty_like(fx), torch.empty_like(fx)
-    e = torch.empty((S, 2), dtype=f32, device=dev)
-    c = consts
-    lib = cuda_lib.library("nb_v2u")
-    code = lib.nb_v2u_dd_launch(
-        cat_planes[0].data_ptr(), cat_planes[1].data_ptr(),
-        cat_planes[2].data_ptr(), prep.iq.data_ptr(), prep.is6.data_ptr(),
-        prep.is12.data_ptr(), prep.nbr2.data_ptr(),
-        None if prep.shift is None else prep.shift.data_ptr(),
-        prep.jq.data_ptr(), prep.js6.data_ptr(), prep.js12.data_ptr(),
-        prep.pair_m.data_ptr(), prep.excl_m.data_ptr(), prep.ng.data_ptr(),
-        fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), e.data_ptr(),
-        box.data_ptr(), i_off, S, G, _COUL_CODE[c.coulomb],
-        int(compute_energy), int(prep.shift is None),
-        c.epsfac, c.beta, c.rc2, c.rv2, c.krf, c.crf, c.rcinv6, c.inv_rc,
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(code, "nb_v2u_dd")
+    """K6: csrc/nb_v2u.cu on one domain's cat plane (3, n_cat_rows), its
+    i-blocks from cluster i_off, prep.nbr32 holding cat-space ids, on the
+    current stream; same outputs as nb_v2u_dd_plain."""
+    out = _launch(cat_planes, i_off, box, prep, consts, compute_energy,
+                  False)
     launches["DD_VF" if compute_energy else "DD_F"] += 1
-    return fx, fy, fz, e
+    return out
 
 
 def nb_v2u_dd_forces(cat_planes, i_off: int, box, prep: PrepV2U,

@@ -17,8 +17,8 @@ packed once per rebuild (`prepare`); only coordinates move per step.
 
 Two non-bonded routes run under DD, as in the JAX runner:
 - K6 (make_dd_v2u_override): the v2u kernel per domain, its j lanes read
-  from the cat plane by cluster id (ops/nb_v2u.py nb_v2u_dd_forces, the
-  kGatherJ flavour of csrc/nb_v2u.cu);
+  from the cat plane by cluster id (ops/nb_v2u.py nb_v2u_dd_forces: the
+  body of csrc/nb_v2u.cu that K1 runs on the sorted plane);
 - the table route (make_halo_cluster_force / make_dd_nb_override): the
   per-cluster kernel of csrc/nb_cluster.cu on an i-cluster range of the cat
   plane (ops/nb_cluster.py, PrepCluster.i0).
@@ -432,9 +432,9 @@ def make_dd_nb_override(system: System, params: MdParams, mesh: DeviceMesh,
 @dataclasses.dataclass
 class DdPackV2U:
     """Per-rebuild data of K6: for each domain its slice of the v2u pack
-    (PrepV2U of sps = ps / 4 blocks on the domain's device, nbr2 holding
-    cat-space cluster ids as int32), the geometry, and the rebuild's image
-    counts when the shifts are baked."""
+    (PrepV2U of sps = ps / 4 blocks on the domain's device, nbr2 and nbr32
+    both the int32 cat-space cluster ids), the geometry, and the rebuild's
+    image counts when the shifts are baked."""
     ps: int
     c_pad: int
     domains: List[PrepV2U]
@@ -472,16 +472,19 @@ def make_dd_v2u_override(system: System, params: MdParams, mesh: DeviceMesh,
             return torch.cat([a, pad])
         full = {f.name: padb(getattr(prep, f.name),
                              C if f.name == "nbr2" else 0)
-                for f in dataclasses.fields(PrepV2U)}
+                for f in dataclasses.fields(PrepV2U)
+                if f.name not in ("nbr32", "ng_max")}
+        ng_max = full["ng"].reshape(len(devices), sps).amax(1).tolist()
         domains = []
         for s, dev in enumerate(devices):
             blk = slice(s * sps, (s + 1) * sps)
             part = {k: (None if v is None else v[blk].contiguous().to(dev))
                     for k, v in full.items()}
-            part["nbr2"] = halo.cat_remap(full["nbr2"][blk], s, ps, c_pad
-                                          ).to(torch.int32).contiguous() \
-                .to(dev)
-            domains.append(PrepV2U(**part))
+            # cat-space ids: the kernel's int32 ids and the plain gather's
+            part["nbr2"] = part["nbr32"] = halo.cat_remap(
+                full["nbr2"][blk], s, ps, c_pad).to(torch.int32) \
+                .contiguous().to(dev)
+            domains.append(PrepV2U(**part, ng_max=int(ng_max[s])))
         return DdPackV2U(ps=ps, c_pad=c_pad, domains=domains,
                          img=nlist.img if prep.shift is not None else None)
 
