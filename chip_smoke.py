@@ -81,7 +81,16 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    table kernel's, launches as the flavour pattern says, the per-cluster
    capacity grown from 64 with its roll-backs printed, no overflow left,
    idle share under torch.profiler), then 100 C-rescale steps on the same
-   route for its virial flavour;
+   route for its virial flavour; then the table kernel's edge cases
+   (phase_table_edges) against its plain version in F, VF and VF+virial,
+   each launch twice and bit-identical, NaN exactly where the plain
+   version has it: the production frame (with the tiles the cull keeps and
+   the warps per i-cluster), a pair on its tile's boundary at r^2 =
+   rmax^2 (1 -+ 1e-6) in one box image and across the periodic boundary,
+   a NaN atom, one row at W entries and the rest at 1 (at 1, 16 and the
+   wrapper's warps per i-cluster), empty rows, 64 atom types at 16
+   warps, an i-range pack with i0 > 0, and every vdW modifier with every
+   Coulomb type in both LJ modes at 650 atoms;
 13. each of the layouts "super", "cluster" and "v2" drives 100 steps of
    the main path from its production state, launches checked;
 14. domain decomposition (DD) on a (2, 2, 2) grid of eight domains, all
@@ -435,6 +444,47 @@ def phase_build():
                  f"{m.group(1)} registers, "
                  f"{smem.group(1) if smem else 0} bytes of shared memory")
             fn = None
+    # the table kernel: registers and spills of each of its 72
+    # instantiations, one line per flavour and LJ mode; its shared memory is
+    # dynamic (table_smem_bytes)
+    mods = ("none", "pot-shift", "force-switch", "pot-switch")
+    regs, spills, fn, spill = {}, {}, None, 0
+    for line in cuda_lib.build_logs.get("nb_cluster", "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = re.search(r"nb_table_kernelILi(\d)ELb(\d)ELi(\d)ELi(\d)E",
+                           m.group(1))
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            f, lj, c, mod = (int(g) for g in fn.groups())
+            regs.setdefault((f, lj), []).append(
+                f"{coul[str(c)]}/{mods[mod]} {m.group(1)}")
+            spills[(f, lj)] = spills.get((f, lj), 0) + spill
+            fn = None
+    for (f, lj), r in sorted(regs.items()):
+        flav = ("F", "VF", "VF+virial")[f]
+        planes = 6 if lj else 7
+        _say(f"  nb_table {flav:9s} {'LJ table ' if lj else 'sqrt c6/c12'}"
+             f": registers {', '.join(r)}; {spills[(f, lj)]} bytes of "
+             f"spills; shared memory (dynamic) "
+             f"{table_smem_bytes(5 if lj else 0, 4, 8, planes, f)} B at 8 "
+             f"warps, {table_smem_bytes(5 if lj else 0, 4, 16, planes, f)}"
+             f" B at 16 (T 5, K 4)")
+
+
+def table_smem_bytes(T, K, warps, planes, flavour):
+    """Dynamic shared memory of one table-kernel CTA (nb_table_launch):
+    each warp's eight ring slots and reduction row, the i halves' boxes, the
+    LJ table, the i-cluster's exclusion ids."""
+    ne = 5 if flavour == 2 else 2
+    return (4 * (warps * (8 * planes * 8 + 24 + ne) + 16 + T * T * 2)
+            + 4 * 8 * K)
 
 
 def phase_small_reference(device):
@@ -973,6 +1023,96 @@ def place_boundary_pair(plane, box, prep, rmax2, sign, first_block=0,
                     return (out.to(plane.device),
                             (s, g, h, k, a, cid * 8 + m))
     raise AssertionError("no live tile with a masked-in LJ pair to place")
+
+
+def _min_image_r2(p, a, b, L):
+    """float32 r^2 of plane rows a and b of p (3, rows) under the
+    rectangular minimum image, as the table route's plain version."""
+    d = p[:, a] - p[:, b]
+    d = d - torch.round(d / L) * L
+    return float(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+
+
+def place_table_pair(planes, box, prep, rmax2, sign, periodic=False,
+                     first=0):
+    """Move one j cluster of a live entry of the table pack so that a pair
+    of atoms that take the pair math (pv != 0) sits on its tile's boundary
+    at r^2 = rmax2 (1 + sign 1e-6): the cluster is translated along x until
+    its lowest-x such atom B lies r beyond the i half's highest-x such atom
+    A, and B takes A's y and z, so B's distance to the half's box is the
+    pair's; B is then nudged by float32 steps until the pair's r^2 (as the
+    plain version computes it) lies on the intended side of rmax2.
+    periodic: the cluster also moves by -L_x, so the pair straddles the
+    periodic boundary (same minimum image).  The entry is the first, from
+    i-cluster `first` on, whose j cluster is not the i-cluster.  Returns
+    (the moved planes on their device, (cl, e, h, a, b)): i-cluster of the
+    range, entry, i half, A's and B's plane rows."""
+    cpu = torch.device("cpu")
+    p = torch.stack([q.to(cpu) for q in planes])
+    nbr, cnt, pv = prep.nbr.to(cpu), prep.cnt.to(cpu), prep.pv.to(cpu)
+    L = torch.diagonal(box).to(cpu)
+    lim = np.float32(rmax2)
+    r = float(np.sqrt(np.float64(rmax2) * (1.0 + sign * 1e-6)))
+    ar4, ar8 = torch.arange(4), torch.arange(8)
+    for cl in range(first, prep.n_icl):
+        ci = prep.i0 + cl
+        for e in range(int(cnt[cl])):
+            jc = int(nbr[cl, e])
+            rows_j = jc * 8 + ar8
+            ok_j = pv[rows_j] > 0
+            if jc == ci or not bool(ok_j.any()):
+                continue
+            b = int(rows_j[ok_j][torch.argmin(p[0, rows_j][ok_j])])
+            for h in range(2):
+                rows_i = ci * 8 + 4 * h + ar4
+                ok_i = pv[rows_i] > 0
+                if not bool(ok_i.any()):
+                    continue
+                a = int(rows_i[ok_i][torch.argmax(p[0, rows_i][ok_i])])
+                out = p.clone()
+                dx = (float(p[0, a]) + r - float(p[0, b])
+                      - (float(L[0]) if periodic else 0.0))
+                out[0, rows_j] = (p[0, rows_j].double() + dx).float()
+                out[1, b], out[2, b] = p[1, a], p[2, a]
+                step = torch.tensor(float("inf"))
+                while not sign * (_min_image_r2(out, a, b, L) - lim) > 0:
+                    out[0, b] = torch.nextafter(out[0, b], step)
+                return ([out[d].to(planes[d].device) for d in range(3)],
+                        (cl, e, h, a, b))
+    raise AssertionError("no live entry with a pair to place")
+
+
+def table_culled_close_pairs(planes, box, prep, consts, block=64):
+    """(pairs that take the pair math (pv != 0 both, not the self pair,
+    a live entry) with r^2 < max(rc2, rv2) in tiles that
+    cull_table_tiles_plain skips, its keep mask (n_icl, W, 2), the live
+    entry mask (n_icl, W))."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
+    keep = nb_cluster.cull_table_tiles_plain(planes, box, prep, consts)
+    dev = keep.device
+    n_icl, W = prep.nbr.shape
+    live = torch.arange(W, device=dev)[None, :] \
+        < prep.cnt[:, None].to(torch.int64)
+    L = torch.diagonal(box)
+    rmax2 = np.float32(max(consts.rc2, consts.rv2))
+    ar = torch.arange(8, device=dev)
+    bad = 0
+    for c0 in range(0, n_icl, block):
+        ci = torch.arange(c0, min(c0 + block, n_icl), device=dev)
+        iid = (prep.i0 + ci)[:, None] * 8 + ar                 # (B, 8)
+        jid = prep.nbr[ci].long()[..., None] * 8 + ar          # (B, W, 8)
+        r2 = 0.0
+        for pl, Lx in zip(planes, L):
+            d = pl[iid][:, None, :, None] - pl[jid][:, :, None, :]
+            d = d - torch.round(d / Lx) * Lx
+            r2 = r2 + d * d                                    # (B, W, 8, 8)
+        take = ((prep.pv[iid][:, None, :, None] > 0)
+                & (prep.pv[jid][:, :, None, :] > 0)
+                & (iid[:, None, :, None] != jid[:, :, None, :])
+                & live[ci][..., None, None])
+        kept = keep[ci].repeat_interleave(4, 2)[..., None]     # (B, W, 8, 1)
+        bad += int((take & ~kept & (r2 < rmax2)).sum())
+    return bad, keep, live
 
 
 def _prep_head(prep, n):
@@ -1557,6 +1697,14 @@ def _cluster_kernel_rows(runner, state, timer, flavours, n_pairs=None):
                                 max(consts.rc2, consts.rv2))
     flops = FLOPS_PAIR_TABLE if layout == "table" else FLOPS_PAIR
     R, W = prep.nbr.shape
+    shape = ""
+    if layout == "table":
+        kept, bad = _table_kept(planes, box, prep, consts)
+        shape = (f"; warps per i-cluster {prep.warps}, tiles kept "
+                 f"{kept:.4f}")
+        if bad:
+            raise AssertionError("the table cull skipped pairs in the "
+                                 "cut-off")
     rows = []
     for flavour in flavours:
         name = f"nb_{layout}_{flavour}"
@@ -1594,7 +1742,7 @@ def _cluster_kernel_rows(runner, state, timer, flavours, n_pairs=None):
                                          + (9 if virial else 0)))
         _say(f"{name} ({x.shape[0]:,} atoms): {R} rows x {W} entries, "
              f"{int(prep.cnt.sum())} live, unique pairs in cut-off "
-             f"{n_pairs}; F "
+             f"{n_pairs}{shape}; F "
              f"rel {f_rel:.2e}, E rel {e_rel:.2e}, virial rel {v_rel:.2e} "
              f"-> {'ok' if ok else 'FAIL'}; {ms:.4f} ms (plain "
              f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}, library "
@@ -1818,6 +1966,202 @@ def phase_charmm(device, timer, smi, start):
     return rows, prod_state, prod.config.nnbr
 
 
+def _bits_equal(a, b):
+    """a and b hold the same bits (NaN included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _table_check(name, planes, box, prep, consts,
+                 flavours=("F", "VF", "VFV")):
+    """The table kernel (nb_cluster_cuda) against table_plain on the same
+    inputs: NaN in exactly the plain version's force rows and energy rows,
+    the rest at the gates (F rel 5e-4 of max |F|, E and virial rel 1e-4);
+    each launch twice, the two bit-identical (the fixed-order reduction).
+    Returns {flavour: (kernel, plain)} of the (n_icl * 8, 3) forces."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
+    out = {}
+    for flavour in flavours:
+        e, v = flavour != "F", flavour == "VFV"
+        fk = nb_cluster.nb_cluster_cuda(planes, box, prep, consts, e, v)
+        again = nb_cluster.nb_cluster_cuda(planes, box, prep, consts, e, v)
+        fp = nb_cluster.table_plain(planes, box, prep, consts, e, v)
+        torch.cuda.synchronize()
+        same = all(_bits_equal(a, b) for a, b in zip(fk, again))
+        Fk, Fp = torch.stack(fk[:3], -1), torch.stack(fp[:3], -1)
+        same_nan = (torch.equal(torch.isnan(Fk), torch.isnan(Fp))
+                    and torch.equal(torch.isnan(fk[3]), torch.isnan(fp[3])))
+        fin = ~torch.isnan(Fp).any(-1)
+        f_rel = _rel(Fk[fin], Fp[fin])[0] if bool(fin.any()) else 0.0
+        rows = ~torch.isnan(fp[3]).any(1)
+        e_rel = v_rel = 0.0
+        if e:
+            ek, ep = (0.5 * o[3][rows, :2].double().sum(0) for o in (fk, fp))
+            e_rel = float(((ek - ep).abs() / ep.abs().clamp(min=1e-30))
+                          .max())
+        if v:
+            v_rel, _ = _rel(*(-0.25 * o[3][rows, 2:5].double().sum(0)
+                              for o in (fk, fp)))
+        ok = (same and same_nan and f_rel <= F_REL and e_rel <= E_REL
+              and v_rel <= E_REL)
+        _say(f"table edge {name} {flavour}: {prep.n_icl} i-clusters from "
+             f"{prep.i0}, W {prep.nbr.shape[1]}, live {int(prep.cnt.sum())}"
+             f", warps {prep.warps}; NaN atoms {int((~fin).sum())} (kernel "
+             f"{int(torch.isnan(Fk).any(-1).sum())}), NaN energy rows "
+             f"{int((~rows).sum())}; F rel {f_rel:.2e}, E rel {e_rel:.2e}, "
+             f"virial rel {v_rel:.2e}; repeat bit-identical {same} -> "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"table edge case {name} {flavour}: the "
+                                 "kernel disagrees with its plain version")
+        out[flavour] = (Fk, Fp)
+    return out
+
+
+def _table_kept(planes, box, prep, consts):
+    """Share of the live entries' tiles that the table kernel's cull keeps
+    (cull_table_tiles_plain), and the pairs in the cut-off in skipped
+    tiles (0 for an exact cull)."""
+    bad, keep, live = table_culled_close_pairs(planes, box, prep, consts)
+    return float(keep[live].float().mean()), bad
+
+
+def phase_table_edges(device, state, nnbr):
+    """The table kernel's edge cases against table_plain (every flavour,
+    each launch twice and bit-identical, NaN in exactly the plain
+    version's rows):
+    - the 12,290-atom CHARMM frame (the production state), with the tiles
+      the cull keeps and the warps per i-cluster;
+    - boundary: a pair placed on its tile's boundary at r^2 = rmax2 (1 -+
+      1e-6), once inside one box image and once across the periodic
+      boundary; beside the gates, the force on its i atom A, inside minus
+      outside (the placed pair's own force), must match the plain
+      version's to a quarter of itself;
+    - nan: one NaN coordinate (an atom of a cluster that other rows list);
+    - skew: one row at W entries and every other row at 1, at the
+      wrapper's warps and at 1 and 16 warps per i-cluster;
+    - empty rows: every third row with cnt = 0;
+    - 64 atom types (the table padded) at 16 warps per i-cluster;
+    - an i-range pack with i0 > 0 (parallel/spatial.py _range_pack);
+    - every vdW modifier with every Coulomb type in the LJ-table and the
+      sqrt(c6)/sqrt(c12) modes at 650 atoms (rc 0.75, rvdw-switch 0.6)."""
+    from gromacs_fep_gpu_tpu_torch.core.types import CoulombType, VdwModifier
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
+    from gromacs_fep_gpu_tpu_torch.ops.cluster_nb import lj_table_mode
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
+    from gromacs_fep_gpu_tpu_torch.ops.nb_v2u import NbConstants
+    from gromacs_fep_gpu_tpu_torch.ops.pairlist import build_cluster_pairlist
+    from gromacs_fep_gpu_tpu_torch.ops.pme import pme_grid_size
+    from gromacs_fep_gpu_tpu_torch.parallel.spatial import _range_pack
+    t0 = time.perf_counter()
+    system = _lb_system(N_SIDE, device)
+    params = _charmm_params()
+    runner = MdRunner(system, params, RunnerConfig(nnbr=nnbr))
+    box = state.box
+    nlist, _, prep, _ = runner.lists(state)
+    consts = NbConstants.from_params(params, get_beta(params))
+    planes = nb_cluster.gather_planes(state.x, box, nlist, prep)
+    kept, bad = _table_kept(planes, box, prep, consts)
+    _say(f"table edge production frame: {prep.n_icl} i-clusters, longest "
+         f"row {prep.cnt_max}, warps per i-cluster {prep.warps}, tiles kept "
+         f"{kept:.4f}, pairs in the cut-off in skipped tiles {bad}")
+    if bad:
+        raise AssertionError("the table cull skipped pairs in the cut-off")
+    _table_check(f"{state.x.shape[0]:,}-atom CHARMM frame", planes, box,
+                 prep, consts)
+
+    rmax2 = max(consts.rc2, consts.rv2)
+    for periodic in (False, True):
+        res = {}
+        for sign, where in ((-1.0, "inside"), (1.0, "outside")):
+            moved, (cl, e, h, a, b) = place_table_pair(
+                planes, box, prep, rmax2, sign, periodic=periodic)
+            keep = nb_cluster.cull_table_tiles_plain(moved, box, prep,
+                                                     consts)
+            image = "periodic" if periodic else "one image"
+            _say(f"table edge boundary ({image}, {where}): i-cluster {cl} "
+                 f"entry {e} half {h}, rows {a} "
+                 f"and {b}; tile kept by the cull: {bool(keep[cl, e, h])}")
+            res[where] = _table_check(f"boundary {where}", moved, box, prep,
+                                      consts)
+        for flavour in ("F", "VF", "VFV"):
+            fk, fp = ((res["inside"][flavour][i][a] -
+                       res["outside"][flavour][i][a]) for i in (0, 1))
+            pf, dk = float(fp.norm()), float((fk - fp).norm())
+            _say(f"  row {a} {flavour}: the pair's own force {pf:.4e} "
+                 f"(plain), kernel's minus plain's {dk:.3e}")
+            if not (pf > 0.0 and dk <= 0.25 * pf):
+                raise AssertionError("table edge boundary: the kernel lost "
+                                     "or gained the placed pair")
+
+    row = int(prep.nbr[10, 3]) * 8 + 5
+    nan_planes = [p.clone() for p in planes]
+    nan_planes[0][row] = float("nan")
+    _table_check("nan", nan_planes, box, prep, consts)
+
+    C, W = nlist.n_clusters, prep.nbr.shape[1]
+    nbr = torch.full_like(prep.nbr, C)
+    nbr[:, 0] = prep.nbr[:, 0]
+    nbr[0] = torch.arange(W, device=nbr.device, dtype=nbr.dtype) % C
+    cnt = torch.ones_like(prep.cnt)
+    cnt[0] = W
+    skew = dataclasses.replace(prep, nbr=nbr, cnt=cnt, cnt_max=W)
+    for w in sorted({prep.warps, 1, nb_cluster.MAX_WARPS}):
+        _table_check(f"skew ({w} warps)", planes, box,
+                     dataclasses.replace(skew, warps=w), consts)
+    nbr = prep.nbr.clone()
+    nbr[::3] = C
+    cnt = prep.cnt.clone()
+    cnt[::3] = 0
+    _table_check("empty rows", planes, box,
+                 dataclasses.replace(prep, nbr=nbr, cnt=cnt), consts)
+    # 64 atom types (the kernel's most): the table padded with zero rows,
+    # shared memory past 48 KB at 16 warps
+    T = prep.nbfp.shape[0]
+    wide = torch.zeros((nb_cluster.MAX_TYPES,) * 2 + (2,),
+                       dtype=prep.nbfp.dtype, device=prep.nbfp.device)
+    wide[:T, :T] = prep.nbfp
+    _table_check(f"{nb_cluster.MAX_TYPES} types, 16 warps", planes, box,
+                 dataclasses.replace(prep, nbfp=wide,
+                                     warps=nb_cluster.MAX_WARPS), consts)
+    c0, c1 = prep.n_icl // 4, prep.n_icl // 2
+    part = _range_pack(prep, c0, c1, planes[0].device)
+    kept, bad = _table_kept(planes, box, part, consts)
+    _say(f"table edge i-range [{c0}, {c1}): warps {part.warps}, tiles kept "
+         f"{kept:.4f}, pairs in the cut-off in skipped tiles {bad}")
+    if bad:
+        raise AssertionError("the table cull skipped pairs in the cut-off")
+    _table_check(f"i-range i0 {c0}", planes, box, part, consts)
+
+    n_side = 6
+    lb = _lb_system(n_side, device)
+    geo, sst = solvation_system(n_side=n_side, seed=0, device=device)
+    for coulomb in (CoulombType.CUTOFF, CoulombType.REACTION_FIELD,
+                    CoulombType.PME):
+        for modifier in VdwModifier:
+            sp = _params(mts=True).replace(
+                coulomb=coulomb, rcoulomb=0.75, rvdw=0.75, rlist=0.8,
+                rvdw_switch=0.6, vdw_modifier=modifier,
+                pme_grid=pme_grid_size((n_side * 0.31,) * 3, 0.12))
+            sconsts = NbConstants.from_params(
+                sp, get_beta(sp) if coulomb == CoulombType.PME else None)
+            for sys_ in (lb, geo):
+                mode = lj_table_mode(sys_.nbfp.cpu().numpy())
+                sl = build_cluster_pairlist(sst.x, sst.box, sys_, 0.8,
+                                            nnbr=192)
+                if int(sl.n_overflow):
+                    raise AssertionError("650-atom list overflowed")
+                sprep = nb_cluster.prepare_table(sl, sys_.nbfp, mode,
+                                                 cnt_max=int(sl.max_count))
+                _table_check(f"650 atoms {coulomb.value} "
+                             f"{modifier.value} {mode}",
+                             nb_cluster.gather_planes(sst.x, sst.box, sl,
+                                                      sprep),
+                             sst.box, sprep, sconsts)
+    _say(f"table edge phase took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_layouts(system, params, state, caps):
     """Phase 13: LAYOUT_STEPS steps of the main path on each K7 layout from
     its production state; returns each layout's launches."""
@@ -1905,6 +2249,12 @@ def _dd_kernel_rows(runner, state, timer, what):
         for cat, dom in zip(cats, doms):
             n_pairs += _pairs_in_cut(list(cat), box, dom,
                                      max(consts.rc2, consts.rv2))
+            k, bad = _table_kept(list(cat), box, dom, consts)
+            if bad:
+                raise AssertionError("the table cull skipped pairs in the "
+                                     "cut-off")
+            if bool((dom.cnt > 0).any()):
+                kept.append(k)
         flops = FLOPS_PAIR_TABLE
     rows = []
     for flavour in ("F", "VF"):
@@ -1957,8 +2307,12 @@ def _dd_kernel_rows(runner, state, timer, what):
             b_bytes = sum(_cluster_bytes(d, flavour) for d in doms)
         bound, by = _bound_ms(b_bytes / nsh,
                               n_pairs * (flops + FLOPS_JFORCE) / nsh)
-        detail = ""
-        if k6:
+        if not k6:
+            detail = (f"; warps per i-cluster "
+                      f"{sorted({d.warps for d in doms})} (longest row "
+                      f"{doms[0].cnt_max}), tiles kept {min(kept):.4f}-"
+                      f"{max(kept):.4f}")
+        else:
             splits = [nb_v2u.launch_split(c, d, consts, energy)
                       for c, d in zip(cats, doms)]
             detail = (f"; tiles kept {min(kept):.4f}-{max(kept):.4f}, "
@@ -2175,6 +2529,8 @@ def run(device="cuda", smi=None):
     table_rows, charmm_state, charmm_nnbr = phase_charmm(device, timer, smi,
                                                          state)
     done("CHARMM path")
+    phase_table_edges(device, charmm_state, charmm_nnbr)
+    done("table kernel edge cases")
     dd_rows += phase_dd_charmm(device, charmm_state, charmm_nnbr, timer,
                                smi)
     done("CHARMM path under DD")

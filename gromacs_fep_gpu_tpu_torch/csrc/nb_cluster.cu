@@ -1,7 +1,106 @@
-// Per-i-cluster-list non-bonded kernel for Hopper (sm_90a): the table
-// route and the three non-default NB layouts K7a, K7b and K7c.
+// Per-i-cluster-list non-bonded kernels for Hopper (sm_90a): the table
+// route (nb_table_kernel) and the three non-default NB layouts K7a, K7b
+// and K7c (nb_cluster_kernel).
 //
-// Replaces, on one templated body:
+// nb_table_kernel replaces the XLA kernel of the table route,
+// gromacs_fep_gpu_tpu/ops/cluster_nb.py cluster_nb_kernel and its core
+// cluster_nb_kernel_core (not a pallas_call, but on the card it needs a
+// kernel), on the same lists: each i-cluster's own full list of j-clusters,
+// in-loop minimum image, exclusion ids, LJ from the (T, T, 2) c6/c12 table
+// in shared memory or from per-atom sqrt(c6)/sqrt(c12), every vdW modifier
+// and Coulomb type, F, VF and VF+virial.  Under domain decomposition it
+// runs a domain's i-cluster range [i0, i0 + n_icl) of its halo-extended
+// plane (cluster_nb_kernel_core with block_offset / n_blocks, as
+// parallel/spatial.py make_halo_cluster_force calls it): coordinates and j
+// data are read by plane id, the list rows, the exclusions of the i atoms
+// and the outputs are indexed from i0.  The full list holds each pair
+// twice, so only i forces are written (no atomics); the energy partials
+// (one row per i-cluster) are halved and the virial partials scaled by
+// -1/4 on the host, summed there in float64.
+//
+// What bounds it.  The operations: at the CHARMM path's 12,290 atoms
+// (rlist ~1.3 nm) the lists hold ~0.46 M live entries and ~4.5 M unique
+// pairs inside the cut-off, each needed once with the j atom's update,
+// against a few MB of compulsory bytes (chip_smoke.py prints the counts and
+// the bound).  A full list evaluates every pair twice, so twice that bound
+// is this design's floor.  Above it the kernel is bound by instruction
+// issue: a warp runs the pair math of a whole (4 i x 8 j) tile when any of
+// its 32 slots needs it, and each entry pays for the ring, the cull and
+// the loop.  chip_probe_table.py takes the time apart (no cull, contiguous
+// chunks, a deeper ring, 32 warps, the exact erfc in F).
+//
+// Warps per i-cluster.  A CTA is one i-cluster and `warps` warps that share
+// its row: the live entries go in pairs (2p, 2p + 1) to the warps in turn,
+// warp w taking pairs w, w + warps, ..., so the dense entries near the
+// i-cluster are spread over all warps (contiguous chunks were slower on
+// both launches).  The wrapper (ops/nb_cluster.py table_warps) takes, once
+// per rebuild, the smallest power of two that puts two waves of resident
+// warps on the card, at most 16 and at most cnt_max / 8: 8 for the 1,544
+// i-clusters of the 12,290-atom system, 16 for a 200-cluster DD domain on
+// 132 SMs.  At the end each warp reduces its 8 j lanes per i atom with
+// shuffles and writes its partial forces, energies and virial into shared
+// memory; after one barrier, 24 + ne threads add the warps' partials in
+// warp order and write the outputs.  The sums are thus in a fixed order:
+// the same bits from run to run, no atomics and no memset.
+//
+// The ring.  A warp takes its entries two at a time: lanes 0-15 work for
+// the first and lanes 16-31 for the second.  It reads the ids of its next
+// 32 entries in one load (the following 32 when it starts on a batch) and
+// gets each id by shuffle.  It stages the j clusters of its next three
+// pairs of entries into an eight-slot ring in shared memory with 16-byte
+// cp.async copies: a cluster is 8 consecutive words in each of the x, y,
+// z, q, pv and type (or s6 and s12) planes, so lanes 2p and 2p + 1 of a
+// half-warp copy plane p's two halves, one copy each per step (TMA does not
+// apply to a gather by cluster id).  cp.async.wait_group 3 and a
+// __syncwarp come before a pair is read, a __syncwarp before its slots are
+// refilled.  The i atoms' coordinates, charges and LJ parameters stay in
+// registers for the whole row.  The i-cluster's 8 K exclusion ids sit in
+// shared memory, and the range of the clusters that hold them in two
+// registers: only an entry whose cluster lies in that range (a few per row:
+// the partners are the atom's own molecule) compares a pair's j id with the
+// ids, so any K costs the same and the other entries pay one compare.
+// __launch_bounds__(512, 2) holds the kernel to 64 registers, 32 resident
+// warps per SM (72, 80 and 96 registers were slower).  After one vote that
+// skips a tile with no pair inside rmax, the pair math is straight-line
+// code with the cut-offs as selects.
+//
+// The cull.  Lane l owns j atom l % 8 and i atoms l / 8 and l / 8 + 4, so
+// one entry is two (4 i x 8 j) tiles, i half 0 and i half 1.  Each CTA
+// computes the boxes of its two i halves once, over the atoms that take the
+// pair math (pv != 0), as a centre c and half-widths w.  Per pair of
+// entries, lanes 0-7 test j atom l of the first against half 0's box, lanes
+// 8-15 against half 1's, lanes 16-31 likewise for the second entry, and one
+// ballot gives the four tiles: per axis g = |min_image(c - x_j)| - w,
+// folded with the same rintf as the pair, clamped at 0; d2 = g . g.  Every
+// pair of i atom a in the half and j atom j has, under any image, |d_a| >=
+// g on each axis (|x_a - c| <= w), so r^2 >= d2 however wide the clusters
+// are; a tile is skipped only when every lane of its half votes d2 >
+// max(rc2, rv2) (1 + 1e-5) or holds an atom with pv = 0.  The 1e-5 margin
+// covers the few ulp by which d2 and the pair's r^2 differ in float32
+// (ops/nb_cluster.py cull_table_tiles_plain mirrors the rule on the CPU).
+// This atom-to-box test is tighter than a box-to-box test and needs no
+// shuffle for the j side.
+//
+// Fail hard.  A half with a non-finite coordinate (any atom, pv or not) and
+// a j atom with one are never skipped, and the test is written `skip if
+// d2 > lim`, which a NaN never passes.  The plain version evaluates every
+// (i atom, j slot) of a row, so one non-finite coordinate makes NaN the
+// force of its own i atom, the forces of all 8 i atoms of every row that
+// lists its cluster, and those rows' energies (energy flavours); the
+// kernel writes NaN in exactly those rows from flags (the i atom's own, a
+// non-finite j atom seen in the row, OR-ed over the CTA at the barrier),
+// whatever its pair math added to them.
+//
+// Erfc.  The energy flavours take the exact erfcf and expf, as the XLA
+// kernel does.  The F flavour takes the rational pmecorrF fit of the Ewald
+// force correction (as K1's F flavour): it holds the plain version's exact
+// erfc to the gates on every edge case of chip_smoke.py's table phase and
+// saves the erfc and the exp of each pair (chip_probe_table.py times both).
+//
+// Instantiations: 3 flavours x 2 LJ modes x 3 Coulomb types x 4 vdW
+// modifiers = 72, each with the physics fixed at compile time.
+//
+// nb_cluster_kernel replaces, on one templated body, the TPU kernels
 // - K7a, gromacs_fep_gpu_tpu/ops/pallas_nb.py _make_kernel (launched by
 //   pallas_cluster_forces): 8-cluster (64-atom) superclusters that share
 //   one union j list; in-loop rectangular minimum image; exclusion ids;
@@ -11,64 +110,29 @@
 //   i-cluster's own j list with build-time periodic shifts per entry and
 //   per-lane bit masks (bit a: pair valid for i atom a, bit 8+a: not
 //   excluded);
-// - the table route, the XLA kernel gromacs_fep_gpu_tpu/ops/cluster_nb.py
-//   cluster_nb_kernel (not a pallas_call, but on the card it needs a
-//   kernel): each i-cluster's own list, in-loop minimum image, exclusion
-//   ids, LJ from the (T, T, 2) c6/c12 table held in shared memory or from
-//   per-atom sqrt(c6)/sqrt(c12), every vdW modifier (none,
-//   potential-shift, force-switch, potential-switch), exact erfc, and the
-//   diagonal virial flavour.
-// K7a/b/c are the TPU kernels' geometric-LJ, potential-shift kernels with
-// the erfc polynomial (VF) and the pmecorrF fit (F), as in csrc/nb_v2u.cu.
-//
-// The full list holds each pair twice, so only i forces are written (no
-// atomics); the energy partials (one row per i-cluster) are halved and the
-// virial partials scaled by -1/4 on the host, summed there in float64.
-//
-// What bounds it on the H100: the work the function needs.  Each entry of
-// a list brings one j-cluster (8 atoms x 6-7 floats, ~200 B, mostly from
-// L1 or L2: every j-cluster is read by every i-cluster near it), and ~80
-// flops for each of the ~20-45 % of its 64 pair slots that fall inside the
-// cut-off.  At 12,290 atoms with the CHARMM cut-offs (rlist ~1.3 nm) the
-// per-cluster lists hold ~20 M pair slots and ~9 M ordered pairs in the
-// cut-off, each unique pair twice.  The forces need each unique pair once
-// plus a 6-flop j update: ~4.5 M x 86 flops, ~0.38 GFLOP, ~6 us at the
-// 67 TFLOP/s fp32 peak, against ~3 MB of compulsory bytes (<1 us at 3.35
-// TB/s).  So the bound is operations; this simple design runs the full
-// list (twice the pair math, no atomics) and is bound by issue and
-// divergence: every slot is tested (mask, r^2) before the expensive math.
-//
-// Design: one warp per i-cluster (8 warps, 8 consecutive i-clusters per
-// CTA: for K7a, one supercluster and its union row).  Lane l owns j atom
-// l % 8 of the current j-cluster and i atoms l / 8 and l / 8 + 4, so one
-// entry is 64 pairs, two per lane; the i atoms stay in registers, the j
-// atom is one load per plane per entry (four lanes read the same word).
-// Out-of-mask and out-of-cut-off pairs are skipped before the math.  The
-// 8 partial forces of an i atom sit in 8 consecutive lanes and are reduced
-// with shuffles; energies and virial sums reduce over the warp.  Exclusion
-// ids are tested only for j ids inside the i atom's [min, max] partner
-// range, so the K compares run for few pairs.
-//
-// An i-cluster range [i0, i0 + n_icl) of the planes: the table route under
-// domain decomposition (gromacs_fep_gpu_tpu/ops/cluster_nb.py
-// cluster_nb_kernel_core with block_offset / n_blocks, as
-// parallel/spatial.py make_halo_cluster_force calls it) runs a domain's own
-// i-clusters on its halo-extended plane.  Coordinates and j data are read
-// by plane id; the list rows, the exclusions of the i atoms and the
-// outputs are indexed from i0 (i0 = 0 outside domain decomposition).
+// the TPU kernels' geometric-LJ, potential-shift kernels with the erfc
+// polynomial (VF) and the pmecorrF fit (F), as in csrc/nb_v2u.cu.  Design:
+// one warp per i-cluster (8 warps, 8 consecutive i-clusters per CTA: for
+// K7a, one supercluster and its union row).  Lane l owns j atom l % 8 of
+// the current j-cluster and i atoms l / 8 and l / 8 + 4, so one entry is 64
+// pairs, two per lane; the j atom is one load per plane per entry.
+// Out-of-mask and out-of-cut-off pairs are skipped before the math; the 8
+// partial forces of an i atom sit in 8 consecutive lanes and are reduced
+// with shuffles.  Each warp walks a dependent chain (list id, then the j
+// cluster), so these run at 30-100x their operations bound (PERF.md).
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;            // i-clusters per CTA
-constexpr int kThreads = 32 * kWarps;
 constexpr int kCluster = 8;
 constexpr int kMaxTypes = 64;        // table mode: (T, T, 2) in shared
 constexpr float kR2Floor = 1e-6f;
 constexpr float kTwoOverSqrtPi = 1.1283791670955126f;
+constexpr unsigned kFull = 0xffffffffu;
 
-enum Layout { kSuper = 0, kCl = 1, kV2 = 2, kTable = 3 };
+enum Layout { kSuper = 0, kCl = 1, kV2 = 2 };
 enum Flavour { kF = 0, kVF = 1, kVFV = 2 };
 enum Coulomb { kCutoff = 0, kReactionField = 1, kPme = 2 };
 enum Modifier { kNone = 0, kPotShift = 1, kForceSwitch = 2, kPotSwitch = 3 };
@@ -86,9 +150,11 @@ __device__ __forceinline__ float erfc_poly(float x) {
   return poly * expf(-x * x);
 }
 
+// rational fit of the Ewald force correction, as nb_v2u.py
+// _pmecorr_f_recip; kFast: the quotient by the fast division (2 ulp; z2 <=
+// (beta rc)^2 keeps the denominator small), as csrc/nb_v2u.cu
+template <bool kFast>
 __device__ __forceinline__ float pmecorr_f(float z2) {
-  // rational fit of the Ewald force correction, as nb_v2u.py
-  // _pmecorr_f_recip
   const float z4 = z2 * z2;
   float fd0 = 0.0011193462567257629232f * z4 + 0.11583842382862377919f;
   const float fd1 = 0.014866955030185295499f * z4 + 0.50736591960530292870f;
@@ -100,42 +166,46 @@ __device__ __forceinline__ float pmecorr_f(float z2) {
   fn1 = fn1 * z4 + 0.069670166153766424023f;
   fn0 = fn0 * z4 - 0.75225204789749321333f;
   fn0 = fn1 * z2 + fn0;
-  return fn0 / fd0;
+  return kFast ? __fdividef(fn0, fd0) : fn0 / fd0;
 }
+
+__device__ __forceinline__ bool finite3(float x, float y, float z) {
+  return fabsf(x) <= FLT_MAX && fabsf(y) <= FLT_MAX && fabsf(z) <= FLT_MAX;
+}
+
+// ---------------------------------------------------------------------------
+// K7a, K7b, K7c
+
+constexpr int kWarps = 8;            // i-clusters per CTA
+constexpr int kThreads = 32 * kWarps;
 
 // One i atom held by a lane.
 struct IAtom {
   float x, y, z, q, s6, s12, pv;
-  int id, lid, type, ex_lo, ex_hi;   // plane id, id from the range start
+  int id, ex_lo, ex_hi;              // plane id
   float fx, fy, fz;
 };
 
 struct Acc {
-  float e_c, e_lj, vxx, vyy, vzz;
+  float e_c, e_lj;
 };
 
-template <int kLayout, int kFlav, bool kTableLj>
+template <int kLayout, int kFlav>
 __device__ __forceinline__ void pair(
     IAtom& a, int ia, float xj, float yj, float zj, float qj, float s6j,
-    float s12j, float pvj, int tj, int jid, unsigned lane_mask,
-    const int* __restrict__ excl, int K, const float* s_nbfp, int T,
-    float bx, float by, float bz, float ibx, float iby, float ibz,
-    int coul, int modifier, const Consts& c, Acc& acc) {
+    float s12j, float pvj, int jid, unsigned lane_mask,
+    const int* __restrict__ excl, int K, float bx, float by, float bz,
+    float ibx, float iby, float ibz, int coul, int modifier, const Consts& c,
+    Acc& acc) {
   constexpr bool kEnergy = kFlav != kF;
-  constexpr bool kVirial = kFlav == kVFV;
   constexpr bool kMasks = kLayout == kV2;
-  constexpr bool kExact = kLayout == kTable;
   if (kMasks) {
     if (((lane_mask >> ia) & 1u) == 0u) return;
   } else {
     if (a.pv == 0.f || pvj == 0.f || a.id == jid) return;
   }
   float dx = a.x - xj, dy = a.y - yj, dz = a.z - zj;
-  if (kLayout == kTable) {
-    dx -= rintf(dx * ibx) * bx;
-    dy -= rintf(dy * iby) * by;
-    dz -= rintf(dz * ibz) * bz;
-  } else if (kLayout != kV2) {
+  if (kLayout != kV2) {
     dx -= floorf(dx * ibx + 0.5f) * bx;
     dy -= floorf(dy * iby + 0.5f) * by;
     dz -= floorf(dz * ibz + 0.5f) * bz;
@@ -147,44 +217,20 @@ __device__ __forceinline__ void pair(
     inclb = (float)((lane_mask >> (8 + ia)) & 1u);
   } else if (jid >= a.ex_lo && jid <= a.ex_hi) {
     for (int k = 0; k < K; ++k)
-      if (excl[(size_t)a.lid * K + k] == jid) inclb = 0.f;
+      if (excl[(size_t)a.id * K + k] == jid) inclb = 0.f;
   }
   const float rinv = rsqrtf(r2);
   const float rinv2 = rinv * rinv;
   float fscal = 0.f;
   if (r2 < c.rv2 && inclb != 0.f) {
-    float c6, c12;
-    if (kTableLj) {
-      c6 = s_nbfp[(a.type * T + tj) * 2];
-      c12 = s_nbfp[(a.type * T + tj) * 2 + 1];
-    } else {
-      c6 = a.s6 * s6j;
-      c12 = a.s12 * s12j;
-    }
+    const float c6 = a.s6 * s6j;
+    const float c12 = a.s12 * s12j;
     const float rinv6 = fminf(rinv2 * rinv2 * rinv2, 1e15f);
     const float rinv12 = rinv6 * rinv6;
     float e_lj = c12 * rinv12 - c6 * rinv6;
-    float f_lj = (12.0f * c12 * rinv12 - 6.0f * c6 * rinv6) * rinv2;
-    if (modifier == kPotShift) {
+    const float f_lj = (12.0f * c12 * rinv12 - 6.0f * c6 * rinv6) * rinv2;
+    if (modifier == kPotShift)
       e_lj -= c12 * c.rcinv6 * c.rcinv6 - c6 * c.rcinv6;
-    } else if (modifier == kForceSwitch) {
-      // cluster_nb.py force-switch branch (forceswitch_constants)
-      const float r = r2 * rinv;
-      const float rs = fmaxf(r - c.rsw, 0.f);
-      const float rs3 = rs * rs * rs;
-      e_lj += c12 * (-4.0f * c.c2r * rs3 - 3.0f * c.c3r * rs3 * rs + c.cp12)
-              - c6 * (-2.0f * c.c2d * rs3 - 1.5f * c.c3d * rs3 * rs + c.cp6);
-      f_lj += (12.0f * c12 * (c.c2r + c.c3r * rs)
-               - 6.0f * c6 * (c.c2d + c.c3d * rs)) * rs * rs * rinv;
-    } else if (modifier == kPotSwitch) {
-      const float r = r2 * rinv;
-      const float d = c.rvdw - c.rsw;
-      const float t = fminf(fmaxf((r - c.rsw) / d, 0.f), 1.f);
-      const float sw = 1.0f + t * t * t * (-10.0f + t * (15.0f - 6.0f * t));
-      const float dsw = (t * t * (-30.0f + t * (60.0f - 30.0f * t))) / d;
-      f_lj = f_lj * sw - e_lj * dsw * rinv;
-      e_lj *= sw;
-    }
     fscal = f_lj;
     if (kEnergy) acc.e_lj += e_lj;
   }
@@ -196,15 +242,15 @@ __device__ __forceinline__ void pair(
       if (kEnergy) e_c = qq * (inclb * rinv + c.krf * r2 - c.crf);
     } else if (coul == kPme) {
       const float br = c.beta * (r2 * rinv);
-      if (kEnergy || kExact) {
-        const float erfc_t = kExact ? erfcf(br) : erfc_poly(br);
+      if (kEnergy) {
+        const float erfc_t = erfc_poly(br);
         const float gauss = expf(-br * br);
         f_c = qq * rinv2 * ((inclb - (1.0f - erfc_t)) * rinv
                             + c.beta * kTwoOverSqrtPi * gauss);
-        if (kEnergy) e_c = qq * rinv * (erfc_t - (1.0f - inclb));
+        e_c = qq * rinv * (erfc_t - (1.0f - inclb));
       } else {
         f_c = qq * (inclb * rinv2 * rinv + c.beta * c.beta * c.beta
-                    * pmecorr_f(c.beta * c.beta * r2));
+                    * pmecorr_f<false>(c.beta * c.beta * r2));
       }
     } else {
       f_c = qq * inclb * rinv2 * rinv;
@@ -216,41 +262,26 @@ __device__ __forceinline__ void pair(
   a.fx += fscal * dx;
   a.fy += fscal * dy;
   a.fz += fscal * dz;
-  if (kVirial) {
-    acc.vxx += fscal * dx * dx;
-    acc.vyy += fscal * dy * dy;
-    acc.vzz += fscal * dz * dz;
-  }
 }
 
-template <int kLayout, int kFlav, bool kTableLj>
+template <int kLayout, int kFlav>
 __global__ void __launch_bounds__(kThreads)
 nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                   const float* __restrict__ zs, const float* __restrict__ qs,
                   const float* __restrict__ pvs,
                   const float* __restrict__ s6s,
                   const float* __restrict__ s12s,
-                  const int* __restrict__ types,
-                  const float* __restrict__ nbfp, int T,
                   const int* __restrict__ excl, int K,
                   const int* __restrict__ nbr, const int* __restrict__ cnt,
                   int W, const float* __restrict__ shift,
                   const int* __restrict__ jmask, float* __restrict__ fx_out,
                   float* __restrict__ fy_out, float* __restrict__ fz_out,
                   float* __restrict__ e_out, const float* __restrict__ box,
-                  int i0, int n_icl, int coul, int modifier, Consts c) {
-  constexpr int kNe = kFlav == kVFV ? 5 : 2;   // floats per i-cluster
-  extern __shared__ float s_nbfp[];
-  if (kTableLj) {
-    for (int k = threadIdx.x; k < T * T * 2; k += kThreads)
-      s_nbfp[k] = nbfp[k];
-    __syncthreads();
-  }
+                  int n_icl, int coul, int modifier, Consts c) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int cl = blockIdx.x * kWarps + warp;   // i-cluster of the range
+  const int cl = blockIdx.x * kWarps + warp;   // i-cluster
   if (cl >= n_icl) return;
-  const int ci = i0 + cl;                      // i-cluster of the planes
   // K7a reads its supercluster's union row, the others their own row
   const int row = kLayout == kSuper ? blockIdx.x : cl;
   const int ja = lane % kCluster;
@@ -262,23 +293,21 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   IAtom a[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int id = ci * kCluster + ia0 + 4 * h;
+    const int id = cl * kCluster + ia0 + 4 * h;
     IAtom& t = a[h];
     t.id = id;
-    t.lid = cl * kCluster + ia0 + 4 * h;
     t.x = xs[id];
     t.y = ys[id];
     t.z = zs[id];
     t.q = qs[id] * c.epsfac;
     t.pv = kLayout == kV2 ? 1.f : pvs[id];
-    t.s6 = kTableLj ? 0.f : s6s[id];
-    t.s12 = kTableLj ? 0.f : s12s[id];
-    t.type = kTableLj ? types[id] : 0;
+    t.s6 = s6s[id];
+    t.s12 = s12s[id];
     t.ex_lo = 0x7fffffff;
     t.ex_hi = -1;
     if (kLayout != kV2) {
       for (int k = 0; k < K; ++k) {
-        const int e = excl[(size_t)t.lid * K + k];
+        const int e = excl[(size_t)id * K + k];
         if (e >= 0) {
           t.ex_lo = min(t.ex_lo, e);
           t.ex_hi = max(t.ex_hi, e);
@@ -287,7 +316,7 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
     }
     t.fx = t.fy = t.fz = 0.f;
   }
-  Acc acc{0.f, 0.f, 0.f, 0.f, 0.f};
+  Acc acc{0.f, 0.f};
 
   const int n_ent = min(cnt[row], W);
   for (int e = 0; e < n_ent; ++e) {
@@ -304,15 +333,13 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
     }
     const float qj = qs[jid];
     const float pvj = kLayout == kV2 ? 1.f : pvs[jid];
-    const float s6j = kTableLj ? 0.f : s6s[jid];
-    const float s12j = kTableLj ? 0.f : s12s[jid];
-    const int tj = kTableLj ? types[jid] : 0;
+    const float s6j = s6s[jid];
+    const float s12j = s12s[jid];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      pair<kLayout, kFlav, kTableLj>(
-          a[h], ia0 + 4 * h, xj, yj, zj, qj, s6j, s12j, pvj, tj, jid,
-          lane_mask, excl, K, s_nbfp, T, bx, by, bz, ibx, iby, ibz, coul,
-          modifier, c, acc);
+      pair<kLayout, kFlav>(a[h], ia0 + 4 * h, xj, yj, zj, qj, s6j, s12j,
+                           pvj, jid, lane_mask, excl, K, bx, by, bz, ibx,
+                           iby, ibz, coul, modifier, c, acc);
   }
 
   // the 8 partial forces of an i atom: 8 consecutive lanes
@@ -320,14 +347,407 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   for (int h = 0; h < 2; ++h) {
 #pragma unroll
     for (int off = kCluster / 2; off > 0; off /= 2) {
-      a[h].fx += __shfl_xor_sync(0xffffffffu, a[h].fx, off);
-      a[h].fy += __shfl_xor_sync(0xffffffffu, a[h].fy, off);
-      a[h].fz += __shfl_xor_sync(0xffffffffu, a[h].fz, off);
+      a[h].fx += __shfl_xor_sync(kFull, a[h].fx, off);
+      a[h].fy += __shfl_xor_sync(kFull, a[h].fy, off);
+      a[h].fz += __shfl_xor_sync(kFull, a[h].fz, off);
     }
     if (ja == 0) {
-      fx_out[a[h].lid] = a[h].fx;
-      fy_out[a[h].lid] = a[h].fy;
-      fz_out[a[h].lid] = a[h].fz;
+      fx_out[a[h].id] = a[h].fx;
+      fy_out[a[h].id] = a[h].fy;
+      fz_out[a[h].id] = a[h].fz;
+    }
+  }
+  float part[2] = {acc.e_c, acc.e_lj};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      part[k] += __shfl_xor_sync(kFull, part[k], off);
+    if (lane == 0) e_out[(size_t)cl * 2 + k] = part[k];
+  }
+}
+
+template <int kLayout, int kFlav>
+int launch(int n_icl, cudaStream_t st, const float* const* p,
+           const int* excl, int K, const int* nbr, const int* cnt, int W,
+           const float* shift, const int* jmask, float* fx, float* fy,
+           float* fz, float* e, const float* box, int coul, int modifier,
+           const Consts& c) {
+  const int blocks = (n_icl + kWarps - 1) / kWarps;
+  nb_cluster_kernel<kLayout, kFlav><<<blocks, kThreads, 0, st>>>(
+      p[0], p[1], p[2], p[3], p[4], p[5], p[6], excl, K, nbr, cnt, W, shift,
+      jmask, fx, fy, fz, e, box, n_icl, coul, modifier, c);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the table route
+
+constexpr int kMaxWarps = 16;            // warps per i-cluster (one CTA)
+constexpr int kTableThreads = 32 * kMaxWarps;
+constexpr int kSlots = 8;                // ring slots (entries) per warp
+constexpr int kAhead = kSlots / 2 - 1;   // pairs of entries in flight
+constexpr float kCullMargin = 1e-5f;     // ops/nb_cluster.py CULL_MARGIN
+// the F flavour's Ewald correction: the pmecorrF fit (true) or the exact
+// erfcf and expf (false); chip_probe_table.py times both
+constexpr bool kFitF = true;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+struct TableArgs {
+  const float *x, *y, *z, *q, *pv, *s6, *s12;   // plane rows
+  const float* staged[8];   // the rows a ring slot holds, by plane (x pads)
+  const int* types;
+  const float* nbfp;                            // (T, T, 2)
+  const int *excl, *nbr, *cnt;                  // from i0
+  float *fx, *fy, *fz, *e;                      // from i0
+  const float* box;
+  int T, K, W, i0;
+  int tab;                                      // float2 offset of the table
+  float rmax2, lim;                             // the cut-off and the cull's
+  Consts c;
+};
+
+// One i atom held by a lane, for the whole row.
+struct TAtom {
+  float x, y, z, q, s6, s12;
+  int trow;                          // type * T (LJ table)
+  bool ok;                           // pv != 0
+  float fx, fy, fz;
+};
+
+struct TAcc {
+  float e_c, e_lj, vxx, vyy, vzz;
+};
+
+// One tile's pair for lane's i atom a and j atom (xj .. jid); take: the
+// pair takes the pair math (both pv != 0, not the self pair).  After one
+// vote that skips a tile with no pair inside rmax, the body is straight
+// line: the LJ and Coulomb terms are computed on every lane and selected
+// by the cut-offs, so their chains interleave.  A lane's out-of-range
+// values never reach a sum, except a non-finite coordinate's, whose row
+// the kernel writes as NaN anyway.
+template <int kFlav, bool kTableLj, int kCoul, int kMod>
+__device__ __forceinline__ void table_pair(
+    TAtom& a, bool take, float xj, float yj, float zj, float qj, float s6j,
+    float s12j, int tj, int jid, const float* s_nbfp, bool ex_entry,
+    const int* s_ex, int K, float bx, float by, float bz, float ibx,
+    float iby, float ibz, float rmax2, const Consts& c, TAcc& acc) {
+  constexpr bool kEnergy = kFlav != kF;
+  constexpr bool kVirial = kFlav == kVFV;
+  float dx = a.x - xj, dy = a.y - yj, dz = a.z - zj;
+  dx -= rintf(dx * ibx) * bx;
+  dy -= rintf(dy * iby) * by;
+  dz -= rintf(dz * ibz) * bz;
+  float r2 = dx * dx + dy * dy + dz * dz;
+  const bool in = take && r2 < rmax2;
+  if (!__any_sync(kFull, in)) return;
+  r2 = fmaxf(r2, kR2Floor);
+  // the atom's exclusion ids (s_ex: its K ids in shared memory), only on
+  // an entry whose cluster holds some exclusion partner of the i-cluster
+  bool excluded = false;
+  if (ex_entry)
+    for (int k = 0; k < K; ++k) excluded |= s_ex[k] == jid;
+  const float inclb = excluded ? 0.f : 1.f;
+  const float rinv = rsqrtf(r2);
+  const float rinv2 = rinv * rinv;
+  float c6, c12;
+  if (kTableLj) {
+    const float2 p = reinterpret_cast<const float2*>(s_nbfp)[a.trow + tj];
+    c6 = p.x;
+    c12 = p.y;
+  } else {
+    c6 = a.s6 * s6j;
+    c12 = a.s12 * s12j;
+  }
+  const float rinv6 = fminf(rinv2 * rinv2 * rinv2, 1e15f);
+  const float rinv12 = rinv6 * rinv6;
+  float e_lj = c12 * rinv12 - c6 * rinv6;
+  float f_lj = (12.0f * c12 * rinv12 - 6.0f * c6 * rinv6) * rinv2;
+  if (kMod == kPotShift) {
+    e_lj -= c12 * c.rcinv6 * c.rcinv6 - c6 * c.rcinv6;
+  } else if (kMod == kForceSwitch) {
+    // cluster_nb.py force-switch branch (forceswitch_constants)
+    const float r = r2 * rinv;
+    const float rs = fmaxf(r - c.rsw, 0.f);
+    const float rs3 = rs * rs * rs;
+    if (kEnergy)
+      e_lj += c12 * (-4.0f * c.c2r * rs3 - 3.0f * c.c3r * rs3 * rs + c.cp12)
+              - c6 * (-2.0f * c.c2d * rs3 - 1.5f * c.c3d * rs3 * rs
+                      + c.cp6);
+    f_lj += (12.0f * c12 * (c.c2r + c.c3r * rs)
+             - 6.0f * c6 * (c.c2d + c.c3d * rs)) * rs * rs * rinv;
+  } else if (kMod == kPotSwitch) {
+    const float r = r2 * rinv;
+    const float d = c.rvdw - c.rsw;
+    const float t = fminf(fmaxf((r - c.rsw) / d, 0.f), 1.f);
+    const float sw = 1.0f + t * t * t * (-10.0f + t * (15.0f - 6.0f * t));
+    const float dsw = (t * t * (-30.0f + t * (60.0f - 30.0f * t))) / d;
+    f_lj = f_lj * sw - e_lj * dsw * rinv;
+    e_lj *= sw;
+  }
+  const float qq = a.q * qj;
+  float f_c, e_c = 0.f;
+  if (kCoul == kReactionField) {
+    f_c = qq * (inclb * rinv2 * rinv - 2.0f * c.krf);
+    if (kEnergy) e_c = qq * (inclb * rinv + c.krf * r2 - c.crf);
+  } else if (kCoul == kPme) {
+    if (kEnergy || !kFitF) {
+      const float br = c.beta * (r2 * rinv);
+      const float erfc_t = erfcf(br);
+      const float gauss = expf(-br * br);
+      f_c = qq * rinv2 * ((inclb - (1.0f - erfc_t)) * rinv
+                          + c.beta * kTwoOverSqrtPi * gauss);
+      if (kEnergy) e_c = qq * rinv * (erfc_t - (1.0f - inclb));
+    } else {
+      f_c = qq * (inclb * rinv2 * rinv + c.beta * c.beta * c.beta
+                  * pmecorr_f<true>(c.beta * c.beta * r2));
+    }
+  } else {
+    f_c = qq * inclb * rinv2 * rinv;
+    if (kEnergy) e_c = qq * inclb * (rinv - c.inv_rc);
+  }
+  const bool in_v = in && r2 < c.rv2 && !excluded;
+  const bool in_c = in && r2 < c.rc2;
+  const float fscal = (in_v ? f_lj : 0.f) + (in_c ? f_c : 0.f);
+  if (kEnergy) {
+    acc.e_lj += in_v ? e_lj : 0.f;
+    acc.e_c += in_c ? e_c : 0.f;
+  }
+  a.fx += fscal * dx;
+  a.fy += fscal * dy;
+  a.fz += fscal * dz;
+  if (kVirial) {
+    acc.vxx += fscal * dx * dx;
+    acc.vyy += fscal * dy * dy;
+    acc.vzz += fscal * dz * dz;
+  }
+}
+
+template <int kFlav, bool kTableLj, int kCoul, int kMod>
+__global__ void __launch_bounds__(kTableThreads, 2)
+nb_table_kernel(const TableArgs a) {
+  constexpr int kNe = kFlav == kVFV ? 5 : 2;    // floats per i-cluster
+  constexpr int kPlanes = kTableLj ? 6 : 7;     // x y z q pv, type | s6 s12
+  constexpr int kSlot = kPlanes * kCluster;     // floats per ring slot
+  constexpr int kRed = 3 * kCluster + kNe;      // partials per warp
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // [each warp's ring | the i halves' boxes | LJ table | each warp's
+  // partials | the i-cluster's exclusion ids]: the ring and the boxes
+  // 16-byte aligned, the table at float2 offset a.tab (the host's
+  // nwarps * kSlots * kSlot / 2 + 8)
+  float* ring = smem + warp * (kSlots * kSlot);
+  float4* s_box = reinterpret_cast<float4*>(smem + nwarps * (kSlots * kSlot));
+  const float* s_nbfp = smem;        // indexed from a.tab (TAtom.trow)
+  const int n_tab = kTableLj ? a.T * a.T * 2 : 0;
+  float* s_red = smem + 2 * a.tab + n_tab;
+  int* s_ex = reinterpret_cast<int*>(s_red + nwarps * kRed);
+  const int cl = blockIdx.x;          // i-cluster of the range
+  for (int k = threadIdx.x; k < n_tab; k += blockDim.x)
+    smem[2 * a.tab + k] = a.nbfp[k];
+  for (int k = threadIdx.x; k < kCluster * a.K; k += blockDim.x)
+    s_ex[k] = a.excl[(size_t)cl * kCluster * a.K + k];
+  __syncthreads();
+  const Consts c = a.c;
+  const int ci = a.i0 + cl;           // i-cluster of the planes
+  const int ja = lane & 7;
+  const int ia0 = lane >> 3;          // i atoms ia0 and ia0 + 4
+  const float bx = a.box[0], by = a.box[4], bz = a.box[8];
+  const float ibx = 1.0f / bx, iby = 1.0f / by, ibz = 1.0f / bz;
+  const float kInf = __int_as_float(0x7f800000);
+
+  // the clusters [ex_lo, ex_hi] that hold the i-cluster's exclusion
+  // partners: only entries in that range test exclusion ids
+  int ex_lo = 0x7fffffff, ex_hi = -1;
+  for (int k = lane; k < kCluster * a.K; k += 32) {
+    const int e = s_ex[k];
+    if (e >= 0) {
+      ex_lo = min(ex_lo, e / kCluster);
+      ex_hi = max(ex_hi, e / kCluster);
+    }
+  }
+  ex_lo = __reduce_min_sync(kFull, ex_lo);
+  ex_hi = __reduce_max_sync(kFull, ex_hi);
+
+  const int ibase = ci * kCluster + ia0;   // plane id of i atom ia0
+  TAtom at[2];
+  float cen[2][3], hw[2][3];
+  bool hok[2], hbad[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    TAtom& t = at[h];
+    const int id = ibase + 4 * h;
+    t.x = a.x[id];
+    t.y = a.y[id];
+    t.z = a.z[id];
+    t.q = a.q[id] * c.epsfac;
+    t.ok = a.pv[id] != 0.f;
+    t.s6 = kTableLj ? 0.f : a.s6[id];
+    t.s12 = kTableLj ? 0.f : a.s12[id];
+    t.trow = kTableLj ? a.tab + a.types[id] * a.T : 0;
+    t.fx = t.fy = t.fz = 0.f;
+    // half h's box over its atoms with pv != 0 (lane groups 8m hold atom
+    // m + 4h), as a centre and half-widths
+    const float v[3] = {t.x, t.y, t.z};
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float lo = t.ok ? v[d] : kInf, hi = t.ok ? v[d] : -kInf;
+#pragma unroll
+      for (int off = 8; off < 32; off *= 2) {
+        lo = fminf(lo, __shfl_xor_sync(kFull, lo, off));
+        hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, off));
+      }
+      cen[h][d] = 0.5f * (lo + hi);
+      hw[h][d] = 0.5f * (hi - lo);
+    }
+    hok[h] = __any_sync(kFull, t.ok);
+    hbad[h] = __any_sync(kFull, !finite3(t.x, t.y, t.z));
+  }
+  // the halves' boxes in shared memory, read per entry (registers are the
+  // scarce resource); the half this lane tests: lanes 0-7 (and 16-23) half
+  // 0, 8-15 (24-31) half 1
+  if (threadIdx.x < 2) {
+    const int h = threadIdx.x;
+    s_box[2 * h] = make_float4(cen[h][0], cen[h][1], cen[h][2], 0.f);
+    s_box[2 * h + 1] = make_float4(hw[h][0], hw[h][1], hw[h][2], 0.f);
+  }
+  const int hb = ia0 & 1;
+  const bool h_ok = hb ? hok[1] : hok[0];
+  const bool h_bad = hb ? hbad[1] : hbad[0];
+  __syncthreads();
+
+  // The row's live entries in pairs, dealt to the warps in turn: local
+  // entry t of this warp (pair t / 2, member t % 2) is row entry ent(t);
+  // the dense entries near the i-cluster are thus spread over all warps.
+  const int n = min(a.cnt[cl], a.W);
+  const int n_pairs = (n + 1) >> 1;
+  const int t_end = warp < n_pairs
+      ? 2 * ((n_pairs - warp + nwarps - 1) / nwarps) : 0;
+  auto ent = [&](int t) { return 2 * (warp + (t >> 1) * nwarps) + (t & 1); };
+  const int* row = a.nbr + (size_t)cl * a.W;
+
+  // a pair of entries per step: lanes 0-15 stage and test the first,
+  // lanes 16-31 the second; lanes 2p, 2p + 1 of a half-warp copy the two
+  // halves of plane p of its entry's cluster
+  const int sub = lane >> 4;
+  const int sp = (lane & 15) >> 1;
+  const bool stager = sp < kPlanes;
+  const int dst = sp * kCluster + (lane & 1) * 4;
+
+  // ids of local entries [base, base + 32) and [base + 32, base + 64),
+  // lane l holding local entry base + l
+  int base = 0;
+  int ids_cur = ent(lane) < n ? row[ent(lane)] : 0;
+  int ids_nxt = ent(32 + lane) < n ? row[ent(32 + lane)] : 0;
+  auto stage = [&](int k) {          // the pair k, k + 1; warp-uniform k
+    const int r = k + sub - base;
+    const int lo = __shfl_sync(kFull, ids_cur, r & 31);
+    const int hi = __shfl_sync(kFull, ids_nxt, r & 31);
+    if (stager && ent(k + sub) < n)
+      cp_async16(ring + ((k + sub) & (kSlots - 1)) * kSlot + dst,
+                 a.staged[sp] + (lane & 1) * 4
+                 + (size_t)(r < 32 ? lo : hi) * kCluster);
+  };
+#pragma unroll
+  for (int p = 0; p < kAhead; ++p) {
+    if (2 * p < t_end) stage(2 * p);
+    cp_async_commit();
+  }
+
+  TAcc acc{0.f, 0.f, 0.f, 0.f, 0.f};
+  bool j_bad = false;                // a non-finite j atom in this row
+  for (int e = 0; e < t_end; e += 2) {
+    if (e - base == 32) {
+      base = e;
+      ids_cur = ids_nxt;
+      ids_nxt = ent(e + 32 + lane) < n ? row[ent(e + 32 + lane)] : 0;
+    }
+    __syncwarp();                    // the slots refilled now were read
+    if (e + 2 * kAhead < t_end) stage(e + 2 * kAhead);
+    cp_async_commit();
+    cp_async_wait<kAhead>();         // local entries e and e + 1
+    __syncwarp();
+
+    // the cull: j atom ja of local entry e + sub against half hb's box
+    // under the minimum image
+    const int ce = e + sub;
+    const float* sc = ring + (ce & (kSlots - 1)) * kSlot;
+    const float xc = sc[ja], yc = sc[8 + ja], zc = sc[16 + ja];
+    const float4 cen4 = s_box[2 * hb], hw4 = s_box[2 * hb + 1];
+    float gx = cen4.x - xc, gy = cen4.y - yc, gz = cen4.z - zc;
+    gx -= rintf(gx * ibx) * bx;
+    gy -= rintf(gy * iby) * by;
+    gz -= rintf(gz * ibz) * bz;
+    gx = fmaxf(fabsf(gx) - hw4.x, 0.f);
+    gy = fmaxf(fabsf(gy) - hw4.y, 0.f);
+    gz = fmaxf(fabsf(gz) - hw4.z, 0.f);
+    const float d2 = gx * gx + gy * gy + gz * gz;
+    const bool live = ent(ce) < n;
+    const bool c_fin = finite3(xc, yc, zc);
+    j_bad |= live && !c_fin;
+    const unsigned keep = __ballot_sync(
+        kFull, live && (h_bad || !c_fin
+                        || (h_ok && sc[32 + ja] != 0.f && !(d2 > a.lim))));
+
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const unsigned ku = keep >> (16 * u);     // entry e + u's tiles
+      if ((ku & 0xffffu) == 0u) continue;
+      const int eu = e + u;
+      const float* s = ring + (eu & (kSlots - 1)) * kSlot;
+      const float xj = s[ja], yj = s[8 + ja], zj = s[16 + ja];
+      const float qj = s[24 + ja], pvj = s[32 + ja];
+      const int tj = kTableLj ? __float_as_int(s[40 + ja]) : 0;
+      const float s6j = kTableLj ? 0.f : s[40 + ja];
+      const float s12j = kTableLj ? 0.f : s[48 + ja];
+      const int jc = __shfl_sync(kFull, ids_cur, eu - base);
+      const int jid = jc * kCluster + ja;
+      const bool jok = pvj != 0.f;
+      const bool ex_entry = jc >= ex_lo && jc <= ex_hi;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if ((ku & (h ? 0xff00u : 0x00ffu)) == 0u) continue;
+        table_pair<kFlav, kTableLj, kCoul, kMod>(
+            at[h], at[h].ok && jok && ibase + 4 * h != jid, xj, yj, zj, qj,
+            s6j, s12j, tj, jid, s_nbfp, ex_entry,
+            s_ex + (ia0 + 4 * h) * a.K, a.K, bx, by, bz, ibx, iby, ibz,
+            a.rmax2, c, acc);
+      }
+    }
+  }
+
+  // each warp's partials into shared memory, then summed in warp order
+  float* red = s_red + warp * kRed;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = kCluster / 2; off > 0; off /= 2) {
+      at[h].fx += __shfl_xor_sync(kFull, at[h].fx, off);
+      at[h].fy += __shfl_xor_sync(kFull, at[h].fy, off);
+      at[h].fz += __shfl_xor_sync(kFull, at[h].fz, off);
+    }
+    if (ja == 0) {
+      const int atom = ia0 + 4 * h;
+      red[3 * atom] = at[h].fx;
+      red[3 * atom + 1] = at[h].fy;
+      red[3 * atom + 2] = at[h].fz;
     }
   }
   float part[kNe];
@@ -342,73 +762,162 @@ nb_cluster_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   for (int k = 0; k < kNe; ++k) {
 #pragma unroll
     for (int off = 16; off > 0; off /= 2)
-      part[k] += __shfl_xor_sync(0xffffffffu, part[k], off);
-    if (lane == 0) e_out[(size_t)cl * kNe + k] = part[k];
+      part[k] += __shfl_xor_sync(kFull, part[k], off);
+    if (lane == 0) red[3 * kCluster + k] = part[k];
+  }
+  const bool row_bad = __syncthreads_or(j_bad);
+  const int t = threadIdx.x;
+  if (t < kRed) {
+    float sum = 0.f;
+    for (int w = 0; w < nwarps; ++w) sum += s_red[w * kRed + t];
+    const float nan = __int_as_float(0x7fffffff);
+    if (t < 3 * kCluster) {
+      // NaN where the plain version has it: the atom's own non-finite
+      // coordinate, or a non-finite j atom in its row
+      const int atom = t / 3, axis = t % 3;
+      const int id = ci * kCluster + atom;
+      if (row_bad || !finite3(a.x[id], a.y[id], a.z[id])) sum = nan;
+      float* out = axis == 0 ? a.fx : axis == 1 ? a.fy : a.fz;
+      out[cl * kCluster + atom] = sum;
+    } else {
+      if (kFlav != kF && (row_bad || hbad[0] || hbad[1])) sum = nan;
+      a.e[(size_t)cl * kNe + (t - 3 * kCluster)] = sum;
+    }
   }
 }
 
-template <int kLayout, int kFlav, bool kTableLj>
-int launch(int i0, int n_icl, cudaStream_t st, const float* const* p, const int* ty,
-           const float* nbfp, int T, const int* excl, int K, const int* nbr,
-           const int* cnt, int W, const float* shift, const int* jmask,
-           float* fx, float* fy, float* fz, float* e, const float* box,
-           int coul, int modifier, const Consts& c) {
-  const int blocks = (n_icl + kWarps - 1) / kWarps;
-  const size_t smem = kTableLj ? sizeof(float) * T * T * 2 : 0;
-  nb_cluster_kernel<kLayout, kFlav, kTableLj><<<blocks, kThreads, smem, st>>>(
-      p[0], p[1], p[2], p[3], p[4], p[5], p[6], ty, nbfp, T, excl, K, nbr,
-      cnt, W, shift, jmask, fx, fy, fz, e, box, i0, n_icl, coul, modifier,
-      c);
-  return (int)cudaGetLastError();
+using TableKernel = void (*)(const TableArgs);
+
+template <int kFlav, bool kTableLj, int kCoul>
+TableKernel pick_modifier(int modifier) {
+  switch (modifier) {
+    case kNone: return nb_table_kernel<kFlav, kTableLj, kCoul, kNone>;
+    case kPotShift: return nb_table_kernel<kFlav, kTableLj, kCoul, kPotShift>;
+    case kForceSwitch:
+      return nb_table_kernel<kFlav, kTableLj, kCoul, kForceSwitch>;
+    case kPotSwitch:
+      return nb_table_kernel<kFlav, kTableLj, kCoul, kPotSwitch>;
+    default: return nullptr;
+  }
+}
+
+template <int kFlav, bool kTableLj>
+TableKernel pick_coulomb(int coul, int modifier) {
+  switch (coul) {
+    case kCutoff: return pick_modifier<kFlav, kTableLj, kCutoff>(modifier);
+    case kReactionField:
+      return pick_modifier<kFlav, kTableLj, kReactionField>(modifier);
+    case kPme: return pick_modifier<kFlav, kTableLj, kPme>(modifier);
+    default: return nullptr;
+  }
+}
+
+template <int kFlav>
+TableKernel pick_lj(int lj_table, int coul, int modifier) {
+  return lj_table ? pick_coulomb<kFlav, true>(coul, modifier)
+                  : pick_coulomb<kFlav, false>(coul, modifier);
+}
+
+TableKernel pick_table(int flavour, int lj_table, int coul, int modifier) {
+  switch (flavour) {
+    case kF: return pick_lj<kF>(lj_table, coul, modifier);
+    case kVF: return pick_lj<kVF>(lj_table, coul, modifier);
+    case kVFV: return pick_lj<kVFV>(lj_table, coul, modifier);
+    default: return nullptr;
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
 }
 
 }  // namespace
 
-// layout: 0 K7a (super), 1 K7b (cluster), 2 K7c (v2), 3 the table route;
-// flavour: 0 F, 1 VF, 2 VF+virial (table route only); lj_table: LJ from
-// the (T, T, 2) table (table route only); i0: first i-cluster of the
-// planes (the range [i0, i0 + n_icl)).  Unused pointers may be null.
+// K7a/b/c.  layout: 0 K7a (super), 1 K7b (cluster), 2 K7c (v2); flavour:
+// 0 F, 1 VF.  Unused pointers (shift and jmask but for v2, excl for v2)
+// may be null.
 extern "C" int nb_cluster_launch(
     const float* x, const float* y, const float* z, const float* q,
-    const float* pv, const float* s6, const float* s12, const int* types,
-    const float* nbfp, const int* excl, const int* nbr, const int* cnt,
-    const float* shift, const int* jmask, float* fx, float* fy, float* fz,
-    float* e, const float* box, int T, int K, int W, int i0, int n_icl,
-    int layout,
-    int lj_table, int flavour, int coulomb, int modifier, float epsfac,
-    float beta, float rc2, float rv2, float krf, float crf, float rcinv6,
-    float inv_rc, float rsw, float rvdw, float c2d, float c3d, float cp6,
-    float c2r, float c3r, float cp12, void* stream) {
+    const float* pv, const float* s6, const float* s12, const int* excl,
+    const int* nbr, const int* cnt, const float* shift, const int* jmask,
+    float* fx, float* fy, float* fz, float* e, const float* box, int K,
+    int W, int n_icl, int layout, int flavour, int coulomb, int modifier,
+    float epsfac, float beta, float rc2, float rv2, float krf, float crf,
+    float rcinv6, float inv_rc, float rsw, float rvdw, float c2d, float c3d,
+    float cp6, float c2r, float c3r, float cp12, void* stream) {
   const float* planes[7] = {x, y, z, q, pv, s6, s12};
   Consts c{epsfac, beta, rc2, rv2, krf, crf, rcinv6, inv_rc,
            rsw, rvdw, c2d, c3d, cp6, c2r, c3r, cp12};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_icl <= 0) return 0;
   // K7a's CTA is one supercluster: whole CTAs only
-  if ((layout == kSuper && n_icl % kWarps != 0) || i0 < 0
-      || (lj_table && (T <= 0 || T > kMaxTypes)))
+  if (layout == kSuper && n_icl % kWarps != 0)
     return (int)cudaErrorInvalidValue;
-  if (layout != kTable && (lj_table || flavour == kVFV))
-    return (int)cudaErrorInvalidValue;
-#define ARGS i0, n_icl, st, planes, types, nbfp, T, excl, K, nbr, cnt, W, shift, \
-    jmask, fx, fy, fz, e, box, coulomb, modifier, c
-  switch (layout * 3 + flavour) {
-    case kSuper * 3 + kF: return launch<kSuper, kF, false>(ARGS);
-    case kSuper * 3 + kVF: return launch<kSuper, kVF, false>(ARGS);
-    case kCl * 3 + kF: return launch<kCl, kF, false>(ARGS);
-    case kCl * 3 + kVF: return launch<kCl, kVF, false>(ARGS);
-    case kV2 * 3 + kF: return launch<kV2, kF, false>(ARGS);
-    case kV2 * 3 + kVF: return launch<kV2, kVF, false>(ARGS);
-    case kTable * 3 + kF:
-      return lj_table ? launch<kTable, kF, true>(ARGS)
-                      : launch<kTable, kF, false>(ARGS);
-    case kTable * 3 + kVF:
-      return lj_table ? launch<kTable, kVF, true>(ARGS)
-                      : launch<kTable, kVF, false>(ARGS);
-    case kTable * 3 + kVFV:
-      return lj_table ? launch<kTable, kVFV, true>(ARGS)
-                      : launch<kTable, kVFV, false>(ARGS);
+#define ARGS n_icl, st, planes, excl, K, nbr, cnt, W, shift, jmask, fx, fy, \
+    fz, e, box, coulomb, modifier, c
+  switch (layout * 2 + flavour) {
+    case kSuper * 2 + kF: return launch<kSuper, kF>(ARGS);
+    case kSuper * 2 + kVF: return launch<kSuper, kVF>(ARGS);
+    case kCl * 2 + kF: return launch<kCl, kF>(ARGS);
+    case kCl * 2 + kVF: return launch<kCl, kVF>(ARGS);
+    case kV2 * 2 + kF: return launch<kV2, kF>(ARGS);
+    case kV2 * 2 + kVF: return launch<kV2, kVF>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS
+}
+
+// The table route.  x .. s12, types: plane rows (types with lj_table, s6
+// and s12 without; the other pair may be null), each 16-byte aligned;
+// nbfp (T, T, 2); excl (n_icl * 8, K), nbr (n_icl, W), cnt (n_icl) and the
+// outputs fx/fy/fz (n_icl * 8), e (n_icl, 2 or 5) count from i-cluster i0
+// of the planes; warps: warps per i-cluster (1-16); flavour 0 F, 1 VF,
+// 2 VF+virial.
+extern "C" int nb_table_launch(
+    const float* x, const float* y, const float* z, const float* q,
+    const float* pv, const float* s6, const float* s12, const int* types,
+    const float* nbfp, const int* excl, const int* nbr, const int* cnt,
+    float* fx, float* fy, float* fz, float* e, const float* box, int T,
+    int K, int W, int i0, int n_icl, int warps, int lj_table, int flavour,
+    int coulomb, int modifier, float epsfac, float beta, float rc2,
+    float rv2, float krf, float crf, float rcinv6, float inv_rc, float rsw,
+    float rvdw, float c2d, float c3d, float cp6, float c2r, float c3r,
+    float cp12, void* stream) {
+  if (n_icl <= 0) return 0;
+  if (i0 < 0 || K < 0 || W < 0 || warps < 1 || warps > kMaxWarps
+      || (lj_table && (T <= 0 || T > kMaxTypes || types == nullptr
+                       || nbfp == nullptr))
+      || (!lj_table && (s6 == nullptr || s12 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const TableKernel kern = pick_table(flavour, lj_table, coulomb, modifier);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  const void* rows[7] = {x, y, z, q, pv, lj_table ? (const void*)types : s6,
+                         lj_table ? (const void*)x : s12};
+  for (const void* p : rows)
+    if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
+  const int planes = lj_table ? 6 : 7;
+  const int ne = flavour == kVFV ? 5 : 2;
+  const int ring = warps * kSlots * planes * kCluster + 16;   // + boxes
+  // the cull's limit as ops/nb_cluster.py cull_table_tiles_plain takes it
+  const float rmax2 = fmaxf(rc2, rv2);
+  const float* types_f = reinterpret_cast<const float*>(types);
+  TableArgs a{x, y, z, q, pv, s6, s12,
+              {x, y, z, q, pv, lj_table ? types_f : s6, lj_table ? x : s12,
+               x},
+              types, nbfp, excl, nbr, cnt,
+              fx, fy, fz, e, box, T, K, W, i0, ring / 2, rmax2,
+              rmax2 * (1.0f + kCullMargin),
+              Consts{epsfac, beta, rc2, rv2, krf, crf, rcinv6, inv_rc,
+                     rsw, rvdw, c2d, c3d, cp6, c2r, c3r, cp12}};
+  const size_t smem = sizeof(float)
+      * (ring + (lj_table ? T * T * 2 : 0) + warps * (3 * kCluster + ne))
+      + sizeof(int) * kCluster * K;
+  // above 48 KB (64 atom types at 16 warps) a CTA opts in to more
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kern<<<n_icl, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -318,15 +318,6 @@ class MdRunner:
         if self.mesh is not None:
             from ..parallel.spatial import halo_violations
             halo_bad = halo_violations(nlist, self._dd_grid, cfg.dd_block)
-            prep = self._dd_override.prepare(
-                nlist, prepare_v2u(nlist, nbfp) if layout == "v2u" else None)
-        elif layout == "v2u":
-            prep = prepare_v2u(nlist, nbfp)
-        elif layout == "table":
-            prep = nb_cluster.prepare_table(
-                nlist, nbfp, lj_table_mode(nbfp.cpu().numpy()))
-        else:
-            prep = nb_cluster.PREPARE[layout](nlist, nbfp)
 
         def flag(t):
             return zero if t is None else t
@@ -335,7 +326,21 @@ class MdRunner:
             flag(nlist.n_overflow), flag(nlist.max_count), excl_bad,
             flag(nlist.shift_overflow), flag(nlist.tile_overflow),
             flag(nlist.tile_max), halo_bad.to(zero.device)]).to(torch.int64)
-        return nlist, feplist, prep, dict(zip(FLAGS, flags.cpu().tolist()))
+        fl = dict(zip(FLAGS, flags.cpu().tolist()))
+        # the table packs take the longest row (n_max) read with the flags
+        if self.mesh is not None:
+            prep = (self._dd_override.prepare(nlist, prepare_v2u(nlist, nbfp))
+                    if layout == "v2u" else
+                    self._dd_override.prepare(nlist, cnt_max=fl["n_max"]))
+        elif layout == "v2u":
+            prep = prepare_v2u(nlist, nbfp)
+        elif layout == "table":
+            prep = nb_cluster.prepare_table(
+                nlist, nbfp, lj_table_mode(nbfp.cpu().numpy()),
+                cnt_max=fl["n_max"])
+        else:
+            prep = nb_cluster.PREPARE[layout](nlist, nbfp)
+        return nlist, feplist, prep, fl
 
     def _grow(self, fl: dict) -> bool:
         """Grow the overflowed capacities; True if any did."""

@@ -22,29 +22,45 @@ polynomial (energy flavour) and the pmecorrF fit (force flavour), as the
 TPU kernels are; the table route is the XLA kernel's arithmetic.
 
 Unlike the TPU kernels, which stream pre-gathered j data, the Hopper
-kernel (csrc/nb_cluster.cu) reads the sorted atom planes directly by
+kernels (csrc/nb_cluster.cu) read the sorted atom planes directly by
 cluster id: the per-rebuild pack holds the static planes and the list, the
-per-step input is three coordinate planes.  Dispatch goes by the tensors'
-device: CPU tensors take the plain PyTorch versions (`k7_plain`,
-`cluster_nb_kernel_core`), CUDA tensors launch the kernel or raise.
+per-step input is three coordinate planes.  K7a/b/c run one warp per
+i-cluster, eight per CTA.  The table route runs one CTA per i-cluster of
+`PrepCluster.warps` warps (table_warps, fixed per rebuild from the range's
+i-clusters, the longest row and the card's SM count) that take the row's
+entries in pairs, in turn, stage their j clusters through a per-warp
+cp.async ring, skip (4 i x 8 j) tiles beyond the cut-off
+(cull_table_tiles_plain mirrors the rule) and add the warps' partials in
+a fixed order.  Dispatch goes by the tensors' device: CPU tensors take the
+plain PyTorch versions (`k7_plain`, `cluster_nb_kernel_core`), CUDA
+tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.types import CoulombType, VdwModifier
 from . import cuda_lib
-from .nb_v2u import (R2_FLOOR, TWO_OVER_SQRT_PI, NbConstants, _COUL_CODE,
-                     _check, _erfc_poly, _pmecorr_f_recip)
+from .nb_v2u import (CULL_MARGIN, R2_FLOOR, TWO_OVER_SQRT_PI, NbConstants,
+                     _COUL_CODE, _check, _erfc_poly, _pmecorr_f_recip)
 from .pairlist import CLUSTER, ClusterPairlist
 
 SB = 8                  # i-clusters per supercluster (K7a) and per CTA
 LAYOUTS = ("super", "cluster", "v2", "table")
 MAX_TYPES = 64          # table mode keeps the (T, T, 2) table in shared
-_LAYOUT_CODE = {"super": 0, "cluster": 1, "v2": 2, "table": 3}
+# the table kernel's warps per i-cluster (table_warps): enough for
+# TABLE_WAVES waves of RESIDENT_WARPS warps per SM (the occupancy of a
+# kernel at <= 64 registers), at most MAX_WARPS (csrc/nb_cluster.cu
+# kMaxWarps) and no fewer than MIN_CHUNK entries per warp on the longest row
+TABLE_WAVES = 2
+RESIDENT_WARPS = 32
+MAX_WARPS = 16
+MIN_CHUNK = 8
+_LAYOUT_CODE = {"super": 0, "cluster": 1, "v2": 2}
 _FLAVOUR_CODE = {"F": 0, "VF": 1, "VFV": 2}
 _MOD_CODE = {VdwModifier.NONE: 0, VdwModifier.POTENTIAL_SHIFT: 1,
              VdwModifier.FORCE_SWITCH: 2, VdwModifier.POTENTIAL_SWITCH: 3}
@@ -54,7 +70,7 @@ _MOD_CODE = {VdwModifier.NONE: 0, VdwModifier.POTENTIAL_SHIFT: 1,
 # domain's i-cluster range (PrepCluster.halo), one per domain launch
 launches = {"super": {"F": 0, "VF": 0}, "cluster": {"F": 0, "VF": 0},
             "v2": {"F": 0, "VF": 0}, "table": {"F": 0, "VF": 0, "VFV": 0},
-            "table_dd": {"F": 0, "VF": 0}}
+            "table_dd": {"F": 0, "VF": 0, "VFV": 0}}
 
 
 @dataclasses.dataclass
@@ -82,6 +98,8 @@ class PrepCluster:
     img: Optional[torch.Tensor] = None    # (n_pad, 3) f32 image counts (v2)
     i0: int = 0                   # first i-cluster of the planes
     halo: bool = False            # a domain's pack (counted as table_dd)
+    cnt_max: int = 0              # longest row (table route), per rebuild
+    warps: int = 1                # table kernel: warps per i-cluster
 
     @property
     def n_rows(self) -> int:
@@ -153,16 +171,48 @@ def prepare_cluster(nlist: ClusterPairlist, nbfp) -> PrepCluster:
     return PrepCluster(layout="cluster", nbr=nbr, cnt=cnt, **p)
 
 
-def prepare_table(nlist: ClusterPairlist, nbfp, lj_mode: str
-                  ) -> PrepCluster:
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device; 0 for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def table_warps(n_icl: int, cnt_max: int, n_sm: int) -> int:
+    """Warps per i-cluster of the table kernel: the smallest power of two
+    that gives n_icl i-clusters TABLE_WAVES waves of RESIDENT_WARPS warps
+    on n_sm SMs, at most MAX_WARPS and with at least MIN_CHUNK entries per
+    warp on the longest row (cnt_max).  1 without SMs (the CPU, where the
+    plain version runs)."""
+    if n_icl <= 0 or n_sm <= 0:
+        return 1
+    want = TABLE_WAVES * n_sm * RESIDENT_WARPS
+    w = 1
+    while (w < MAX_WARPS and w * n_icl < want
+           and 2 * w * MIN_CHUNK <= cnt_max):
+        w *= 2
+    return w
+
+
+def prepare_table(nlist: ClusterPairlist, nbfp, lj_mode: str,
+                  cnt_max: Optional[int] = None) -> PrepCluster:
     """The table route's pack: each i-cluster's own list; LJ from the
-    table (lj_mode "table") or per-atom square roots ("geometric")."""
+    table (lj_mode "table") or per-atom square roots ("geometric").
+    cnt_max: the list's longest row (the runner's n_max flag, read with the
+    rebuild's other flags); None takes the row capacity W, so nothing is
+    read back.  It fixes the kernel's warps per i-cluster (table_warps)
+    for this rebuild."""
     if nlist.nbr is None:
         raise ValueError("the table route needs the per-cluster list "
                          "(build_cluster_pairlist with nnbr > 0)")
     p = _planes(nlist, nbfp, lj_table=lj_mode == "table")
     nbr, cnt = _rows(nlist.nbr, nlist.n_clusters, p["n_icl"])
-    return PrepCluster(layout="table", nbr=nbr, cnt=cnt, **p)
+    W = nbr.shape[1]
+    cnt_max = W if cnt_max is None else min(int(cnt_max), W)
+    return PrepCluster(layout="table", nbr=nbr, cnt=cnt, cnt_max=cnt_max,
+                       warps=table_warps(p["n_icl"], cnt_max,
+                                         sm_count(nbfp.device)), **p)
 
 
 def prepare_v2(nlist: ClusterPairlist, nbfp) -> PrepCluster:
@@ -437,6 +487,55 @@ def cluster_nb_kernel_core(xs_pad, qs_pad, pv_pad, excl_pad, nbr_p, box,
     return f, e
 
 
+def cull_table_tiles_plain(planes, box, prep: PrepCluster,
+                           consts: NbConstants, block: int = 256):
+    """Plain mirror of the table kernel's tile cull, for the tests: (n_icl,
+    W, 2) bool, True where the kernel evaluates the (4 i x 8 j) tile of i
+    half h (atoms 4h .. 4h+3 of the i-cluster) and entry e of its row.  The
+    half's box is taken over its atoms with pv != 0, as a centre c and
+    half-widths w (float32, as the kernel); j atom j (pv != 0) votes to
+    keep the tile unless d2 = sum over axes of max(|c - x_j folded by the
+    minimum image| - w, 0)^2 exceeds max(rc2, rv2) (1 + CULL_MARGIN); a
+    non-finite coordinate in the half (any atom) or in the j cluster keeps
+    the tile.  Entries at or past cnt are reported too (the kernel never
+    visits them)."""
+    f32 = np.float32
+    xs = torch.stack([p.to(torch.float32) for p in planes], -1)
+    dev = xs.device
+    n_icl, W = prep.nbr.shape
+    ar = torch.arange(CLUSTER, device=dev)
+    L = torch.diagonal(box).to(torch.float32)
+    ib = 1.0 / L
+    lim = float(f32(max(f32(consts.rc2), f32(consts.rv2)))
+                * (f32(1.0) + f32(CULL_MARGIN)))
+    inf = torch.tensor(float("inf"), device=dev)
+    out = torch.zeros((n_icl, W, 2), dtype=torch.bool, device=dev)
+    for c0, B in _icluster_blocks(n_icl, block):
+        iid = (prep.i0 + c0 + torch.arange(B, device=dev))[:, None] \
+            * CLUSTER + ar
+        xi = xs[iid].reshape(B, 2, 4, 3)
+        ok_i = (prep.pv[iid] != 0).reshape(B, 2, 4, 1)
+        lo = torch.where(ok_i, xi, inf).amin(2)               # (B, 2, 3)
+        hi = torch.where(ok_i, xi, -inf).amax(2)
+        cen, hw = 0.5 * (lo + hi), 0.5 * (hi - lo)
+        h_ok = ok_i.any(2)[..., 0]                            # (B, 2)
+        h_bad = ~torch.isfinite(xi).all(-1).all(-1)           # (B, 2)
+        jid = prep.nbr[c0:c0 + B].long()[..., None] * CLUSTER + ar
+        xj = xs[jid]                                          # (B, W, 8, 3)
+        ok_j = prep.pv[jid] != 0                              # (B, W, 8)
+        g = cen[:, None, :, None, :] - xj[:, :, None, :, :]   # (B, W, 2, 8, 3)
+        g = g - torch.round(g * ib) * L
+        g = torch.clamp(g.abs() - hw[:, None, :, None, :], min=0.0)
+        d2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] \
+            + g[..., 2] * g[..., 2]
+        j_bad = ~torch.isfinite(xj).all(-1)                   # (B, W, 8)
+        vote = (h_bad[:, None, :, None] | j_bad[:, :, None, :]
+                | (h_ok[:, None, :, None] & ok_j[:, :, None, :]
+                   & ~(d2 > lim)))
+        out[c0:c0 + B] = vote.any(-1)
+    return out
+
+
 def table_plain(planes, box, prep: PrepCluster, consts: NbConstants,
                 compute_energy: bool, compute_virial: bool = False):
     """The table route's plain version on the kernel's inputs:
@@ -453,7 +552,11 @@ def table_plain(planes, box, prep: PrepCluster, consts: NbConstants,
 def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
                     compute_energy: bool, compute_virial: bool = False):
     """Launch csrc/nb_cluster.cu on the current stream for the pack's
-    layout; same outputs as its plain version."""
+    layout; same outputs as its plain version.  K7a/b/c: nb_cluster_launch,
+    one warp per i-cluster.  The table route: nb_table_launch, one CTA of
+    prep.warps warps per i-cluster of the range [prep.i0, prep.i0 +
+    n_icl); its ring copies 16-byte rows, so the planes must be 16-byte
+    aligned."""
     layout = prep.layout
     if compute_virial and (layout != "table" or not compute_energy):
         raise ValueError("the virial flavour is the table route's, with "
@@ -463,10 +566,9 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
     f32, i32 = torch.float32, torch.int32
     n_rows, n_icl = prep.n_rows, prep.n_icl
     R, W = prep.nbr.shape
-    for k, t in enumerate(planes):
-        _check(t, f"coordinate plane {k}", f32, (n_rows,))
-    _check(prep.q, "q", f32, (n_rows,))
-    _check(prep.pv, "pv", f32, (n_rows,))
+    rows = dict(zip(("x", "y", "z"), planes), q=prep.q, pv=prep.pv)
+    for name, t in rows.items():
+        _check(t, f"plane {name}", f32, (n_rows,))
     _check(prep.nbr, "nbr", i32, (R, W))
     _check(prep.cnt, "cnt", i32, (R,))
     _check(box, "box", f32, (3, 3))
@@ -480,9 +582,11 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
                 f"in shared memory, the system has {T}")
         _check(prep.types, "types", i32, (n_rows,))
         _check(prep.nbfp, "nbfp", f32, (T, T, 2))
+        rows["types"] = prep.types
     else:
         _check(prep.s6, "s6", f32, (n_rows,))
         _check(prep.s12, "s12", f32, (n_rows,))
+        rows.update(s6=prep.s6, s12=prep.s12)
     if layout == "v2":
         _check(prep.shift, "shift", f32, (R, W, 3))
         _check(prep.jmask, "jmask", i32, (R, W, CLUSTER))
@@ -501,22 +605,43 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
     e = torch.empty((n_icl, 5 if compute_virial else 2), dtype=f32,
                     device=dev)
     c = consts
+    consts16 = (c.epsfac, c.beta, c.rc2, c.rv2, c.krf, c.crf, c.rcinv6,
+                c.inv_rc, c.rsw, c.rvdw, *c.fsw)
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     lib = cuda_lib.library("nb_cluster")
-    code = lib.nb_cluster_launch(
-        *(t.data_ptr() for t in planes), prep.q.data_ptr(),
-        prep.pv.data_ptr(), ptr(prep.s6), ptr(prep.s12), ptr(prep.types),
-        ptr(prep.nbfp), ptr(prep.excl if layout != "v2" else None),
-        prep.nbr.data_ptr(), prep.cnt.data_ptr(), ptr(prep.shift),
-        ptr(prep.jmask), fx.data_ptr(), fy.data_ptr(), fz.data_ptr(),
-        e.data_ptr(), box.data_ptr(), T, K, W, prep.i0, n_icl,
-        _LAYOUT_CODE[layout],
-        int(lj_table), _FLAVOUR_CODE[flavour], _COUL_CODE[c.coulomb],
-        _MOD_CODE[c.modifier], c.epsfac, c.beta, c.rc2, c.rv2, c.krf, c.crf,
-        c.rcinv6, c.inv_rc, c.rsw, c.rvdw, *c.fsw,
-        torch.cuda.current_stream(dev).cuda_stream)
+    if layout == "table":
+        if not 1 <= prep.warps <= MAX_WARPS:
+            raise ValueError(f"warps per i-cluster {prep.warps} not in "
+                             f"1..{MAX_WARPS}")
+        for name, t in rows.items():
+            if t.data_ptr() % 16:
+                raise ValueError(f"plane {name}: the table kernel copies "
+                                 "16-byte rows; its data is not 16-byte "
+                                 "aligned")
+        code = lib.nb_table_launch(
+            *(t.data_ptr() for t in planes), prep.q.data_ptr(),
+            prep.pv.data_ptr(), ptr(prep.s6), ptr(prep.s12),
+            ptr(prep.types), ptr(prep.nbfp), prep.excl.data_ptr(),
+            prep.nbr.data_ptr(), prep.cnt.data_ptr(), fx.data_ptr(),
+            fy.data_ptr(), fz.data_ptr(), e.data_ptr(), box.data_ptr(), T,
+            K, W, prep.i0, n_icl, prep.warps, int(lj_table),
+            _FLAVOUR_CODE[flavour], _COUL_CODE[c.coulomb],
+            _MOD_CODE[c.modifier], *consts16, stream)
+    else:
+        if prep.i0 != 0:
+            raise ValueError(f"the {layout} layout runs whole planes (i0 0)")
+        code = lib.nb_cluster_launch(
+            *(t.data_ptr() for t in planes), prep.q.data_ptr(),
+            prep.pv.data_ptr(), prep.s6.data_ptr(), prep.s12.data_ptr(),
+            ptr(prep.excl if layout != "v2" else None),
+            prep.nbr.data_ptr(), prep.cnt.data_ptr(), ptr(prep.shift),
+            ptr(prep.jmask), fx.data_ptr(), fy.data_ptr(), fz.data_ptr(),
+            e.data_ptr(), box.data_ptr(), K, W, n_icl, _LAYOUT_CODE[layout],
+            _FLAVOUR_CODE[flavour], _COUL_CODE[c.coulomb],
+            _MOD_CODE[c.modifier], *consts16, stream)
     cuda_lib.check(code, f"nb_cluster ({layout})")
     launches["table_dd" if prep.halo else layout][flavour] += 1
     return fx, fy, fz, e

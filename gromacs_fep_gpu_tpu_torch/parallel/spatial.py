@@ -297,10 +297,13 @@ def make_spatial_cluster_force(system: System, params: MdParams,
 
 
 def _range_pack(prep: nb_cluster.PrepCluster, c0: int, c1: int, dev):
-    """The table pack of i-clusters [c0, c1) on the full plane, on dev."""
+    """The table pack of i-clusters [c0, c1) on the full plane, on dev,
+    with the table kernel's warps per i-cluster for that range."""
     rows = slice(c0 * CLUSTER, c1 * CLUSTER)
     return dataclasses.replace(
         prep, i0=c0, n_icl=c1 - c0, halo=True,
+        warps=nb_cluster.table_warps(c1 - c0, prep.cnt_max,
+                                     nb_cluster.sm_count(dev)),
         nbr=prep.nbr[c0:c1].contiguous().to(dev),
         cnt=prep.cnt[c0:c1].contiguous().to(dev),
         excl=prep.excl[rows].contiguous().to(dev),
@@ -311,15 +314,18 @@ def _range_pack(prep: nb_cluster.PrepCluster, c0: int, c1: int, dev):
 
 def make_halo_cluster_force(system: System, params: MdParams,
                             mesh: DeviceMesh, beta, nlist: ClusterPairlist,
-                            block: int = 8, grid=None):
+                            block: int = 8, grid=None,
+                            cnt_max: Optional[int] = None):
     """halo_force(xs_sorted, box, need_energy=True) -> (f_sorted, e_coul,
     e_lj) on one rebuild's list.  xs_sorted: (c_pad * 8, 3) sorted padded
     positions (sort_state_arrays).  Each domain gets its halo neighbours'
     strips (HaloGrid.sweep) and runs the table kernel on its own i-cluster
     range of its cat plane; the static data (the own rows of the list and
     of the exclusions remapped to cat ids, the cat rows of charges, masks
-    and types) is packed here, once per rebuild.  Requires
-    halo_violations(nlist, grid, block) == 0."""
+    and types) is packed here, once per rebuild, with the table kernel's
+    warps per i-cluster (nb_cluster.table_warps of the domain's i-clusters,
+    cnt_max, the list's longest row, or W when None, and its card's SM
+    count).  Requires halo_violations(nlist, grid, block) == 0."""
     from ..ops.cluster_nb import lj_table_mode
     halo = HaloGrid(grid if grid is not None else mesh.shape[SPATIAL_AXIS])
     _check_mesh(mesh, halo)
@@ -353,6 +359,8 @@ def make_halo_cluster_force(system: System, params: MdParams,
                                         (0, 0, 0, c_pad - C))
     nbr_p = torch.nn.functional.pad(nlist.nbr, (0, 0, 0, c_pad - C),
                                     value=c_pad)
+    W = nbr_p.shape[1]
+    cnt_max = W if cnt_max is None else min(int(cnt_max), W)
 
     packs = []
     for s, dev in enumerate(devices):
@@ -376,7 +384,9 @@ def make_halo_cluster_force(system: System, params: MdParams,
             .to(dev),
             excl=excl_cat.to(torch.int32).contiguous().to(dev),
             nbfp=(system.nbfp.to(torch.float32).contiguous().to(dev)
-                  if lj_table else None), **cat))
+                  if lj_table else None), cnt_max=cnt_max,
+            warps=nb_cluster.table_warps(ps, cnt_max,
+                                         nb_cluster.sm_count(dev)), **cat))
 
     def planes_of(xs):
         return halo.cat_planes(xs, ps, devices)
@@ -406,14 +416,18 @@ def make_dd_nb_override(system: System, params: MdParams, mesh: DeviceMesh,
                         beta, block: int = 8, grid=None):
     """nb_kernel_override of make_cluster_force_fn for the table route under
     DD: nb(x, box, nlist, prep, need_energy) -> (f_sorted, e_coul, e_lj).
-    prep is nb.prepare(nlist) of the same rebuild (make_halo_cluster_force),
-    or None (packed on the fly).  Requires the list built with the matching
-    sort and halo_violations == 0 (the runner checks each rebuild)."""
+    prep is nb.prepare(nlist, cnt_max=n_max) of the same rebuild
+    (make_halo_cluster_force; n_max the list's longest row, which fixes the
+    kernel's warps per i-cluster), or None (packed on the fly).  Requires
+    the list built with the matching sort and halo_violations == 0 (the
+    runner checks each rebuild)."""
     grid = grid if grid is not None else mesh.shape[SPATIAL_AXIS]
 
-    def prepare(nlist: ClusterPairlist, prep=None):
+    def prepare(nlist: ClusterPairlist, prep=None,
+                cnt_max: Optional[int] = None):
         return make_halo_cluster_force(system, params, mesh, beta, nlist,
-                                       block=block, grid=grid)
+                                       block=block, grid=grid,
+                                       cnt_max=cnt_max)
 
     def nb(x, box, nlist: ClusterPairlist, prep=None,
            need_energy: bool = True):

@@ -37,6 +37,7 @@ from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
 from gromacs_fep_gpu_tpu_torch.ops import pairlist as tpl
 from gromacs_fep_gpu_tpu_torch.ops.nb_v2u import NbConstants
 
+import chip_smoke
 from torch_bridge import (jax_cluster_list, md_params, port_cluster_list,
                           t, to_port)
 
@@ -202,20 +203,110 @@ def test_k7_plain_matches_jax(lists, geometric_reference, layout, energy,
 
 def test_cuda_tensor_never_takes_plain_path(lists, monkeypatch):
     """A non-CPU tensor reaches the kernel wrapper (which builds and
-    launches, or raises), never a plain version."""
+    launches, or raises), never a plain version: a K7 pack and a table
+    pack (the table kernel's launch with its warps per i-cluster)."""
     _, _, ts, _, _, tl, _, _ = lists
-    prep = nb_cluster.prepare_cluster(tl, ts.nbfp)
     called = []
-    for name in ("k7_plain", "table_plain"):
+    for name in ("k7_plain", "table_plain", "cluster_nb_kernel_core"):
         monkeypatch.setattr(nb_cluster, name,
                             lambda *a, **k: called.append(1))
     monkeypatch.setattr(nb_cluster, "nb_cluster_cuda",
                         lambda *a, **k: (_ for _ in ()).throw(
                             RuntimeError("cuda path")))
     fake = torch.empty((8,), device="meta")
-    with pytest.raises(RuntimeError, match="cuda path"):
-        nb_cluster.nb_cluster_forces([fake] * 3, None, prep, None, True)
+    for prep in (nb_cluster.prepare_cluster(tl, ts.nbfp),
+                 nb_cluster.prepare_table(tl, ts.nbfp, "table")):
+        for energy, virial in ((False, False), (True, False), (True, True)):
+            if virial and prep.layout != "table":
+                continue
+            with pytest.raises(RuntimeError, match="cuda path"):
+                nb_cluster.nb_cluster_forces([fake] * 3, None, prep, None,
+                                             energy, virial)
     assert not called
+
+
+@pytest.mark.parametrize("n_icl, cnt_max, n_sm, want", [
+    (1544, 309, 132, 8),      # the 12,290-atom CHARMM system
+    (200, 917, 132, 16),      # one domain of the (2, 2, 2) DD i-range
+    (200, 20, 132, 2),        # capped: at least 8 entries per warp
+    (20_000, 300, 132, 1),    # two waves already
+    (0, 0, 132, 1),
+    (200, 917, 0, 1)])        # the CPU
+def test_table_warps(n_icl, cnt_max, n_sm, want):
+    assert nb_cluster.table_warps(n_icl, cnt_max, n_sm) == want
+
+
+@pytest.fixture(scope="module")
+def table_frame(lists):
+    """The table pack of JAX's per-cluster list, its planes of the frame
+    and the run's constants."""
+    ts, tst, jl = lists[2], lists[3], lists[4]
+    nlist = port_cluster_list(jl, jl.n_clusters)
+    prep = nb_cluster.prepare_table(nlist, ts.nbfp, "table")
+    planes = nb_cluster.gather_planes(tst.x, tst.box, nlist, prep)
+    consts = NbConstants.from_params(
+        md_params(ttypes, coulomb="pme", **CUT), 5.0)
+    return nlist, prep, planes, tst.box, consts
+
+
+def test_table_pack_longest_row(lists, table_frame):
+    """The pack's longest row is the given one, or the capacity W."""
+    ts = lists[2]
+    nlist, prep = table_frame[:2]
+    assert prep.cnt_max == prep.nbr.shape[1]
+    assert nb_cluster.prepare_table(
+        nlist, ts.nbfp, "table",
+        cnt_max=int(nlist.max_count)).cnt_max == int(prep.cnt.max())
+
+
+def test_cull_table_tiles_plain_never_skips_a_pair_in_the_cutoff(
+        table_frame):
+    """The plain mirror of the table kernel's tile cull on JAX's list and
+    frame: no skipped tile holds a pair in the cut-off, and some tiles are
+    skipped."""
+    _, prep, planes, box, consts = table_frame
+    bad, keep, live = chip_smoke.table_culled_close_pairs(planes, box, prep,
+                                                          consts)
+    assert bad == 0
+    assert 0.0 < float(keep[live].float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("periodic", [False, True],
+                         ids=["one-image", "periodic"])
+@pytest.mark.parametrize("sign", [-1.0, 1.0], ids=["inside", "outside"])
+def test_cull_table_tiles_plain_keeps_a_boundary_pair(table_frame, periodic,
+                                                      sign):
+    """A pair placed on its tile's boundary at r^2 = rmax2 (1 -+ 1e-6),
+    also across the periodic boundary, keeps its tile (inside: it must;
+    outside: the margin keeps it), and no skipped tile holds a pair in the
+    cut-off."""
+    _, prep, planes, box, consts = table_frame
+    rmax2 = max(consts.rc2, consts.rv2)
+    L = torch.diagonal(box)
+    moved, (cl, e, h, a, b) = chip_smoke.place_table_pair(
+        planes, box, prep, rmax2, sign, periodic=periodic)
+    bad, keep, _ = chip_smoke.table_culled_close_pairs(
+        moved, box, prep, consts)
+    r2 = chip_smoke._min_image_r2(torch.stack(moved), a, b, L)
+    assert sign * (r2 - np.float32(rmax2)) > 0.0
+    assert abs(r2 / rmax2 - (1.0 + sign * 1e-6)) < 2e-6
+    assert abs(float(moved[0][b] - planes[0][b])) > (
+        1.0 if periodic else 0.0)
+    assert bad == 0 and bool(keep[cl, e, h])
+
+
+def test_cull_table_tiles_plain_keeps_a_nan_atoms_tiles(table_frame):
+    """A NaN coordinate keeps every tile of its i half and every entry that
+    lists its cluster."""
+    _, prep, planes, box, consts = table_frame
+    row = int(prep.nbr[0, 3]) * 8 + 5
+    nan = [p.clone() for p in planes]
+    nan[1][row] = float("nan")
+    keep = nb_cluster.cull_table_tiles_plain(nan, box, prep, consts)
+    if row < prep.n_icl * 8:
+        assert bool(keep[row // 8, :, (row % 8) // 4].all())
+    hit = prep.nbr == row // 8
+    assert bool(hit.any()) and bool(keep[hit].all())
 
 
 def _port_params(**kw):

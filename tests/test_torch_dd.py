@@ -282,6 +282,99 @@ def test_table_halo_route_matches_jax(grid):
     assert rel(ec_t, ec_j) <= E_REL and rel(el_t, el_j) <= E_REL
 
 
+DD_TABLE_PACKS = tuple(f"domain{s}" for s in range(8)) + ("range",)
+
+
+@functools.lru_cache(maxsize=None)
+def dd_table_packs():
+    """The table packs of (2, 2, 2) on the DD-sorted solvated box at
+    dd_block 4, each with its planes: the eight domains' i-cluster ranges
+    of their cat planes (make_halo_cluster_force), then the upper half of
+    the replicated route's pack (_range_pack); and the run's constants."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
+    from gromacs_fep_gpu_tpu_torch.ops.nb_v2u import NbConstants
+    _, _, (ts, tst) = solvated()
+    tp = md_params(ttypes, **PME_KW)
+    consts = NbConstants.from_params(tp, get_beta(tp))
+    grid, block = (2, 2, 2), 4
+    _, tl = dd_list()
+    _, c_pad = tsp.halo_shard_geometry(tl, grid, block)
+    thalo = tsp.make_halo_cluster_force(ts, tp, cpu_mesh(), get_beta(tp),
+                                        tl, block=block, grid=grid)
+    cats = thalo.planes(tsp.sort_state_arrays(tst.x, tl, c_pad))
+    prep = nb_cluster.prepare_table(tl, ts.nbfp, "geometric")
+    planes = nb_cluster.gather_planes(tst.x, tst.box, tl, prep)
+    c0 = prep.n_icl // 2
+    cases = [(list(c), p) for c, p in zip(cats, thalo.packs)]
+    cases.append((planes, tsp._range_pack(prep, c0, prep.n_icl, "cpu")))
+    return dict(zip(DD_TABLE_PACKS, cases)), tst.box, consts
+
+
+@pytest.mark.parametrize("name", DD_TABLE_PACKS)
+def test_table_cull_on_a_dd_pack(name):
+    """The table kernel's tile cull (its plain mirror) on a domain's
+    i-cluster range of its cat plane, and on a range pack of the replicated
+    route: the pack starts past cluster 0 of its planes (i0 > 0), no
+    skipped tile holds a pair in the cut-off, and a pack with live entries
+    skips some tiles."""
+    import chip_smoke
+    packs, box, consts = dd_table_packs()
+    planes, pack = packs[name]
+    assert pack.i0 > 0 and pack.halo
+    bad, keep, live = chip_smoke.table_culled_close_pairs(planes, box, pack,
+                                                          consts)
+    assert bad == 0
+    if bool(live.any()):        # a domain may own only padding
+        assert 0.0 < float(keep[live].float().mean()) < 1.0
+
+
+def test_table_dd_packs_have_live_entries():
+    """At most one of the table packs that the cull is held on owns only
+    padding (no live entry)."""
+    packs = dd_table_packs()[0]
+    n_live = sum(int(p.cnt.max()) > 0 for _, p in packs.values())
+    assert n_live >= len(packs) - 1
+
+
+@pytest.mark.parametrize("cnt_max", [None, 7, 10_000],
+                         ids=["capacity", "given", "past-capacity"])
+def test_halo_packs_take_the_longest_row(cnt_max):
+    """make_halo_cluster_force gives every domain's table pack the list's
+    longest row (the given one capped at the row capacity W, or W when
+    None) and the table kernel's warps per i-cluster for it: 1 on the CPU,
+    which has no SMs."""
+    _, _, (ts, tst) = solvated()
+    tp = md_params(ttypes, **PME_KW)
+    _, tl = dd_list()
+    thalo = tsp.make_halo_cluster_force(ts, tp, cpu_mesh(), get_beta(tp),
+                                        tl, block=4, grid=(2, 2, 2),
+                                        cnt_max=cnt_max)
+    W = tl.nbr.shape[1]
+    want = W if cnt_max is None else min(cnt_max, W)
+    assert [p.cnt_max for p in thalo.packs] == [want] * 8
+    assert [p.warps for p in thalo.packs] == [1] * 8
+
+
+@pytest.mark.parametrize("dd", [False, True], ids=["one-domain", "dd"])
+def test_runner_table_packs_take_the_rebuilds_longest_row(dd):
+    """The runner's table route hands each rebuild's n_max flag (the
+    list's longest row, read back with the other flags) to its packs: the
+    whole-system pack, or every domain's pack under DD."""
+    _, _, (ts, tst) = solvated()
+    mesh = dict(mesh=cpu_mesh(), dd_block=4, dd_grid=(2, 2, 2)) if dd \
+        else {}
+    r = MdRunner(ts, _fep_params(), RunnerConfig(layout="table", nnbr=96,
+                                                 **mesh))
+    assert r.layout == "table"
+    nlist, _, prep, fl = r.rebuild(tst)
+    assert fl["n_max"] == int(nlist.max_count) > 0
+    packs = prep.packs if dd else [prep]
+    assert [(p.cnt_max, p.warps) for p in packs] == \
+        [(fl["n_max"], 1)] * len(packs)
+    if not dd:
+        assert int(prep.cnt.max()) == fl["n_max"]
+
+
 def test_spatial_cluster_force_matches_jax():
     """Replicated positions, the i-cluster block range split over 8
     domains (make_spatial_cluster_force), against JAX's."""
