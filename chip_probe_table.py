@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Take the table kernel's time apart on one GPU (csrc/nb_cluster.cu,
-nb_table_kernel: the table route and its DD i-range).
+"""Take the per-cluster kernel's time apart on one GPU (csrc/nb_cluster.cu,
+nb_table_kernel: the table route and its DD i-range, or with --k7 the
+K7a/b/c layouts on the same body).
 
-    python3 chip_probe_table.py [--production]
+    python3 chip_probe_table.py [--production] [--k7]
 
 At the CHARMM path's 12,290-atom frame (chip_smoke.py's Lorentz-Berthelot
 system, force-switch 1.0-1.2 nm, PME rc 1.2; the lattice start, or with
@@ -23,8 +24,16 @@ Each variant is held against the plain version (forces rel 5e-4 of max
 domain launch, on the (2, 2, 2) DD i-range; the repository's kernel is
 also timed at every power of two of warps per i-cluster beside the one the
 wrapper takes (table_warps).  It prints the tiles the cull keeps
-(cull_table_tiles_plain) and the card's name and power limit.  Needs one
-card; exits non-zero without one.
+(cull_table_tiles_plain) and the card's name and power limit.
+
+With --k7, at the main path's 12,290-atom frame (the lattice start, or with
+--production the frame after chip_smoke.py's main-path equilibration),
+each K7 layout (super, cluster, v2; geometric LJ, potential shift, PME rc
+0.9) is held against k7_plain and timed in F and VF as built from the
+repository's source, from the no_cull variant and from an erfcf variant
+(the energy flavours with erfcf in place of the erfc polynomial,
+kPolyErfc false), and at every power of two of warps per i-cluster.
+Needs one card; exits non-zero without one.
 """
 import ctypes
 import dataclasses
@@ -36,6 +45,7 @@ import torch
 import chip_smoke as cs
 
 FIT_F = "constexpr bool kFitF = true;"
+POLY = "constexpr bool kPolyErfc = true;"
 SLOTS = "constexpr int kSlots = 8;"
 MAX_WARPS = "constexpr int kMaxWarps = 16;"
 BOUNDS = "__launch_bounds__(kTableThreads, 2)"
@@ -47,18 +57,18 @@ CHUNKS = """  const int chunk = 2 * ((n_pairs + nwarps - 1) / nwarps);
   const int t_end = (max(0, min(chunk, n - warp * chunk)) + 1) & ~1;
   auto ent = [&](int t) { return warp * chunk + t; };
 """
-CULL = "(h_ok && sc[32 + ja] != 0.f && !(d2 > a.lim))"
+CULL = "(j_in && !(d2 > a.lim))"
 WARPS = (1, 2, 4, 8, 16)
 
 
 def variants(src):
-    """The repository's source and the two variants, by name."""
-    if any(src.count(k) != 1 for k in (FIT_F, CULL, SLOTS, MAX_WARPS,
+    """The repository's source and its variants, by name."""
+    if any(src.count(k) != 1 for k in (FIT_F, POLY, CULL, SLOTS, MAX_WARPS,
                                         BOUNDS, DEAL)):
         raise AssertionError("csrc/nb_cluster.cu no longer has the kFitF "
-                             "switch, the cull, kSlots, kMaxWarps, the "
-                             "launch bounds or the deal of entry pairs this "
-                             "probe edits")
+                             "or kPolyErfc switch, the cull, kSlots, "
+                             "kMaxWarps, the launch bounds or the deal of "
+                             "entry pairs this probe edits")
     return {
         "repo": src,
         "exact_f": src.replace(FIT_F, FIT_F.replace("true", "false")),
@@ -69,6 +79,7 @@ def variants(src):
         "chunks": src.replace(DEAL, CHUNKS),
         "max32": src.replace(MAX_WARPS, MAX_WARPS.replace("16", "32"))
         .replace(BOUNDS, BOUNDS.replace("2)", "1)")),
+        "erfcf": src.replace(POLY, POLY.replace("true", "false")),
     }
 
 
@@ -140,6 +151,77 @@ def frame(production):
     return system, params, state
 
 
+def k7_frame(production):
+    """The main path's system, parameters and frame to probe K7 on."""
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    system, state = solvation_system(n_side=cs.N_SIDE, seed=0,
+                                     device="cuda")
+    state = cs._decoupled(state)
+    if production:
+        eq = MdRunner(system, cs._params(mts=False).replace(
+            dt=0.0005, tau_t=0.1, nsttcouple=1),
+            RunnerConfig(super_nnbr=448, fep_max_nbr=512))
+        state, _, _, _ = cs._drive(eq, state, cs.EQ_STEPS, "equilibration")
+    return system, cs._params(mts=True), state
+
+
+def k7_main(smi, production, src):
+    """The --k7 probe: each K7 layout as built, without the cull, with
+    erfcf in VF, and at 1-16 warps per i-cluster."""
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    from gromacs_fep_gpu_tpu_torch.ops import cuda_lib, nb_cluster
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
+    from gromacs_fep_gpu_tpu_torch.ops.nb_v2u import NbConstants
+    libs = build({k: v for k, v in variants(src).items()
+                  if k in ("repo", "no_cull", "erfcf")})
+    cs.phase_build()
+    timer = cs.DeviceTimer()
+    system, params, state = k7_frame(production)
+    consts = NbConstants.from_params(params, get_beta(params))
+    box = state.box
+    what = "production frame" if production else "lattice start"
+    for layout in cs.K7_LAYOUTS:
+        runner = MdRunner(system, params, RunnerConfig(
+            layout=layout, super_nnbr=448, fep_max_nbr=512))
+        nlist, _, prep, _ = runner.lists(state)
+        planes = nb_cluster.gather_planes(state.x, box, nlist, prep)
+        kept, bad = cs._table_kept(planes, box, prep, consts)
+        R, W = prep.nbr.shape
+        live = int(prep.cnt.sum()) * (8 if layout == "super" else 1)
+        print(f"{what}, {layout}: {R} rows x {W}, {live} entries visited, "
+              f"longest row {prep.cnt_max}, warps {prep.warps}, tiles kept "
+              f"{kept:.4f} (pairs in the cut-off in skipped tiles {bad})",
+              flush=True)
+
+        def kern(e, pr=prep):
+            return nb_cluster.nb_cluster_cuda(planes, box, pr, consts, e)
+
+        def plain(e):
+            return nb_cluster.k7_plain(planes, box, prep, consts, e)
+        for name, lib in libs.items():
+            cuda_lib._libs["nb_cluster"] = lib
+            for e, flav in ((False, "F"), (True, "VF")):
+                if name == "erfcf" and not e:
+                    continue
+                f_rel, e_rel = check(f"{layout} {name} {flav}",
+                                     lambda: kern(e), lambda: plain(e), e)
+                ms = timer.ms(lambda: kern(e))
+                print(f"{layout:7s} {name:8s} {flav:2s}: {ms:.5f} ms (F rel "
+                      f"{f_rel:.2e}, E rel {e_rel:.2e})", flush=True)
+        cuda_lib._libs["nb_cluster"] = libs["repo"]
+        for w in WARPS:
+            pw = dataclasses.replace(prep, warps=w)
+            check(f"{layout} warps {w}", lambda: kern(False, pw),
+                  lambda: plain(False), False)
+            ms = timer.ms(lambda: kern(False, pw))
+            mark = "  <- table_warps" if w == prep.warps else ""
+            print(f"{layout:7s} repo     F  at {w:2d} warps per i-cluster: "
+                  f"{ms:.5f} ms{mark}", flush=True)
+    print(f"{smi}")
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_probe_table: no CUDA device", file=sys.stderr)
@@ -153,7 +235,9 @@ def main():
     print(f"gpu: {smi}", flush=True)
     production = "--production" in sys.argv[1:]
     src = (cuda_lib.SRC_DIR / "nb_cluster.cu").read_text()
-    libs = build(variants(src))
+    if "--k7" in sys.argv[1:]:
+        return k7_main(smi, production, src)
+    libs = build({k: v for k, v in variants(src).items() if k != "erfcf"})
     cs.phase_build()
     timer = cs.DeviceTimer()
     system, params, state = frame(production)

@@ -92,7 +92,14 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    warps, an i-range pack with i0 > 0, and every vdW modifier with every
    Coulomb type in both LJ modes at 650 atoms;
 13. each of the layouts "super", "cluster" and "v2" drives 100 steps of
-   the main path from its production state, launches checked;
+   the main path from its production state, launches checked; then
+   K7a/b/c's edge cases (phase_k7_edges) against k7_plain in F and VF,
+   each launch twice and bit-identical, NaN exactly where the plain
+   version has it: the main path's frame (tiles kept, warps), a pair on
+   its tile's boundary in one image and across the periodic boundary
+   (K7c: across a baked shift), a NaN atom, skewed and empty rows, for
+   K7a a union row holding a j cluster in range of only one of its 8
+   i-clusters, and cut-off, reaction field and PME at 1,538 atoms;
 14. domain decomposition (DD) on a (2, 2, 2) grid of eight domains, all
    on the first card (the placement is printed; with more than one card
    the force check is repeated with the domains spread round-robin over
@@ -444,16 +451,17 @@ def phase_build():
                  f"{m.group(1)} registers, "
                  f"{smem.group(1) if smem else 0} bytes of shared memory")
             fn = None
-    # the table kernel: registers and spills of each of its 72
-    # instantiations, one line per flavour and LJ mode; its shared memory is
-    # dynamic (table_smem_bytes)
+    # the per-cluster kernel: registers and spills of each of its 90
+    # instantiations, one line per layout, flavour and LJ mode; its shared
+    # memory is dynamic (table_smem_bytes)
     mods = ("none", "pot-shift", "force-switch", "pot-switch")
+    layouts = ("table", "super", "cluster", "v2")
     regs, spills, fn, spill = {}, {}, None, 0
     for line in cuda_lib.build_logs.get("nb_cluster", "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            fn = re.search(r"nb_table_kernelILi(\d)ELb(\d)ELi(\d)ELi(\d)E",
-                           m.group(1))
+            fn = re.search(r"nb_table_kernelILi(\d)ELi(\d)ELb(\d)ELi(\d)"
+                           r"ELi(\d)E", m.group(1))
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -462,26 +470,29 @@ def phase_build():
             spill = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
-            f, lj, c, mod = (int(g) for g in fn.groups())
-            regs.setdefault((f, lj), []).append(
+            lay, f, lj, c, mod = (int(g) for g in fn.groups())
+            regs.setdefault((lay, f, lj), []).append(
                 f"{coul[str(c)]}/{mods[mod]} {m.group(1)}")
-            spills[(f, lj)] = spills.get((f, lj), 0) + spill
+            spills[(lay, f, lj)] = spills.get((lay, f, lj), 0) + spill
             fn = None
-    for (f, lj), r in sorted(regs.items()):
+    for (lay, f, lj), r in sorted(regs.items()):
         flav = ("F", "VF", "VF+virial")[f]
-        planes = 6 if lj else 7
-        _say(f"  nb_table {flav:9s} {'LJ table ' if lj else 'sqrt c6/c12'}"
-             f": registers {', '.join(r)}; {spills[(f, lj)]} bytes of "
-             f"spills; shared memory (dynamic) "
-             f"{table_smem_bytes(5 if lj else 0, 4, 8, planes, f)} B at 8 "
-             f"warps, {table_smem_bytes(5 if lj else 0, 4, 16, planes, f)}"
-             f" B at 16 (T 5, K 4)")
+        planes = 8 if lay == 3 else 6 if lj else 7
+        T, K = (5 if lj else 0), (0 if lay == 3 else 4)
+        _say(f"  nb_table {layouts[lay]:7s} {flav:9s} "
+             f"{'LJ table ' if lj else 'sqrt c6/c12'}: registers "
+             f"{', '.join(r)}; {spills[(lay, f, lj)]} bytes of spills; "
+             f"shared memory (dynamic) "
+             f"{table_smem_bytes(T, K, 8, planes, f)} B at 8 warps, "
+             f"{table_smem_bytes(T, K, 16, planes, f)} B at 16 (T {T}, K "
+             f"{K})")
 
 
 def table_smem_bytes(T, K, warps, planes, flavour):
-    """Dynamic shared memory of one table-kernel CTA (nb_table_launch):
-    each warp's eight ring slots and reduction row, the i halves' boxes, the
-    LJ table, the i-cluster's exclusion ids."""
+    """Dynamic shared memory of one per-cluster kernel CTA
+    (nb_table_launch): each warp's eight ring slots of `planes` planes (8
+    for K7c) and reduction row, the i halves' boxes, the LJ table, the
+    i-cluster's exclusion ids."""
     ne = 5 if flavour == 2 else 2
     return (4 * (warps * (8 * planes * 8 + 24 + ne) + 16 + T * T * 2)
             + 4 * 8 * K)
@@ -1025,44 +1036,74 @@ def place_boundary_pair(plane, box, prep, rmax2, sign, first_block=0,
     raise AssertionError("no live tile with a masked-in LJ pair to place")
 
 
-def _min_image_r2(p, a, b, L):
-    """float32 r^2 of plane rows a and b of p (3, rows) under the
-    rectangular minimum image, as the table route's plain version."""
-    d = p[:, a] - p[:, b]
-    d = d - torch.round(d / L) * L
+def _fold(d, L, layout):
+    """d under the rectangular minimum image of the layout's plain
+    version: round(d / L) on the table route, floor(d / L + 0.5) on K7a/b
+    (the TPU kernels' image)."""
+    if layout == "table":
+        return d - torch.round(d / L) * L
+    return d - torch.floor(d * (1.0 / L) + 0.5) * L
+
+
+def _pair_r2(p, a, b, L, layout="table", sh=None):
+    """float32 r^2 of plane rows a and b of p (3, rows) as the layout's
+    plain version computes it: under its minimum image, or (K7c) with b at
+    its entry's shift sh (3,) in nm and no image."""
+    if sh is not None:
+        d = p[:, a] - (p[:, b] + sh)
+    else:
+        d = _fold(p[:, a] - p[:, b], L, layout)
     return float(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+
+
+def _row_of(prep, ci):
+    """The list row of i-clusters ci (K7a: their supercluster's)."""
+    return ci // 8 if prep.layout == "super" else ci
 
 
 def place_table_pair(planes, box, prep, rmax2, sign, periodic=False,
                      first=0):
-    """Move one j cluster of a live entry of the table pack so that a pair
-    of atoms that take the pair math (pv != 0) sits on its tile's boundary
-    at r^2 = rmax2 (1 + sign 1e-6): the cluster is translated along x until
-    its lowest-x such atom B lies r beyond the i half's highest-x such atom
-    A, and B takes A's y and z, so B's distance to the half's box is the
+    """Move one j cluster of a live entry of a per-cluster pack (any
+    layout) so that a pair of atoms that take the pair math (pv != 0)
+    sits on its tile's boundary at r^2 = rmax2 (1 + sign 1e-6): the
+    cluster is translated along x until its lowest-x such atom B (K7c: at
+    the entry's shift) lies r beyond the i half's highest-x such atom A,
+    and B takes A's y and z, so B's distance to the half's box is the
     pair's; B is then nudged by float32 steps until the pair's r^2 (as the
     plain version computes it) lies on the intended side of rmax2.
-    periodic: the cluster also moves by -L_x, so the pair straddles the
-    periodic boundary (same minimum image).  The entry is the first, from
+    periodic: the pair straddles the periodic boundary (the cluster also
+    moves by -L_x; K7c: the entry is one with a nonzero x shift, and with
+    periodic False one with no shift).  The entry is the first, from
     i-cluster `first` on, whose j cluster is not the i-cluster.  Returns
     (the moved planes on their device, (cl, e, h, a, b)): i-cluster of the
-    range, entry, i half, A's and B's plane rows."""
+    range, entry of its row, i half, A's and B's plane rows."""
     cpu = torch.device("cpu")
     p = torch.stack([q.to(cpu) for q in planes])
     nbr, cnt, pv = prep.nbr.to(cpu), prep.cnt.to(cpu), prep.pv.to(cpu)
+    v2 = prep.layout == "v2"
+    shift = prep.shift.to(cpu) if v2 else None
     L = torch.diagonal(box).to(cpu)
     lim = np.float32(rmax2)
     r = float(np.sqrt(np.float64(rmax2) * (1.0 + sign * 1e-6)))
     ar4, ar8 = torch.arange(4), torch.arange(8)
     for cl in range(first, prep.n_icl):
         ci = prep.i0 + cl
-        for e in range(int(cnt[cl])):
-            jc = int(nbr[cl, e])
+        row = _row_of(prep, cl)
+        for e in range(int(cnt[row])):
+            jc = int(nbr[row, e])
             rows_j = jc * 8 + ar8
             ok_j = pv[rows_j] > 0
             if jc == ci or not bool(ok_j.any()):
                 continue
-            b = int(rows_j[ok_j][torch.argmin(p[0, rows_j][ok_j])])
+            sh = None
+            if v2:
+                across = (bool(shift[row, e, 0] != 0) if periodic
+                          else not bool(shift[row, e].any()))
+                if not across:
+                    continue
+                sh = shift[row, e, :3] * L
+            xs_j = p[0, rows_j] + (0.0 if sh is None else sh[0])
+            b = int(rows_j[ok_j][torch.argmin(xs_j[ok_j])])
             for h in range(2):
                 rows_i = ci * 8 + 4 * h + ar4
                 ok_i = pv[rows_i] > 0
@@ -1070,12 +1111,15 @@ def place_table_pair(planes, box, prep, rmax2, sign, periodic=False,
                     continue
                 a = int(rows_i[ok_i][torch.argmax(p[0, rows_i][ok_i])])
                 out = p.clone()
-                dx = (float(p[0, a]) + r - float(p[0, b])
-                      - (float(L[0]) if periodic else 0.0))
+                xb = float(p[0, b]) + (0.0 if sh is None else float(sh[0]))
+                dx = (float(p[0, a]) + r - xb
+                      - (float(L[0]) if periodic and not v2 else 0.0))
                 out[0, rows_j] = (p[0, rows_j].double() + dx).float()
-                out[1, b], out[2, b] = p[1, a], p[2, a]
+                for d in (1, 2):
+                    out[d, b] = p[d, a] - (0.0 if sh is None else sh[d])
                 step = torch.tensor(float("inf"))
-                while not sign * (_min_image_r2(out, a, b, L) - lim) > 0:
+                while not sign * (_pair_r2(out, a, b, L, prep.layout, sh)
+                                  - lim) > 0:
                     out[0, b] = torch.nextafter(out[0, b], step)
                 return ([out[d].to(planes[d].device) for d in range(3)],
                         (cl, e, h, a, b))
@@ -1083,33 +1127,45 @@ def place_table_pair(planes, box, prep, rmax2, sign, periodic=False,
 
 
 def table_culled_close_pairs(planes, box, prep, consts, block=64):
-    """(pairs that take the pair math (pv != 0 both, not the self pair,
-    a live entry) with r^2 < max(rc2, rv2) in tiles that
+    """(pairs that take the pair math (pv != 0 both, not the self pair;
+    K7c: the entry's mask bit) of a live entry with r^2 < max(rc2, rv2),
+    as the pack layout's plain version computes r^2, in tiles that
     cull_table_tiles_plain skips, its keep mask (n_icl, W, 2), the live
     entry mask (n_icl, W))."""
     from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
     keep = nb_cluster.cull_table_tiles_plain(planes, box, prep, consts)
     dev = keep.device
-    n_icl, W = prep.nbr.shape
+    n_icl, W = prep.n_icl, prep.nbr.shape[1]
+    rows = _row_of(prep, torch.arange(n_icl, device=dev))
     live = torch.arange(W, device=dev)[None, :] \
-        < prep.cnt[:, None].to(torch.int64)
+        < prep.cnt[rows][:, None].to(torch.int64)
     L = torch.diagonal(box)
     rmax2 = np.float32(max(consts.rc2, consts.rv2))
     ar = torch.arange(8, device=dev)
+    v2 = prep.layout == "v2"
     bad = 0
     for c0 in range(0, n_icl, block):
         ci = torch.arange(c0, min(c0 + block, n_icl), device=dev)
+        row = _row_of(prep, ci)
         iid = (prep.i0 + ci)[:, None] * 8 + ar                 # (B, 8)
-        jid = prep.nbr[ci].long()[..., None] * 8 + ar          # (B, W, 8)
+        jid = prep.nbr[row].long()[..., None] * 8 + ar         # (B, W, 8)
         r2 = 0.0
-        for pl, Lx in zip(planes, L):
-            d = pl[iid][:, None, :, None] - pl[jid][:, :, None, :]
-            d = d - torch.round(d / Lx) * Lx
+        for k, (pl, Lx) in enumerate(zip(planes, L)):
+            pj = pl[jid]
+            if v2:
+                pj = pj + (prep.shift[row][..., k] * Lx)[..., None]
+            d = pl[iid][:, None, :, None] - pj[:, :, None, :]
+            if not v2:
+                d = _fold(d, Lx, prep.layout)
             r2 = r2 + d * d                                    # (B, W, 8, 8)
-        take = ((prep.pv[iid][:, None, :, None] > 0)
-                & (prep.pv[jid][:, :, None, :] > 0)
-                & (iid[:, None, :, None] != jid[:, :, None, :])
-                & live[ci][..., None, None])
+        if v2:
+            take = ((prep.jmask[row][:, :, None, :]
+                     >> ar[None, None, :, None]) & 1) != 0
+        else:
+            take = ((prep.pv[iid][:, None, :, None] > 0)
+                    & (prep.pv[jid][:, :, None, :] > 0)
+                    & (iid[:, None, :, None] != jid[:, :, None, :]))
+        take = take & live[ci][..., None, None]
         kept = keep[ci].repeat_interleave(4, 2)[..., None]     # (B, W, 8, 1)
         bad += int((take & ~kept & (r2 < rmax2)).sum())
     return bad, keep, live
@@ -1697,14 +1753,11 @@ def _cluster_kernel_rows(runner, state, timer, flavours, n_pairs=None):
                                 max(consts.rc2, consts.rv2))
     flops = FLOPS_PAIR_TABLE if layout == "table" else FLOPS_PAIR
     R, W = prep.nbr.shape
-    shape = ""
-    if layout == "table":
-        kept, bad = _table_kept(planes, box, prep, consts)
-        shape = (f"; warps per i-cluster {prep.warps}, tiles kept "
-                 f"{kept:.4f}")
-        if bad:
-            raise AssertionError("the table cull skipped pairs in the "
-                                 "cut-off")
+    kept, bad = _table_kept(planes, box, prep, consts)
+    shape = f"; warps per i-cluster {prep.warps}, tiles kept {kept:.4f}"
+    if bad:
+        raise AssertionError(f"the {layout} cull skipped pairs in the "
+                             "cut-off")
     rows = []
     for flavour in flavours:
         name = f"nb_{layout}_{flavour}"
@@ -1971,20 +2024,24 @@ def _bits_equal(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def _table_check(name, planes, box, prep, consts,
-                 flavours=("F", "VF", "VFV")):
-    """The table kernel (nb_cluster_cuda) against table_plain on the same
-    inputs: NaN in exactly the plain version's force rows and energy rows,
-    the rest at the gates (F rel 5e-4 of max |F|, E and virial rel 1e-4);
-    each launch twice, the two bit-identical (the fixed-order reduction).
+def _table_check(name, planes, box, prep, consts, flavours=None):
+    """The per-cluster kernel (nb_cluster_cuda) of the pack's layout
+    against its plain version (nb_cluster_plain: table_plain or k7_plain)
+    on the same inputs, in every flavour of the layout (the table route's
+    F, VF and VF+virial, K7a/b/c's F and VF) unless `flavours` says: NaN
+    in exactly the plain version's force rows and energy rows, the rest
+    at the gates (F rel 5e-4 of max |F|, E and virial rel 1e-4); each
+    launch twice, the two bit-identical (the fixed-order reduction).
     Returns {flavour: (kernel, plain)} of the (n_icl * 8, 3) forces."""
     from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
+    if flavours is None:
+        flavours = tuple(nb_cluster.launches[prep.layout])
     out = {}
     for flavour in flavours:
         e, v = flavour != "F", flavour == "VFV"
         fk = nb_cluster.nb_cluster_cuda(planes, box, prep, consts, e, v)
         again = nb_cluster.nb_cluster_cuda(planes, box, prep, consts, e, v)
-        fp = nb_cluster.table_plain(planes, box, prep, consts, e, v)
+        fp = nb_cluster.nb_cluster_plain(planes, box, prep, consts, e, v)
         torch.cuda.synchronize()
         same = all(_bits_equal(a, b) for a, b in zip(fk, again))
         Fk, Fp = torch.stack(fk[:3], -1), torch.stack(fp[:3], -1)
@@ -2003,7 +2060,8 @@ def _table_check(name, planes, box, prep, consts,
                               for o in (fk, fp)))
         ok = (same and same_nan and f_rel <= F_REL and e_rel <= E_REL
               and v_rel <= E_REL)
-        _say(f"table edge {name} {flavour}: {prep.n_icl} i-clusters from "
+        _say(f"{prep.layout} edge {name} {flavour}: {prep.n_icl} "
+             f"i-clusters from "
              f"{prep.i0}, W {prep.nbr.shape[1]}, live {int(prep.cnt.sum())}"
              f", warps {prep.warps}; NaN atoms {int((~fin).sum())} (kernel "
              f"{int(torch.isnan(Fk).any(-1).sum())}), NaN energy rows "
@@ -2011,35 +2069,97 @@ def _table_check(name, planes, box, prep, consts,
              f"virial rel {v_rel:.2e}; repeat bit-identical {same} -> "
              f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"table edge case {name} {flavour}: the "
-                                 "kernel disagrees with its plain version")
+            raise AssertionError(f"{prep.layout} edge case {name} "
+                                 f"{flavour}: the kernel disagrees with its "
+                                 "plain version")
         out[flavour] = (Fk, Fp)
     return out
 
 
 def _table_kept(planes, box, prep, consts):
-    """Share of the live entries' tiles that the table kernel's cull keeps
-    (cull_table_tiles_plain), and the pairs in the cut-off in skipped
-    tiles (0 for an exact cull)."""
+    """Share of the live entries' tiles that the kernel's cull keeps
+    (cull_table_tiles_plain, any layout), and the pairs in the cut-off in
+    skipped tiles (0 for an exact cull)."""
     bad, keep, live = table_culled_close_pairs(planes, box, prep, consts)
     return float(keep[live].float().mean()), bad
+
+
+def _edge_cases(frame, planes, box, prep, consts, n_clusters):
+    """The edge cases every per-cluster layout shares, each held by
+    _table_check: the frame itself (with the tiles the cull keeps and the
+    warps per i-cluster); a pair placed on its tile's boundary at r^2 =
+    rmax2 (1 -+ 1e-6), in one box image and across the periodic boundary
+    (K7c: across a baked shift), whose own force on its i atom A (inside
+    minus outside) must match the plain version's to a quarter of itself;
+    a NaN coordinate (an atom of a cluster that other rows list); one row
+    at W entries and every other row at 1, at the wrapper's warps and at 1
+    and 16 warps per i-cluster; every third row empty."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
+    layout = prep.layout
+    kept, bad = _table_kept(planes, box, prep, consts)
+    _say(f"{layout} edge production frame: {prep.n_icl} i-clusters, "
+         f"longest row {prep.cnt_max}, warps per i-cluster {prep.warps}, "
+         f"tiles kept {kept:.4f}, pairs in the cut-off in skipped tiles "
+         f"{bad}")
+    if bad:
+        raise AssertionError(f"the {layout} cull skipped pairs in the "
+                             "cut-off")
+    _table_check(frame, planes, box, prep, consts)
+
+    rmax2 = max(consts.rc2, consts.rv2)
+    for periodic in (False, True):
+        res = {}
+        for sign, where in ((-1.0, "inside"), (1.0, "outside")):
+            moved, (cl, e, h, a, b) = place_table_pair(
+                planes, box, prep, rmax2, sign, periodic=periodic)
+            keep = nb_cluster.cull_table_tiles_plain(moved, box, prep,
+                                                     consts)
+            image = "periodic" if periodic else "one image"
+            _say(f"{layout} edge boundary ({image}, {where}): i-cluster "
+                 f"{cl} entry {e} half {h}, rows {a} and {b}; tile kept by "
+                 f"the cull: {bool(keep[cl, e, h])}")
+            res[where] = _table_check(f"boundary {where}", moved, box, prep,
+                                      consts)
+        for flavour in res["inside"]:
+            fk, fp = ((res["inside"][flavour][i][a] -
+                       res["outside"][flavour][i][a]) for i in (0, 1))
+            pf, dk = float(fp.norm()), float((fk - fp).norm())
+            _say(f"  row {a} {flavour}: the pair's own force {pf:.4e} "
+                 f"(plain), kernel's minus plain's {dk:.3e}")
+            if not (pf > 0.0 and dk <= 0.25 * pf):
+                raise AssertionError(f"{layout} edge boundary: the kernel "
+                                     "lost or gained the placed pair")
+
+    row = int(prep.nbr[10, 3]) * 8 + 5
+    nan_planes = [p.clone() for p in planes]
+    nan_planes[0][row] = float("nan")
+    _table_check("nan", nan_planes, box, prep, consts)
+
+    C, W = n_clusters, prep.nbr.shape[1]
+    nbr = torch.full_like(prep.nbr, C)
+    nbr[:, 0] = prep.nbr[:, 0]
+    nbr[0] = torch.arange(W, device=nbr.device, dtype=nbr.dtype) % C
+    cnt = torch.ones_like(prep.cnt)
+    cnt[0] = W
+    skew = dataclasses.replace(prep, nbr=nbr, cnt=cnt, cnt_max=W)
+    for w in sorted({prep.warps, 1, nb_cluster.MAX_WARPS}):
+        _table_check(f"skew ({w} warps)", planes, box,
+                     dataclasses.replace(skew, warps=w), consts)
+    nbr = prep.nbr.clone()
+    nbr[::3] = C
+    cnt = prep.cnt.clone()
+    cnt[::3] = 0
+    _table_check("empty rows", planes, box,
+                 dataclasses.replace(prep, nbr=nbr, cnt=cnt), consts)
 
 
 def phase_table_edges(device, state, nnbr):
     """The table kernel's edge cases against table_plain (every flavour,
     each launch twice and bit-identical, NaN in exactly the plain
     version's rows):
-    - the 12,290-atom CHARMM frame (the production state), with the tiles
-      the cull keeps and the warps per i-cluster;
-    - boundary: a pair placed on its tile's boundary at r^2 = rmax2 (1 -+
-      1e-6), once inside one box image and once across the periodic
-      boundary; beside the gates, the force on its i atom A, inside minus
-      outside (the placed pair's own force), must match the plain
-      version's to a quarter of itself;
-    - nan: one NaN coordinate (an atom of a cluster that other rows list);
-    - skew: one row at W entries and every other row at 1, at the
-      wrapper's warps and at 1 and 16 warps per i-cluster;
-    - empty rows: every third row with cnt = 0;
+    - _edge_cases on the 12,290-atom CHARMM frame (the production
+      state): the frame, the boundary pair, a NaN atom, skewed and empty
+      rows;
     - 64 atom types (the table padded) at 16 warps per i-cluster;
     - an i-range pack with i0 > 0 (parallel/spatial.py _range_pack);
     - every vdW modifier with every Coulomb type in the LJ-table and the
@@ -2062,60 +2182,8 @@ def phase_table_edges(device, state, nnbr):
     nlist, _, prep, _ = runner.lists(state)
     consts = NbConstants.from_params(params, get_beta(params))
     planes = nb_cluster.gather_planes(state.x, box, nlist, prep)
-    kept, bad = _table_kept(planes, box, prep, consts)
-    _say(f"table edge production frame: {prep.n_icl} i-clusters, longest "
-         f"row {prep.cnt_max}, warps per i-cluster {prep.warps}, tiles kept "
-         f"{kept:.4f}, pairs in the cut-off in skipped tiles {bad}")
-    if bad:
-        raise AssertionError("the table cull skipped pairs in the cut-off")
-    _table_check(f"{state.x.shape[0]:,}-atom CHARMM frame", planes, box,
-                 prep, consts)
-
-    rmax2 = max(consts.rc2, consts.rv2)
-    for periodic in (False, True):
-        res = {}
-        for sign, where in ((-1.0, "inside"), (1.0, "outside")):
-            moved, (cl, e, h, a, b) = place_table_pair(
-                planes, box, prep, rmax2, sign, periodic=periodic)
-            keep = nb_cluster.cull_table_tiles_plain(moved, box, prep,
-                                                     consts)
-            image = "periodic" if periodic else "one image"
-            _say(f"table edge boundary ({image}, {where}): i-cluster {cl} "
-                 f"entry {e} half {h}, rows {a} "
-                 f"and {b}; tile kept by the cull: {bool(keep[cl, e, h])}")
-            res[where] = _table_check(f"boundary {where}", moved, box, prep,
-                                      consts)
-        for flavour in ("F", "VF", "VFV"):
-            fk, fp = ((res["inside"][flavour][i][a] -
-                       res["outside"][flavour][i][a]) for i in (0, 1))
-            pf, dk = float(fp.norm()), float((fk - fp).norm())
-            _say(f"  row {a} {flavour}: the pair's own force {pf:.4e} "
-                 f"(plain), kernel's minus plain's {dk:.3e}")
-            if not (pf > 0.0 and dk <= 0.25 * pf):
-                raise AssertionError("table edge boundary: the kernel lost "
-                                     "or gained the placed pair")
-
-    row = int(prep.nbr[10, 3]) * 8 + 5
-    nan_planes = [p.clone() for p in planes]
-    nan_planes[0][row] = float("nan")
-    _table_check("nan", nan_planes, box, prep, consts)
-
-    C, W = nlist.n_clusters, prep.nbr.shape[1]
-    nbr = torch.full_like(prep.nbr, C)
-    nbr[:, 0] = prep.nbr[:, 0]
-    nbr[0] = torch.arange(W, device=nbr.device, dtype=nbr.dtype) % C
-    cnt = torch.ones_like(prep.cnt)
-    cnt[0] = W
-    skew = dataclasses.replace(prep, nbr=nbr, cnt=cnt, cnt_max=W)
-    for w in sorted({prep.warps, 1, nb_cluster.MAX_WARPS}):
-        _table_check(f"skew ({w} warps)", planes, box,
-                     dataclasses.replace(skew, warps=w), consts)
-    nbr = prep.nbr.clone()
-    nbr[::3] = C
-    cnt = prep.cnt.clone()
-    cnt[::3] = 0
-    _table_check("empty rows", planes, box,
-                 dataclasses.replace(prep, nbr=nbr, cnt=cnt), consts)
+    _edge_cases(f"{state.x.shape[0]:,}-atom CHARMM frame", planes, box,
+                prep, consts, nlist.n_clusters)
     # 64 atom types (the kernel's most): the table padded with zero rows,
     # shared memory past 48 KB at 16 warps
     T = prep.nbfp.shape[0]
@@ -2181,6 +2249,135 @@ def phase_layouts(system, params, state, caps):
              f"{float(lg.temp.min()):.1f}..{float(lg.temp.max()):.1f} K")
         total.update(nb)
     return total
+
+
+def _lone_union_entry(planes, box, prep, consts, n_clusters):
+    """K7a: a union row holding a j cluster in range (a pair that takes the
+    pair math inside max(rc, rv)) of exactly one of its supercluster's 8
+    i-clusters.  The pack is held by _table_check as it is and with that
+    entry's cluster replaced by the far dummy cluster (the deal of entries
+    to warps unchanged); between the two, the kernel's forces on the other
+    7 i-clusters must be bit-identical (the entry adds nothing to them),
+    and the entry's own force on the one (with minus without) must match
+    the plain version's to a quarter of itself: its pairs lie near the
+    cut-off, where a force is a difference of terms ~1e4 times larger (as
+    for _edge_cases' boundary pair)."""
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
+    x = torch.stack(planes, -1)
+    dev = x.device
+    L = torch.diagonal(box)
+    rmax2 = max(consts.rc2, consts.rv2)
+    ar = torch.arange(8, device=dev)
+    for s in range(prep.nbr.shape[0]):
+        n = int(prep.cnt[s])
+        iid = (s * 8 + ar)[:, None] * 8 + ar                   # (8 cl, 8 a)
+        jid = prep.nbr[s, :n].long()[:, None] * 8 + ar          # (n, 8 j)
+        d = _fold(x[iid][:, :, None, None, :] - x[jid][None, None], L,
+                  "super")
+        r2 = (d * d).sum(-1)                                    # (8, 8, n, 8)
+        take = ((prep.pv[iid] > 0)[:, :, None, None]
+                & (prep.pv[jid] > 0)[None, None]
+                & (iid[:, :, None, None] != jid[None, None]))
+        hit = (take & (r2 < rmax2)).any(3).any(1)               # (8 cl, n)
+        lone = torch.nonzero(hit.sum(0) == 1)
+        if lone.numel():
+            e = int(lone[0, 0])
+            own = int(torch.nonzero(hit[:, e])[0, 0])
+            break
+    else:
+        raise AssertionError("no union entry in range of one i-cluster")
+    nbr = prep.nbr.clone()
+    nbr[s, e] = n_clusters
+    without = dataclasses.replace(prep, nbr=nbr)
+    keep = nb_cluster.cull_table_tiles_plain(planes, box, prep, consts)
+    _say(f"super edge lone union entry: row {s} entry {e} (j cluster "
+         f"{int(prep.nbr[s, e])}) in range of i-cluster {8 * s + own} "
+         f"only; its tiles kept per i-cluster "
+         f"{[int(keep[8 * s + c, e].sum()) for c in range(8)]}")
+    res = _table_check("lone union entry", planes, box, prep, consts)
+    res_wo = _table_check("lone union entry replaced", planes, box, without,
+                          consts)
+    for flavour in res:
+        (fk, fp), (gk, gp) = res[flavour], res_wo[flavour]
+        rows = slice(64 * s, 64 * s + 64)
+        fk, fp, gk, gp = (t[rows].reshape(8, 8, 3) for t in (fk, fp, gk, gp))
+        others = [c for c in range(8) if c != own]
+        same = _bits_equal(fk[others], gk[others])
+        pf = float((fp[own] - gp[own]).norm())
+        dk = float(((fk[own] - gk[own]) - (fp[own] - gp[own])).norm())
+        _say(f"  {flavour}: the other 7 i-clusters bit-identical {same}; "
+             f"the entry's own force {pf:.4e} (plain), kernel's minus "
+             f"plain's {dk:.3e}")
+        if not (same and pf > 0.0 and dk <= 0.25 * pf):
+            raise AssertionError(f"super edge lone union entry {flavour}: "
+                                 "the entry reached another i-cluster, or "
+                                 "the kernel lost or gained its force")
+
+
+def phase_k7_edges(system, params, state, caps):
+    """K7a/b/c's edge cases against k7_plain in F and VF (each launch
+    twice and bit-identical, NaN in exactly the plain version's rows):
+    - _edge_cases on each layout's pack of the main path's frame: the
+      frame (tiles kept, warps), the boundary pair in one image and across
+      the periodic boundary (K7c: across a baked shift), a NaN atom, the
+      skewed rows at 1, 16 and the wrapper's warps, empty rows;
+    - K7a: a union row holding only a j cluster in range of one of its 8
+      i-clusters (_lone_union_entry);
+    - cut-off, reaction field and PME on every layout at 1,538 atoms
+      (n_side 8, rc 0.5, rlist 0.55: the smallest lattice box on which
+      K7c's per-entry shifts hold; at 650 atoms the v2 layout raises, as
+      the JAX runner does)."""
+    from gromacs_fep_gpu_tpu_torch.core.types import CoulombType, VdwModifier
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
+    from gromacs_fep_gpu_tpu_torch.ops.nb_v2u import NbConstants
+    from gromacs_fep_gpu_tpu_torch.ops.pairlist import build_cluster_pairlist
+    from gromacs_fep_gpu_tpu_torch.ops.pme import pme_grid_size
+    t0 = time.perf_counter()
+    box = state.box
+    consts = NbConstants.from_params(params, get_beta(params))
+    for layout in K7_LAYOUTS:
+        runner = MdRunner(system, params, RunnerConfig(
+            layout=layout, super_nnbr=caps[0], fep_max_nbr=caps[1]))
+        nlist, _, prep, _ = runner.lists(state)
+        planes = nb_cluster.gather_planes(state.x, box, nlist, prep)
+        _edge_cases(f"{state.x.shape[0]:,}-atom main-path frame", planes,
+                    box, prep, consts, nlist.n_clusters)
+        if layout == "super":
+            _lone_union_entry(planes, box, prep, consts, nlist.n_clusters)
+
+    n_side, rlist = 8, 0.55
+    small, sst = solvation_system(n_side=n_side, seed=0,
+                                  device=state.x.device)
+    for coulomb in (CoulombType.CUTOFF, CoulombType.REACTION_FIELD,
+                    CoulombType.PME):
+        sp = _params(mts=True).replace(
+            coulomb=coulomb, rcoulomb=0.5, rvdw=0.5, rlist=rlist,
+            vdw_modifier=VdwModifier.POTENTIAL_SHIFT,
+            pme_grid=pme_grid_size((n_side * 0.31,) * 3, 0.12))
+        sconsts = NbConstants.from_params(
+            sp, get_beta(sp) if coulomb == CoulombType.PME else None)
+        for layout in K7_LAYOUTS:
+            sup = layout == "super"
+            sl = build_cluster_pairlist(
+                sst.x, sst.box, small, rlist, nnbr=0 if sup else 192,
+                super_nnbr=448 if sup else None,
+                super_block=8 if sup else 4,
+                compute_shifts=layout == "v2")
+            flags = (sl.super_overflow if sup else sl.n_overflow,
+                     sl.shift_overflow if layout == "v2" else 0)
+            if any(int(f) for f in flags):
+                raise AssertionError(f"{small.n_atoms}-atom {layout} list "
+                                     f"overflowed or lost its shifts")
+            sprep = nb_cluster.PREPARE[layout](
+                sl, small.nbfp, cnt_max=int(sl.super_max_count if sup
+                                            else sl.max_count))
+            _table_check(f"{small.n_atoms} atoms {coulomb.value}",
+                         nb_cluster.gather_planes(sst.x, sst.box, sl, sprep),
+                         sst.box, sprep, sconsts)
+    _say(f"K7 edge phase took {time.perf_counter() - t0:.1f} s")
 
 
 def _dd_mesh(spread=False):
@@ -2523,6 +2720,8 @@ def run(device="cuda", smi=None):
     for r in cluster_rows:
         r["launches"] = layout_counts.get(r["name"], 0)
     done("K7 layouts")
+    phase_k7_edges(system, params, state, caps)
+    done("K7 edge cases")
     dd_rows = phase_dd(system, params, state, caps, timer, smi, ms_step)
     done("main path under DD")
     phase_small_charmm(device)

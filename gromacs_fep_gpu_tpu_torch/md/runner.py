@@ -327,7 +327,8 @@ class MdRunner:
             flag(nlist.shift_overflow), flag(nlist.tile_overflow),
             flag(nlist.tile_max), halo_bad.to(zero.device)]).to(torch.int64)
         fl = dict(zip(FLAGS, flags.cpu().tolist()))
-        # the table packs take the longest row (n_max) read with the flags
+        # the per-cluster packs take the longest row read with the flags
+        # (n_max; K7a's union rows s_max): it fixes the kernel's warps
         if self.mesh is not None:
             prep = (self._dd_override.prepare(nlist, prepare_v2u(nlist, nbfp))
                     if layout == "v2u" else
@@ -339,7 +340,9 @@ class MdRunner:
                 nlist, nbfp, lj_table_mode(nbfp.cpu().numpy()),
                 cnt_max=fl["n_max"])
         else:
-            prep = nb_cluster.PREPARE[layout](nlist, nbfp)
+            prep = nb_cluster.PREPARE[layout](
+                nlist, nbfp,
+                cnt_max=fl["s_max" if layout == "super" else "n_max"])
         return nlist, feplist, prep, fl
 
     def _grow(self, fl: dict) -> bool:

@@ -44,15 +44,11 @@ SIGNATURES = {
         "nb_v2u_ctas_per_sm": [_I] * 4,
     },
     "nb_cluster": {
-        # K7a/b/c: x, y, z, q, pv, s6, s12, excl, nbr, cnt, shift, jmask,
-        # 3 force planes, energies, box(9); K, W, n_icl, layout, flavour,
-        # coulomb type, modifier; 16 float constants; stream
-        "nb_cluster_launch": [_P] * 17 + [_I] * 7 + [_F] * 16 + [_P],
-        # the table route: x, y, z, q, pv, s6, s12, types, nbfp, excl,
-        # nbr, cnt, 3 force planes, energies, box(9); T, K, W, i0, n_icl,
-        # warps, lj_table, flavour, coulomb type, modifier; 16 float
-        # constants; stream
-        "nb_table_launch": [_P] * 17 + [_I] * 10 + [_F] * 16 + [_P],
+        # every per-cluster layout: x, y, z, q, pv, s6, s12, types, nbfp,
+        # excl, nbr, cnt, shift, jmask, 3 force planes, energies, box(9);
+        # T, K, W, i0, n_icl, warps, layout, lj_table, flavour, coulomb
+        # type, modifier; 16 float constants; stream
+        "nb_table_launch": [_P] * 19 + [_I] * 11 + [_F] * 16 + [_P],
     },
     "pme_spline": {
         # x, q, box(9), grid; n, K1, K2, K3; stream

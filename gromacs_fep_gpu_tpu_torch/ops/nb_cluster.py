@@ -22,18 +22,19 @@ polynomial (energy flavour) and the pmecorrF fit (force flavour), as the
 TPU kernels are; the table route is the XLA kernel's arithmetic.
 
 Unlike the TPU kernels, which stream pre-gathered j data, the Hopper
-kernels (csrc/nb_cluster.cu) read the sorted atom planes directly by
+kernel (csrc/nb_cluster.cu nb_table_kernel, one body for every layout, the
+layout a compile-time trait) reads the sorted atom planes directly by
 cluster id: the per-rebuild pack holds the static planes and the list, the
-per-step input is three coordinate planes.  K7a/b/c run one warp per
-i-cluster, eight per CTA.  The table route runs one CTA per i-cluster of
-`PrepCluster.warps` warps (table_warps, fixed per rebuild from the range's
-i-clusters, the longest row and the card's SM count) that take the row's
-entries in pairs, in turn, stage their j clusters through a per-warp
+per-step input is three coordinate planes.  It runs one CTA per i-cluster
+of `PrepCluster.warps` warps (table_warps, fixed per rebuild from the
+range's i-clusters, the longest row and the card's SM count) that take the
+row's entries in pairs, in turn, stage their j clusters through a per-warp
 cp.async ring, skip (4 i x 8 j) tiles beyond the cut-off
-(cull_table_tiles_plain mirrors the rule) and add the warps' partials in
-a fixed order.  Dispatch goes by the tensors' device: CPU tensors take the
-plain PyTorch versions (`k7_plain`, `cluster_nb_kernel_core`), CUDA
-tensors launch the kernel or raise.
+(cull_table_tiles_plain mirrors the rule for every layout) and add the
+warps' partials in a fixed order.  K7a's i-clusters each read their
+supercluster's union row.  Dispatch goes by the tensors' device: CPU
+tensors take the plain PyTorch versions (`k7_plain`,
+`cluster_nb_kernel_core`), CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ from .nb_v2u import (CULL_MARGIN, R2_FLOOR, TWO_OVER_SQRT_PI, NbConstants,
                      _COUL_CODE, _check, _erfc_poly, _pmecorr_f_recip)
 from .pairlist import CLUSTER, ClusterPairlist
 
-SB = 8                  # i-clusters per supercluster (K7a) and per CTA
+SB = 8                  # i-clusters per supercluster (K7a)
 LAYOUTS = ("super", "cluster", "v2", "table")
 MAX_TYPES = 64          # table mode keeps the (T, T, 2) table in shared
 # the table kernel's warps per i-cluster (table_warps): enough for
@@ -60,7 +61,7 @@ TABLE_WAVES = 2
 RESIDENT_WARPS = 32
 MAX_WARPS = 16
 MIN_CHUNK = 8
-_LAYOUT_CODE = {"super": 0, "cluster": 1, "v2": 2}
+_LAYOUT_CODE = {"table": 0, "super": 1, "cluster": 2, "v2": 3}
 _FLAVOUR_CODE = {"F": 0, "VF": 1, "VFV": 2}
 _MOD_CODE = {VdwModifier.NONE: 0, VdwModifier.POTENTIAL_SHIFT: 1,
              VdwModifier.FORCE_SWITCH: 2, VdwModifier.POTENTIAL_SWITCH: 3}
@@ -93,13 +94,13 @@ class PrepCluster:
     types: Optional[torch.Tensor] = None  # (n_rows,) i32 (table LJ)
     nbfp: Optional[torch.Tensor] = None   # (T, T, 2) f32 (table LJ)
     excl: Optional[torch.Tensor] = None   # (n_rows, K) i32, -1 pad
-    shift: Optional[torch.Tensor] = None  # (R, W, 3) f32 box counts (v2)
+    shift: Optional[torch.Tensor] = None  # (R, W, 4) f32 box counts (v2)
     jmask: Optional[torch.Tensor] = None  # (R, W, 8) i32 lane bits (v2)
     img: Optional[torch.Tensor] = None    # (n_pad, 3) f32 image counts (v2)
     i0: int = 0                   # first i-cluster of the planes
     halo: bool = False            # a domain's pack (counted as table_dd)
-    cnt_max: int = 0              # longest row (table route), per rebuild
-    warps: int = 1                # table kernel: warps per i-cluster
+    cnt_max: int = 0              # longest row, per rebuild
+    warps: int = 1                # the kernel's warps per i-cluster
 
     @property
     def n_rows(self) -> int:
@@ -147,9 +148,24 @@ def _rows(nbr, C, n_rows_out):
     return nbr.to(torch.int32).contiguous(), cnt.contiguous()
 
 
-def prepare_super(nlist: ClusterPairlist, nbfp) -> PrepCluster:
+def _pack(layout, p, nbr, cnt, cnt_max, device, **kw) -> PrepCluster:
+    """A layout's pack with its longest row and its kernel's warps per
+    i-cluster (table_warps).  cnt_max: the list's longest row (the
+    runner's n_max or, for K7a's union rows, s_max flag, read with the
+    rebuild's other flags); None takes the row capacity W, so nothing is
+    read back."""
+    W = nbr.shape[1]
+    cnt_max = W if cnt_max is None else min(int(cnt_max), W)
+    return PrepCluster(layout=layout, nbr=nbr, cnt=cnt, cnt_max=cnt_max,
+                       warps=table_warps(p["n_icl"], cnt_max,
+                                         sm_count(device)), **kw, **p)
+
+
+def prepare_super(nlist: ClusterPairlist, nbfp,
+                  cnt_max: Optional[int] = None) -> PrepCluster:
     """K7a's pack (pallas_prepare): the union rows of 8-cluster blocks.
-    nlist must come from build_cluster_pairlist with super_block=8."""
+    nlist must come from build_cluster_pairlist with super_block=8;
+    cnt_max: as _pack, the longest union row."""
     if nlist.nbr_super is None:
         raise ValueError("the supercluster layout needs the union list "
                          "(build_cluster_pairlist with super_nnbr)")
@@ -158,17 +174,19 @@ def prepare_super(nlist: ClusterPairlist, nbfp) -> PrepCluster:
     if nlist.nbr_super.shape[0] != S:
         raise ValueError("the supercluster layout needs super_block=8")
     nbr, cnt = _rows(nlist.nbr_super, nlist.n_clusters, S)
-    return PrepCluster(layout="super", nbr=nbr, cnt=cnt, **p)
+    return _pack("super", p, nbr, cnt, cnt_max, nbfp.device)
 
 
-def prepare_cluster(nlist: ClusterPairlist, nbfp) -> PrepCluster:
-    """K7b's pack (pallas_prepare_cl): each i-cluster's own list."""
+def prepare_cluster(nlist: ClusterPairlist, nbfp,
+                    cnt_max: Optional[int] = None) -> PrepCluster:
+    """K7b's pack (pallas_prepare_cl): each i-cluster's own list;
+    cnt_max as _pack."""
     if nlist.nbr is None:
         raise ValueError("the cluster layout needs the per-cluster list "
                          "(build_cluster_pairlist with nnbr > 0)")
     p = _planes(nlist, nbfp, lj_table=False)
     nbr, cnt = _rows(nlist.nbr, nlist.n_clusters, p["n_icl"])
-    return PrepCluster(layout="cluster", nbr=nbr, cnt=cnt, **p)
+    return _pack("cluster", p, nbr, cnt, cnt_max, nbfp.device)
 
 
 def sm_count(device) -> int:
@@ -198,28 +216,23 @@ def table_warps(n_icl: int, cnt_max: int, n_sm: int) -> int:
 def prepare_table(nlist: ClusterPairlist, nbfp, lj_mode: str,
                   cnt_max: Optional[int] = None) -> PrepCluster:
     """The table route's pack: each i-cluster's own list; LJ from the
-    table (lj_mode "table") or per-atom square roots ("geometric").
-    cnt_max: the list's longest row (the runner's n_max flag, read with the
-    rebuild's other flags); None takes the row capacity W, so nothing is
-    read back.  It fixes the kernel's warps per i-cluster (table_warps)
-    for this rebuild."""
+    table (lj_mode "table") or per-atom square roots ("geometric");
+    cnt_max as _pack."""
     if nlist.nbr is None:
         raise ValueError("the table route needs the per-cluster list "
                          "(build_cluster_pairlist with nnbr > 0)")
     p = _planes(nlist, nbfp, lj_table=lj_mode == "table")
     nbr, cnt = _rows(nlist.nbr, nlist.n_clusters, p["n_icl"])
-    W = nbr.shape[1]
-    cnt_max = W if cnt_max is None else min(int(cnt_max), W)
-    return PrepCluster(layout="table", nbr=nbr, cnt=cnt, cnt_max=cnt_max,
-                       warps=table_warps(p["n_icl"], cnt_max,
-                                         sm_count(nbfp.device)), **p)
+    return _pack("table", p, nbr, cnt, cnt_max, nbfp.device)
 
 
-def prepare_v2(nlist: ClusterPairlist, nbfp) -> PrepCluster:
+def prepare_v2(nlist: ClusterPairlist, nbfp,
+               cnt_max: Optional[int] = None) -> PrepCluster:
     """K7c's pack (pallas_prepare_v2): each i-cluster's own list, its
-    build-time shifts and the per-lane bit masks.  nlist must come from
+    build-time shifts (padded to 4 per entry, so that the kernel copies
+    one 16-byte row) and the per-lane bit masks.  nlist must come from
     build_cluster_pairlist with nnbr > 0, compute_shifts=True and no union
-    list."""
+    list; cnt_max as _pack."""
     if nlist.nbr_shift is None:
         raise ValueError("the v2 layout needs per-cluster shifts "
                          "(build_cluster_pairlist with compute_shifts=True "
@@ -229,7 +242,7 @@ def prepare_v2(nlist: ClusterPairlist, nbfp) -> PrepCluster:
     nbr, cnt = _rows(nlist.nbr, C, C_pad)
     W = nbr.shape[1]
     shift = torch.nn.functional.pad(nlist.nbr_shift.to(torch.float32),
-                                    (0, 0, 0, 0, 0, C_pad - C))
+                                    (0, 1, 0, 0, 0, C_pad - C)).contiguous()
     dev = nbfp.device
     jid = (nbr.to(torch.int64)[..., None] * CLUSTER
            + torch.arange(CLUSTER, device=dev))              # (C_pad, W, 8)
@@ -246,8 +259,8 @@ def prepare_v2(nlist: ClusterPairlist, nbfp) -> PrepCluster:
         bits |= (ok.to(torch.int32) << a) | ((~exm).to(torch.int32)
                                              << (8 + a))
     p.pop("excl")
-    return PrepCluster(layout="v2", nbr=nbr, cnt=cnt, shift=shift,
-                       jmask=bits, img=nlist.img, **p)
+    return _pack("v2", p, nbr, cnt, cnt_max, dev, shift=shift, jmask=bits,
+                 img=nlist.img)
 
 
 PREPARE = {"super": prepare_super, "cluster": prepare_cluster,
@@ -489,30 +502,35 @@ def cluster_nb_kernel_core(xs_pad, qs_pad, pv_pad, excl_pad, nbr_p, box,
 
 def cull_table_tiles_plain(planes, box, prep: PrepCluster,
                            consts: NbConstants, block: int = 256):
-    """Plain mirror of the table kernel's tile cull, for the tests: (n_icl,
-    W, 2) bool, True where the kernel evaluates the (4 i x 8 j) tile of i
-    half h (atoms 4h .. 4h+3 of the i-cluster) and entry e of its row.  The
-    half's box is taken over its atoms with pv != 0, as a centre c and
-    half-widths w (float32, as the kernel); j atom j (pv != 0) votes to
-    keep the tile unless d2 = sum over axes of max(|c - x_j folded by the
-    minimum image| - w, 0)^2 exceeds max(rc2, rv2) (1 + CULL_MARGIN); a
+    """Plain mirror of the kernel's tile cull (every layout), for the
+    tests: (n_icl, W, 2) bool, True where the kernel evaluates the (4 i x
+    8 j) tile of i half h (atoms 4h .. 4h+3 of the i-cluster) and entry e
+    of its row (K7a: of its supercluster's union row).  The half's box is
+    taken over its atoms with pv != 0, as a centre c and half-widths w
+    (float32, as the kernel); j atom j votes to keep the tile unless d2 =
+    sum over axes of max(|c - x_j| - w, 0)^2, with c - x_j folded by the
+    minimum image (K7c: x_j at its entry's shift, not folded), exceeds
+    max(rc2, rv2) (1 + CULL_MARGIN), or j takes no pair math with the half
+    (pv = 0 on either side; K7c: none of the half's 4 mask bits); a
     non-finite coordinate in the half (any atom) or in the j cluster keeps
     the tile.  Entries at or past cnt are reported too (the kernel never
     visits them)."""
     f32 = np.float32
     xs = torch.stack([p.to(torch.float32) for p in planes], -1)
     dev = xs.device
-    n_icl, W = prep.nbr.shape
+    n_icl, W = prep.n_icl, prep.nbr.shape[1]
     ar = torch.arange(CLUSTER, device=dev)
     L = torch.diagonal(box).to(torch.float32)
     ib = 1.0 / L
     lim = float(f32(max(f32(consts.rc2), f32(consts.rv2)))
                 * (f32(1.0) + f32(CULL_MARGIN)))
     inf = torch.tensor(float("inf"), device=dev)
+    shifts = prep.layout == "v2"
     out = torch.zeros((n_icl, W, 2), dtype=torch.bool, device=dev)
     for c0, B in _icluster_blocks(n_icl, block):
-        iid = (prep.i0 + c0 + torch.arange(B, device=dev))[:, None] \
-            * CLUSTER + ar
+        ci = c0 + torch.arange(B, device=dev)
+        row = ci // SB if prep.layout == "super" else ci
+        iid = (prep.i0 + ci)[:, None] * CLUSTER + ar
         xi = xs[iid].reshape(B, 2, 4, 3)
         ok_i = (prep.pv[iid] != 0).reshape(B, 2, 4, 1)
         lo = torch.where(ok_i, xi, inf).amin(2)               # (B, 2, 3)
@@ -520,18 +538,25 @@ def cull_table_tiles_plain(planes, box, prep: PrepCluster,
         cen, hw = 0.5 * (lo + hi), 0.5 * (hi - lo)
         h_ok = ok_i.any(2)[..., 0]                            # (B, 2)
         h_bad = ~torch.isfinite(xi).all(-1).all(-1)           # (B, 2)
-        jid = prep.nbr[c0:c0 + B].long()[..., None] * CLUSTER + ar
+        jid = prep.nbr[row].long()[..., None] * CLUSTER + ar
         xj = xs[jid]                                          # (B, W, 8, 3)
-        ok_j = prep.pv[jid] != 0                              # (B, W, 8)
+        if shifts:
+            xj = xj + prep.shift[row][:, :, None, :3] * L
+            m = prep.jmask[row][:, :, None, :]                # (B, W, 1, 8)
+            h4 = 4 * torch.arange(2, device=dev)[:, None]
+            ok_j = ((m >> h4) & 0xF) != 0                     # (B, W, 2, 8)
+        else:
+            ok_j = (h_ok[:, None, :, None]
+                    & (prep.pv[jid] != 0)[:, :, None, :])
         g = cen[:, None, :, None, :] - xj[:, :, None, :, :]   # (B, W, 2, 8, 3)
-        g = g - torch.round(g * ib) * L
+        if not shifts:
+            g = g - torch.round(g * ib) * L
         g = torch.clamp(g.abs() - hw[:, None, :, None, :], min=0.0)
         d2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] \
             + g[..., 2] * g[..., 2]
         j_bad = ~torch.isfinite(xj).all(-1)                   # (B, W, 8)
         vote = (h_bad[:, None, :, None] | j_bad[:, :, None, :]
-                | (h_ok[:, None, :, None] & ok_j[:, :, None, :]
-                   & ~(d2 > lim)))
+                | (ok_j & ~(d2 > lim)))
         out[c0:c0 + B] = vote.any(-1)
     return out
 
@@ -551,12 +576,11 @@ def table_plain(planes, box, prep: PrepCluster, consts: NbConstants,
 
 def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
                     compute_energy: bool, compute_virial: bool = False):
-    """Launch csrc/nb_cluster.cu on the current stream for the pack's
-    layout; same outputs as its plain version.  K7a/b/c: nb_cluster_launch,
-    one warp per i-cluster.  The table route: nb_table_launch, one CTA of
-    prep.warps warps per i-cluster of the range [prep.i0, prep.i0 +
-    n_icl); its ring copies 16-byte rows, so the planes must be 16-byte
-    aligned."""
+    """Launch csrc/nb_cluster.cu (nb_table_launch, the pack's layout as
+    its trait) on the current stream; same outputs as its plain version.
+    One CTA of prep.warps warps per i-cluster of the range [prep.i0,
+    prep.i0 + n_icl); its ring copies 16-byte rows, so the planes (and
+    K7c's shifts and masks) must be 16-byte aligned."""
     layout = prep.layout
     if compute_virial and (layout != "table" or not compute_energy):
         raise ValueError("the virial flavour is the table route's, with "
@@ -572,6 +596,11 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
     _check(prep.nbr, "nbr", i32, (R, W))
     _check(prep.cnt, "cnt", i32, (R,))
     _check(box, "box", f32, (3, 3))
+    if layout == "super" and n_icl % SB:
+        raise ValueError(f"the super layout runs whole superclusters of "
+                         f"{SB} i-clusters, not {n_icl}")
+    if R < (n_icl // SB if layout == "super" else n_icl):
+        raise ValueError(f"nbr: {R} rows for {n_icl} i-clusters")
     lj_table = prep.nbfp is not None
     T = K = 0
     if lj_table:
@@ -587,9 +616,13 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
         _check(prep.s6, "s6", f32, (n_rows,))
         _check(prep.s12, "s12", f32, (n_rows,))
         rows.update(s6=prep.s6, s12=prep.s12)
+    if layout != "table" and (lj_table or prep.i0 != 0):
+        raise ValueError(f"the {layout} layout runs whole planes (i0 0) "
+                         "with geometric LJ")
     if layout == "v2":
-        _check(prep.shift, "shift", f32, (R, W, 3))
+        _check(prep.shift, "shift", f32, (R, W, 4))
         _check(prep.jmask, "jmask", i32, (R, W, CLUSTER))
+        rows.update(shift=prep.shift, jmask=prep.jmask)
     else:
         K = prep.excl.shape[1]
         _check(prep.excl, "excl", i32, (prep.excl.shape[0], K))
@@ -598,6 +631,13 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
     if prep.i0 < 0 or (prep.i0 + n_icl) * CLUSTER > n_rows:
         raise ValueError(f"i-clusters [{prep.i0}, {prep.i0 + n_icl}) do "
                          f"not lie in planes of {n_rows} rows")
+    if not 1 <= prep.warps <= MAX_WARPS:
+        raise ValueError(f"warps per i-cluster {prep.warps} not in "
+                         f"1..{MAX_WARPS}")
+    for name, t in rows.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel copies 16-byte rows; its "
+                             "data is not 16-byte aligned")
     dev = planes[0].device
     fx = torch.empty((n_icl * CLUSTER,), dtype=f32, device=dev)
     fy, fz = torch.empty_like(fx), torch.empty_like(fx)
@@ -611,37 +651,15 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    lib = cuda_lib.library("nb_cluster")
-    if layout == "table":
-        if not 1 <= prep.warps <= MAX_WARPS:
-            raise ValueError(f"warps per i-cluster {prep.warps} not in "
-                             f"1..{MAX_WARPS}")
-        for name, t in rows.items():
-            if t.data_ptr() % 16:
-                raise ValueError(f"plane {name}: the table kernel copies "
-                                 "16-byte rows; its data is not 16-byte "
-                                 "aligned")
-        code = lib.nb_table_launch(
-            *(t.data_ptr() for t in planes), prep.q.data_ptr(),
-            prep.pv.data_ptr(), ptr(prep.s6), ptr(prep.s12),
-            ptr(prep.types), ptr(prep.nbfp), prep.excl.data_ptr(),
-            prep.nbr.data_ptr(), prep.cnt.data_ptr(), fx.data_ptr(),
-            fy.data_ptr(), fz.data_ptr(), e.data_ptr(), box.data_ptr(), T,
-            K, W, prep.i0, n_icl, prep.warps, int(lj_table),
-            _FLAVOUR_CODE[flavour], _COUL_CODE[c.coulomb],
-            _MOD_CODE[c.modifier], *consts16, stream)
-    else:
-        if prep.i0 != 0:
-            raise ValueError(f"the {layout} layout runs whole planes (i0 0)")
-        code = lib.nb_cluster_launch(
-            *(t.data_ptr() for t in planes), prep.q.data_ptr(),
-            prep.pv.data_ptr(), prep.s6.data_ptr(), prep.s12.data_ptr(),
-            ptr(prep.excl if layout != "v2" else None),
-            prep.nbr.data_ptr(), prep.cnt.data_ptr(), ptr(prep.shift),
-            ptr(prep.jmask), fx.data_ptr(), fy.data_ptr(), fz.data_ptr(),
-            e.data_ptr(), box.data_ptr(), K, W, n_icl, _LAYOUT_CODE[layout],
-            _FLAVOUR_CODE[flavour], _COUL_CODE[c.coulomb],
-            _MOD_CODE[c.modifier], *consts16, stream)
+    code = cuda_lib.library("nb_cluster").nb_table_launch(
+        *(t.data_ptr() for t in planes), prep.q.data_ptr(),
+        prep.pv.data_ptr(), ptr(prep.s6), ptr(prep.s12), ptr(prep.types),
+        ptr(prep.nbfp), ptr(prep.excl), prep.nbr.data_ptr(),
+        prep.cnt.data_ptr(), ptr(prep.shift), ptr(prep.jmask),
+        fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), e.data_ptr(),
+        box.data_ptr(), T, K, W, prep.i0, n_icl, prep.warps,
+        _LAYOUT_CODE[layout], int(lj_table), _FLAVOUR_CODE[flavour],
+        _COUL_CODE[c.coulomb], _MOD_CODE[c.modifier], *consts16, stream)
     cuda_lib.check(code, f"nb_cluster ({layout})")
     launches["table_dd" if prep.halo else layout][flavour] += 1
     return fx, fy, fz, e

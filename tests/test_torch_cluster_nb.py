@@ -249,6 +249,21 @@ def table_frame(lists):
     return nlist, prep, planes, tst.box, consts
 
 
+@pytest.fixture(scope="module")
+def cull_frames(lists, table_frame):
+    """Each layout's pack of the frame, its planes, the box and the run's
+    constants: the table pack above; K7a's of the union list of 8, K7b's
+    and K7c's (baked shifts, lane masks) of the per-cluster list."""
+    ts, tst, tl, tl8 = lists[2], lists[3], lists[5], lists[7]
+    consts = table_frame[4]
+    out = {"table": table_frame[1:]}
+    for layout, nlist in (("super", tl8), ("cluster", tl), ("v2", tl)):
+        prep = nb_cluster.PREPARE[layout](nlist, ts.nbfp)
+        out[layout] = (prep, nb_cluster.gather_planes(tst.x, tst.box, nlist,
+                                                      prep), tst.box, consts)
+    return out
+
+
 def test_table_pack_longest_row(lists, table_frame):
     """The pack's longest row is the given one, or the capacity W."""
     ts = lists[2]
@@ -259,53 +274,84 @@ def test_table_pack_longest_row(lists, table_frame):
         cnt_max=int(nlist.max_count)).cnt_max == int(prep.cnt.max())
 
 
+@pytest.mark.parametrize("layout", ["super", "cluster", "v2"])
+def test_k7_pack_warps_from_runner_flags(monkeypatch, layout):
+    """The runner's rebuild gives each K7 pack the list's longest row read
+    with its flags (n_max; K7a's union rows: s_max), and the kernel's warps
+    per i-cluster follow from it (table_warps, here on 132 SMs)."""
+    monkeypatch.setattr(nb_cluster, "sm_count", lambda device: 132)
+    ts, tst = tsolv.solvation_system(n_side=8, device="cpu")
+    p = _port_params(pme_grid=(20, 20, 20), rcoulomb=0.5, rvdw=0.5,
+                     rlist=0.5)
+    _, _, prep, fl = MdRunner(ts, p, RunnerConfig(layout=layout)).rebuild(
+        tst)
+    need = fl["s_max" if layout == "super" else "n_max"]
+    assert prep.layout == layout and 0 < need
+    assert prep.cnt_max == min(need, prep.nbr.shape[1])
+    assert prep.warps == nb_cluster.table_warps(prep.n_icl, prep.cnt_max,
+                                                132)
+    assert prep.warps > 1
+
+
+LAYOUT_IDS = ["table", "super", "cluster", "v2"]
+
+
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
 def test_cull_table_tiles_plain_never_skips_a_pair_in_the_cutoff(
-        table_frame):
-    """The plain mirror of the table kernel's tile cull on JAX's list and
-    frame: no skipped tile holds a pair in the cut-off, and some tiles are
-    skipped."""
-    _, prep, planes, box, consts = table_frame
+        cull_frames, layout):
+    """The plain mirror of the kernel's tile cull on each layout's pack of
+    the frame: no skipped tile holds a pair in the cut-off, and some
+    tiles are skipped."""
+    prep, planes, box, consts = cull_frames[layout]
     bad, keep, live = chip_smoke.table_culled_close_pairs(planes, box, prep,
                                                           consts)
     assert bad == 0
     assert 0.0 < float(keep[live].float().mean()) < 1.0
 
 
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
 @pytest.mark.parametrize("periodic", [False, True],
                          ids=["one-image", "periodic"])
 @pytest.mark.parametrize("sign", [-1.0, 1.0], ids=["inside", "outside"])
-def test_cull_table_tiles_plain_keeps_a_boundary_pair(table_frame, periodic,
-                                                      sign):
+def test_cull_table_tiles_plain_keeps_a_boundary_pair(cull_frames, periodic,
+                                                      sign, layout):
     """A pair placed on its tile's boundary at r^2 = rmax2 (1 -+ 1e-6),
-    also across the periodic boundary, keeps its tile (inside: it must;
-    outside: the margin keeps it), and no skipped tile holds a pair in the
-    cut-off."""
-    _, prep, planes, box, consts = table_frame
+    also across the periodic boundary (K7c: across a baked shift), keeps
+    its tile (inside: it must; outside: the margin keeps it), and no
+    skipped tile holds a pair in the cut-off."""
+    prep, planes, box, consts = cull_frames[layout]
     rmax2 = max(consts.rc2, consts.rv2)
     L = torch.diagonal(box)
     moved, (cl, e, h, a, b) = chip_smoke.place_table_pair(
         planes, box, prep, rmax2, sign, periodic=periodic)
     bad, keep, _ = chip_smoke.table_culled_close_pairs(
         moved, box, prep, consts)
-    r2 = chip_smoke._min_image_r2(torch.stack(moved), a, b, L)
+    sh = None
+    if layout == "v2":
+        sh = prep.shift[chip_smoke._row_of(prep, cl), e, :3] * L
+    r2 = chip_smoke._pair_r2(torch.stack(moved), a, b, L, layout, sh)
     assert sign * (r2 - np.float32(rmax2)) > 0.0
     assert abs(r2 / rmax2 - (1.0 + sign * 1e-6)) < 2e-6
-    assert abs(float(moved[0][b] - planes[0][b])) > (
-        1.0 if periodic else 0.0)
+    straddles = abs(float(moved[0][b] - moved[0][a])) > 0.5 * float(L[0])
+    assert straddles == periodic
     assert bad == 0 and bool(keep[cl, e, h])
 
 
-def test_cull_table_tiles_plain_keeps_a_nan_atoms_tiles(table_frame):
+@pytest.mark.parametrize("layout", LAYOUT_IDS)
+def test_cull_table_tiles_plain_keeps_a_nan_atoms_tiles(cull_frames,
+                                                        layout):
     """A NaN coordinate keeps every tile of its i half and every entry that
-    lists its cluster."""
-    _, prep, planes, box, consts = table_frame
+    lists its cluster (K7a: in the union row of every i-cluster of the
+    supercluster)."""
+    prep, planes, box, consts = cull_frames[layout]
     row = int(prep.nbr[0, 3]) * 8 + 5
     nan = [p.clone() for p in planes]
     nan[1][row] = float("nan")
     keep = nb_cluster.cull_table_tiles_plain(nan, box, prep, consts)
     if row < prep.n_icl * 8:
         assert bool(keep[row // 8, :, (row % 8) // 4].all())
-    hit = prep.nbr == row // 8
+    rows = chip_smoke._row_of(prep, torch.arange(prep.n_icl))
+    hit = prep.nbr[rows] == row // 8
     assert bool(hit.any()) and bool(keep[hit].all())
 
 
