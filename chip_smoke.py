@@ -7,6 +7,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 
 1. print the card's name and power limit; build every CUDA kernel from
    gromacs_fep_gpu_tpu_torch/csrc with nvcc and print the build time;
+   torch.profiler over ten pme.phi_gather calls at each path's shapes
+   (12,290, 5,186 and 81,002 atoms): ten gather kernels, no memcpy or
+   memset (phase_gather_calls);
 2. small reference: the port's MdRunner on the GPU (kernels) against the
    same run on the CPU (plain versions) for a 650-atom box, with a
    5-window lambda ladder: positions, energies, dV/dlambda and the
@@ -17,13 +20,21 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    tau_t 0.1 ps, no MTS, 2000 steps (1 ps), through MdRunner.run;
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (equilibrated state, production pair list), with
-   its time, its plain version's time and its bound; then the spread
+   its time, its plain version's time and its bound (the gather also: no
+   sync under set_sync_debug_mode("error"), the whole pme.phi_gather
+   call's host time, bit-identical repeats); then the spread
    kernel's edge cases (spread_edge_cases: supports that wrap on each
    axis, a triclinic box, 4,096 atoms in one grid cell, n = 1, 17 and 0, a
    non-finite atom of zero charge, a 5-atom perturbed subset) against
    spread_plain, grid rel 1e-4 and NaN exactly where it has NaN; then the
-   v2u kernel's edge cases (phase_v2u_edges: a pair placed on its tile's
-   box distance at rc^2 (1 -+ 1e-6), a NaN atom, the minimum image on a
+   gather kernel on the same cases (phase_gather_edges, reading edge_phi)
+   against gather_plain, forces rel 5e-4 and dE/dq rel 1e-4, NaN in
+   exactly its rows, repeats bit-identical, n = 0 launching nothing, and
+   neutral atoms gathered (dE/dq as the plain version's, force 0); the
+   synchronising operations left in one PME reciprocal force call
+   (pme_sync_report, a print); then the v2u kernel's edge cases
+   (phase_v2u_edges: a pair placed on its tile's box distance at rc^2
+   (1 -+ 1e-6), a NaN atom, the minimum image on a
    small box and at 12,290 atoms, a skewed ng that splits) against
    plane_gather + nb_v2u_plain at the gates, NaN in exactly its rows;
    K1's rows print the tiles that the cull keeps, the split and the
@@ -44,8 +55,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    on exactly the sweep steps and ~0 for the own window; dhdl.xvg is
    written and read back and BAR's estimate of the 10 -> 11 leg printed;
 8. K4/K5: spread and phi_gather at that path's shapes against their plain
-   versions, with time, bound and index_add_ time; the foreign sweep's
-   time and launch count;
+   versions (the gather as in phase 4, and against the any-order einsum
+   body), with time, bound and index_add_ time; the foreign sweep's time
+   and launch count;
 9. NPT lambda window: from the window path's equilibrated state at window
    10, C-rescale (isotropic, tau_p 1 ps, ref_p 1 bar, compressibility
    4.5e-5 /bar, nstpcouple 10) with the dispersion correction (DispCorr =
@@ -110,12 +122,14 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    dV/dlambda rel 1e-4 of max |dV/dlambda|); 400 MTS2 steps of the main
    path under DD with exact launch counts (K6 8 per step, K2/K3 8 per
    reciprocal step), ms/step and ns/day beside the single-domain figure;
-   then the CHARMM path under DD (the table route's kernel on each
-   domain's i-cluster range: F and VF against its plain version, then 100
-   steps, launches exact);
+   then the main path under DD's device time and kernels per step
+   (torch.profiler over two rebuilds); then the CHARMM path under DD (the
+   table route's kernel on each domain's i-cluster range: F and VF
+   against its plain version, then 100 steps, launches exact);
 15. 81,002 atoms (n_side 30, 9.3 nm box, 80^3 PME grid), first run at that
-   size: the DD force against the single-domain force at the lattice
-   start (the gates of 14), then 100 steps each of the single-domain and
+   size: the gather kernel at this size (as in phase 4), the DD force
+   against the single-domain force at the lattice start (the gates of
+   14), then 100 steps each of the single-domain and
    the DD runner with the equilibration parameters (dt 0.5 fs, tau_t 0.1
    ps), finite energies, no halo violation, ms/step of both.
 
@@ -165,10 +179,12 @@ FLOPS_PAIR_TABLE = 80
 # so the operations bound counts unique pairs x (pair flops + 6)
 FLOPS_JFORCE = 6
 FLOPS_SPREAD_ATOM = 72 + 16 + 128
-# atoms per CTA of the spread kernel (csrc/pme_spline.cu kSpreadAtoms: 16
-# tap threads per atom in CTAs of 128)
-SPREAD_ATOMS_PER_CTA = 8
-FLOPS_GATHER_ATOM = 90 + 256 + 192
+# atoms per CTA of the spread and gather kernels (csrc/pme_spline.cu
+# kAtoms: 16 tap threads per atom in CTAs of 128)
+PME_ATOMS_PER_CTA = 8
+# the force conversion inside the gather: g_d (6), the closed-form inverse
+# of the box (15), the three forces (12)
+FLOPS_GATHER_ATOM = 90 + 256 + 192 + 33
 TEMP_BAND = (260.0, 380.0)      # K, every production step
 # the CHARMM path (GROMACS manual, "Force fields in GROMACS -> CHARMM")
 CHARMM_RC, CHARMM_RSW = 1.2, 1.0
@@ -779,10 +795,11 @@ def _k1_kernel_rows(runner, state, timer, flavours):
 def _pme_kernel_rows(x, box, q, params, timer, small):
     """Spread and gather at one path's shapes against their plain versions
     (the lambda-mixed charges of the step).  small=False: K2/K3 of the
-    12,290-atom path, the kernel wrappers against spread_plain and
-    gather_plain.  small=True: K4/K5 of the window path, through the entry
-    points that stand for the small-system TPU kernels, _spread_dispatch
-    and phi_gather, the latter against its einsum body."""
+    12,290-atom path, the spread wrapper against spread_plain.
+    small=True: K4/K5 of the window path, the spread through
+    _spread_dispatch, the entry point that stands for the small-system TPU
+    kernel.  The gather goes through pme.phi_gather at both (_gather_row),
+    at small=True also against the any-order einsum body."""
     from gromacs_fep_gpu_tpu_torch.ops import pme, pme_kernels
     from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
     K = tuple(params.pme_grid)
@@ -819,7 +836,7 @@ def _pme_kernel_rows(x, box, q, params, timer, small):
     # the kernel's atomics add in an order that changes from run to run:
     # the grid is held at the energy gate, rel 1e-4 of its largest value
     ok = s_rel <= E_REL
-    ctas = -(-n // SPREAD_ATOMS_PER_CTA)
+    ctas = -(-n // PME_ATOMS_PER_CTA)
     _say(f"pme_spread{sfx}: n={n} ({int((q == 0).sum())} neutral) grid {K}, "
          f"{ctas} CTAs; grid rel {s_rel:.2e} -> "
          f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms, of which the grid's "
@@ -840,45 +857,130 @@ def _pme_kernel_rows(x, box, q, params, timer, small):
     influence = pme.influence_tensors(
         pme.make_influence_function(K, params.pme_order), x.device)
     _, phi = pme.energy_and_potential(g_p, box, get_beta(params), influence)
-    if small:
-        before = pme_kernels.launches["gather", K]
-        f_k, d_k = pme.phi_gather(x, box, q, phi, K, params.pme_order)
-        if pme_kernels.launches["gather", K] != before + 1:
-            raise AssertionError("pme_gather_small: phi_gather did not "
-                                 "launch the gather kernel")
-        f_p, d_p = pme.phi_gather_plain(x, box, q, phi, K, params.pme_order)
+    rows.append(_gather_row(
+        "pme_gather" + sfx, x, box, q, phi, K, timer,
+        ("gromacs_fep_gpu_tpu/ops/pme_pallas.py:170" if small
+         else "gromacs_fep_gpu_tpu/ops/pme_blocked.py:447"), einsum=small))
+    return rows
 
-        def plain():
-            return pme.phi_gather_plain(x, box, q, phi, K, params.pme_order)
-    else:
-        o_k = pme_kernels.gather_cuda(x, box, q, phi)
-        o_p = pme_kernels.gather_plain(x, box, q, phi)
-        (f_k, d_k), (f_p, d_p) = ((o[:, :3], o[:, 3]) for o in (o_k, o_p))
 
-        def plain():
-            return pme_kernels.gather_plain(x, box, q, phi)
+def _host_call_ms(fn, reps=REPS):
+    """Median host time of one call of fn ending in synchronize()."""
+    fn()
     torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _device_ops(fn, calls):
+    """torch.profiler over `calls` calls of fn: (kernels, memcpy and memset
+    operations, the kernels' names) on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def is_copy(e):
+        return e.key.startswith(("Memcpy", "Memset"))
+    return (sum(e.count for e in ev if not is_copy(e)),
+            sum(e.count for e in ev if is_copy(e)),
+            sorted({e.key for e in ev if not is_copy(e)}))
+
+
+def phase_gather_calls():
+    """The whole pme.phi_gather call at the three paths' shapes (lattice
+    starts of 12,290, 5,186 and 81,002 atoms, edge_phi): torch.profiler
+    over ten calls must see ten gather kernels and no memcpy or memset.
+    It runs first, while the process has profiled nothing else: on the
+    H100 with torch 2.11, each long profiled window (20 steps of the main
+    path) left a later short window with fewer of its device events, until
+    none were seen, with or without idle time around the calls."""
+    from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    from gromacs_fep_gpu_tpu_torch.ops import pme
+    for n_side in (N_SIDE, N_SIDE_WINDOW, N_SIDE_BIG):
+        system, state = solvation_system(n_side=n_side, seed=0,
+                                         device="cuda")
+        K = tuple(_params(True, n_side).pme_grid)
+        q = (0.5 * system.charge_a + 0.5 * system.charge_b).contiguous()
+        phi = torch.as_tensor(edge_phi(K), device="cuda")
+        n_kern, n_copy, names = _device_ops(
+            lambda: pme.phi_gather(state.x, state.box, q, phi, K), 10)
+        ok = (n_kern == 10 and n_copy == 0
+              and all("pme_gather_kernel" in k for k in names))
+        _say(f"pme.phi_gather at {system.n_atoms:,} atoms, grid {K}: "
+             f"{n_kern} kernels and {n_copy} memcpy/memset in 10 calls "
+             f"(torch.profiler), {names} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("a phi_gather call is not one kernel "
+                                 "launch without copies")
+
+
+def _gather_row(name, x, box, q, phi, K, timer, replaces, einsum=False):
+    """The gather kernel at one path's shapes: the entry point
+    pme.phi_gather (one launch) and a second launch bit-identical, forces
+    at F_REL and dE/dq at E_REL of their largest against gather_plain (with
+    einsum, also against the any-order einsum body); the kernel alone
+    (CUDA events), the whole phi_gather call on the host clock ending in
+    synchronize() and one call under set_sync_debug_mode("error") (its
+    device operations: phase_gather_calls).  Returns the kernel row."""
+    from gromacs_fep_gpu_tpu_torch.ops import pme, pme_kernels
+    n = x.shape[0]
+
+    def call():
+        return pme.phi_gather(x, box, q, phi, K)
+    before = pme_kernels.launches["gather", K]
+    f_k, d_k = call()
+    if pme_kernels.launches["gather", K] != before + 1:
+        raise AssertionError(f"{name}: phi_gather did not launch the "
+                             "gather kernel once")
+    f_2, d_2 = pme_kernels.gather_cuda(x, box, q, phi)
+    f_p, d_p = pme_kernels.gather_plain(x, box, q, phi)
+    torch.cuda.synchronize()
+    same = _bits_equal(f_k, f_2) and _bits_equal(d_k, d_2)
     gf_rel, gf_abs = _rel(f_k, f_p)
     gq_rel, gq_abs = _rel(d_k, d_p)
+    ok = same and gf_rel <= F_REL and gq_rel <= E_REL
+    more = ""
+    if einsum:
+        f_e, d_e = pme.phi_gather_plain(x, box, q, phi, K, 4)
+        ef, _ = _rel(f_k, f_e)
+        eq, _ = _rel(d_k, d_e)
+        ok = ok and ef <= F_REL and eq <= E_REL
+        more = f"; against the einsum body force rel {ef:.2e}, dE/dq {eq:.2e}"
     ms = timer.ms(lambda: pme_kernels.gather_cuda(x, box, q, phi))
-    plain_ms = _median_ms(plain)
-    bound, by = _bound_ms(16 * n + 4 * ng + 36 + 16 * n,
+    call_ms = _host_call_ms(call)
+    plain_ms = _median_ms(lambda: pme_kernels.gather_plain(x, box, q, phi))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    bound, by = _bound_ms(32 * n + 4 * K[0] * K[1] * K[2] + 36,
                           FLOPS_GATHER_ATOM * n)
-    ok = gf_rel <= F_REL and gq_rel <= E_REL
-    _say(f"pme_gather{sfx}: force rel {gf_rel:.2e}, dE/dq rel {gq_rel:.2e} "
-         f"-> {'ok' if ok else 'FAIL'}; {ms:.4f} ms (plain {plain_ms:.3f} "
-         f"ms, bound {bound:.5f} ms by {by})")
+    _say(f"{name}: n={n} grid {K}, {-(-n // PME_ATOMS_PER_CTA)} CTAs; "
+         f"force rel {gf_rel:.2e}, dE/dq rel {gq_rel:.2e}{more}; repeat "
+         f"{'bit-identical' if same else 'DIFFERS'}; no sync under sync "
+         f"debug -> {'ok' if ok else 'FAIL'}; kernel {ms:.5f} ms, "
+         f"whole phi_gather call {call_ms:.4f} ms on the host clock (plain "
+         f"{plain_ms:.3f} ms, bound {bound:.6f} ms by {by})")
     if not ok:
-        raise AssertionError(f"pme_gather{sfx} disagrees with its plain "
-                             "version")
-    rows.append(dict(
-        name="pme_gather" + sfx, route="cuda",
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return dict(
+        name=name, route="cuda",
         source="gromacs_fep_gpu_tpu_torch/csrc/pme_spline.cu",
-        replaces=("gromacs_fep_gpu_tpu/ops/pme_pallas.py:170" if small
-                  else "gromacs_fep_gpu_tpu/ops/pme_blocked.py:447"),
-        max_abs_err=max(gf_abs, gq_abs), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=None))
-    return rows
+        replaces=replaces, max_abs_err=max(gf_abs, gq_abs), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        call_ms=call_ms)
 
 
 def spread_edge_cases(seed=7):
@@ -936,6 +1038,12 @@ def spread_edge_cases(seed=7):
     return cases
 
 
+def edge_phi(grid, seed=11):
+    """The potential grid that the gather's edge cases read, made with
+    numpy from `seed`."""
+    return np.random.RandomState(seed).normal(size=grid).astype(np.float32)
+
+
 def phase_spread_edges(timer):
     """The spread kernel against spread_plain on each of spread_edge_cases:
     NaN in exactly the cells where the plain grid has NaN, the other cells
@@ -965,7 +1073,7 @@ def phase_spread_edges(timer):
             rel, _ = _rel(g_k[~nan_p], g_p[~nan_p])
             ok = same_nan and rel <= E_REL
         _say(f"spread edge {name}: n={x.shape[0]} grid {K}, "
-             f"{-(-x.shape[0] // SPREAD_ATOMS_PER_CTA)} CTAs; grid rel "
+             f"{-(-x.shape[0] // PME_ATOMS_PER_CTA)} CTAs; grid rel "
              f"{rel:.2e}, NaN cells {int(nan_k.sum())} (plain "
              f"{int(nan_p.sum())}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -981,6 +1089,99 @@ def phase_spread_edges(timer):
          f"{crowd_ms:.4f} ms; triclinic 2,000 atoms {charged_ms:.4f} ms "
          f"charged, {neutral_ms:.4f} ms all neutral (skipped after the "
          f"barrier); the edge phase took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_gather_edges(timer):
+    """The gather kernel against gather_plain on each of spread_edge_cases,
+    reading edge_phi of the case's grid: NaN in exactly the plain
+    version's rows (forces and dE/dq), the other rows at F_REL (forces) and
+    E_REL (dE/dq) of their largest, a second launch bit-identical; n = 0
+    launches nothing.  Then neutral atoms (the triclinic case at q = 0:
+    dE/dq as the plain version's, every force exactly 0), and the times of
+    the crowd and of the triclinic case."""
+    from gromacs_fep_gpu_tpu_torch.ops import pme_kernels
+    t0 = time.perf_counter()
+    cases = spread_edge_cases()
+    by_name = {c[0]: c[1:] for c in cases}
+
+    def on_card(name):
+        x, box, q, K = by_name[name]
+        return (*(torch.as_tensor(a, device="cuda")
+                  for a in (x, box, q, edge_phi(K))), K)
+
+    def check(what, x, box, q, phi, K):
+        before = pme_kernels.launches["gather", K]
+        f_k, d_k = pme_kernels.gather_cuda(x, box, q, phi)
+        f_2, d_2 = pme_kernels.gather_cuda(x, box, q, phi)
+        f_p, d_p = pme_kernels.gather_plain(x, box, q, phi)
+        torch.cuda.synchronize()
+        n = x.shape[0]
+        bad = torch.isnan(d_p)
+        same_nan = (torch.equal(torch.isnan(d_k), bad)
+                    and torch.equal(torch.isnan(f_k).any(1), bad)
+                    and bool(torch.isnan(f_k[bad]).all())
+                    and torch.equal(torch.isnan(f_p).any(1), bad))
+        same = _bits_equal(f_k, f_2) and _bits_equal(d_k, d_2)
+        launched = pme_kernels.launches["gather", K] - before
+        rel_f = rel_q = 0.0
+        if n == 0:
+            ok = (launched == 0 and f_k.shape == (0, 3)
+                  and d_k.shape == (0,))
+        else:
+            rel_f, _ = _rel(f_k[~bad], f_p[~bad])
+            rel_q, _ = _rel(d_k[~bad], d_p[~bad])
+            ok = (launched == 2 and same_nan and same and rel_f <= F_REL
+                  and rel_q <= E_REL)
+        _say(f"gather edge {what}: n={n} grid {K}, {launched} launches; "
+             f"force rel {rel_f:.2e}, dE/dq rel {rel_q:.2e}, NaN rows "
+             f"{int(torch.isnan(d_k).sum())} (plain {int(bad.sum())}), "
+             f"repeat {'bit-identical' if same else 'DIFFERS'} -> "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"gather edge case {what}: the kernel "
+                                 "disagrees with gather_plain")
+        return f_k, d_k, d_p
+    for name, *_ in cases:
+        check(name, *on_card(name))
+    x, box, q, phi, K = on_card("triclinic")
+    q0 = torch.zeros_like(q)
+    f0, d0, d0_p = check("triclinic, all neutral", x, box, q0, phi, K)
+    if not (bool((f0 == 0).all()) and bool((d0 != 0).all())):
+        raise AssertionError("gather edge: a neutral atom has a force, or "
+                             "no dE/dq")
+    tri_ms = timer.ms(lambda: pme_kernels.gather_cuda(x, box, q, phi))
+    x, box, q, phi, K = on_card("crowd")
+    crowd_ms = timer.ms(lambda: pme_kernels.gather_cuda(x, box, q, phi))
+    _say(f"gather edge timings: crowd (4,096 atoms in one cell) "
+         f"{crowd_ms:.5f} ms; triclinic 2,000 atoms {tri_ms:.5f} ms; the "
+         f"edge phase took {time.perf_counter() - t0:.1f} s")
+
+
+def pme_sync_report(runner, state):
+    """One PME reciprocal force call (_recip_force_fn: spread, solve,
+    gather, the E[dq] term of the perturbed charges) on the main path's
+    frame under torch.cuda.set_sync_debug_mode("warn"): prints each
+    synchronising operation left in it, by file and line (a print, not a
+    gate)."""
+    import collections
+    x, box, lam_c = state.x, state.box, state.lam[2]
+    runner.recip_force_fn(x, box, lam_c)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            runner.recip_force_fn(x, box, lam_c)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    where = collections.Counter(
+        f"{w.filename.rsplit('/', 2)[-2]}/{w.filename.rsplit('/', 1)[-1]}"
+        f":{w.lineno}" for w in caught
+        if "called a synchronizing" in str(w.message))
+    _say(f"PME syncs in one reciprocal force call (main path frame): "
+         f"{sum(where.values())}"
+         + "".join(f"; {k} x{v}" for k, v in sorted(where.items())))
 
 
 def place_boundary_pair(plane, box, prep, rmax2, sign, first_block=0,
@@ -2588,6 +2789,8 @@ def phase_dd(system, params, state, caps, timer, smi, ms_single):
          f"{dd.config.baked_shifts}); T {float(lg.temp.min()):.1f}.."
          f"{float(lg.temp.max()):.1f} K; Epot "
          f"{[round(float(e), 1) for e in lg.epot[on]]}")
+    _say("main path under DD, where the time goes:")
+    _profile_window(dd, st, 2 * params.nstlist, ms_step)
     for r in rows:
         r["launches"] = counts[r["name"]]
     return rows
@@ -2615,11 +2818,15 @@ def phase_dd_charmm(device, start, nnbr, timer, smi):
     return rows
 
 
-def phase_dd_big(device, smi):
+def phase_dd_big(device, smi, timer):
     """Phase 15: 81,002 atoms, single-domain and DD, from the lattice
-    start with the equilibration parameters."""
+    start with the equilibration parameters; the gather kernel at this
+    size first (_gather_row).  Returns the gather's row, its launches
+    those of the single-domain run."""
     from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
     from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
+    from gromacs_fep_gpu_tpu_torch.ops import pme, pme_kernels
+    from gromacs_fep_gpu_tpu_torch.ops.forces import get_beta
     system, state = solvation_system(n_side=N_SIDE_BIG, seed=0,
                                      device=device)
     state = _decoupled(state)
@@ -2627,25 +2834,36 @@ def phase_dd_big(device, smi):
         dt=0.0005, tau_t=0.1, nsttcouple=1)
     _say(f"81k system: {system.n_atoms} atoms, box "
          f"{float(state.box[0, 0]):.2f} nm, PME grid {params.pme_grid}")
+    K = tuple(params.pme_grid)
+    lam_c = float(state.lam[2])
+    q = ((1.0 - lam_c) * system.charge_a + lam_c * system.charge_b
+         ).contiguous()
+    _, phi = pme.energy_and_potential(
+        pme_kernels.spread_plain(state.x, state.box, q, K), state.box,
+        get_beta(params), pme.influence_tensors(
+            pme.make_influence_function(K, 4), state.x.device))
+    row = _gather_row("pme_gather_big", state.x, state.box, q, phi, K,
+                      timer, "gromacs_fep_gpu_tpu/ops/pme_blocked.py:447")
     kw = dict(super_nnbr=448, fep_max_nbr=512, seed=8)
     single = MdRunner(system, params, RunnerConfig(**kw))
     dd = _dd_runner(system, params, _dd_mesh(), **kw)
     _dd_force_check(single, dd, state, f"{system.n_atoms:,} atoms, lattice "
                     "start")
-    out = {}
     for name, r in (("single-domain", single), ("DD", dd)):
         st, lg, sec, counts = _drive(r, state, BIG_STEPS,
                                      f"{system.n_atoms:,} atoms, {name}")
         on = torch.isfinite(lg.epot)
-        out[name] = sec / BIG_STEPS * 1e3
+        row["launches" if r is single else "launches_dd"] = \
+            counts["pme_gather_big"]
         _say(f"{system.n_atoms:,} atoms, {name}: {BIG_STEPS} steps (dt 0.5 "
-             f"fs), {out[name]:.3f} ms/step on {smi}; regrows {r.n_regrow} "
+             f"fs), {sec / BIG_STEPS * 1e3:.3f} ms/step on {smi}; regrows "
+             f"{r.n_regrow} "
              f"(super_nnbr {r.config.super_nnbr}, baked shifts "
              f"{r.config.baked_shifts}); flags {r.last_flags}; Epot "
              f"{[round(float(e), 1) for e in lg.epot[on]]}; T "
              f"{float(lg.temp[-1]):.1f} K; NB launches "
              f"{ {k: v for k, v in counts.items() if k.startswith('nb_') and v} }")
-    return out
+    return row
 
 
 def run(device="cuda", smi=None):
@@ -2663,6 +2881,7 @@ def run(device="cuda", smi=None):
         _say(f"-- {what} done at {time.perf_counter() - t_start:.1f} s")
     phase_build()
     timer = DeviceTimer()
+    phase_gather_calls()
 
     phase_small_reference(device)
     done("small reference")
@@ -2688,6 +2907,8 @@ def run(device="cuda", smi=None):
         seed=1))
     rows = phase_kernels(prod, state, timer)
     phase_spread_edges(timer)
+    phase_gather_edges(timer)
+    pme_sync_report(prod, state)
     phase_v2u_edges(prod, state, (eq.config.super_nnbr,
                                   eq.config.fep_max_nbr))
     cluster_rows = phase_cluster_kernels(
@@ -2733,7 +2954,7 @@ def run(device="cuda", smi=None):
     dd_rows += phase_dd_charmm(device, charmm_state, charmm_nnbr, timer,
                                smi)
     done("CHARMM path under DD")
-    phase_dd_big(device, smi)
+    big_rows = [phase_dd_big(device, smi, timer)]
     done("81,002 atoms")
 
     window_rows, window_counts, npt_start = phase_window(device, timer, smi)
@@ -2744,7 +2965,8 @@ def run(device="cuda", smi=None):
         if r["name"].startswith("nb_v2u"):    # K1 runs on every path
             r["launches_window"] = window_counts[r["name"]]
             r["launches_npt"] = npt_counts[r["name"]]
-    rows += cluster_rows + table_rows + dd_rows + window_rows + npt_rows
+    rows += (cluster_rows + table_rows + dd_rows + big_rows + window_rows
+             + npt_rows)
     for r in rows:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never ran on its path")

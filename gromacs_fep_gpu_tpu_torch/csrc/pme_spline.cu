@@ -41,8 +41,38 @@
 // Each tap's value is ((q wx) wy) wz, the plain version's product, so only
 // the order of the sums differs from it (atomics, from run to run).
 //
-// The gather: one thread per atom reads its 4x4x4 support with plain loads
-// (no atomics, 64 loads from the L2-resident potential grid).
+// The gather.  It reads the same support from the L2-resident potential
+// grid and writes each atom's forces and dE/dq, the outputs of the TPU
+// functions.  Bytes do not bound it either (0.2 us at 12,290 atoms on a
+// 42^3 grid): its latency and the launch do.  One thread per atom left
+// the launch under one wave (97 CTAs of 128 at 12,290 atoms) and each
+// thread a chain of three divisions and 64 loads, each warp-wide load
+// touching 32 unrelated rows; and the wrapper converted the output to
+// forces in some 45 eager launches and a host-to-device copy.  The design:
+//   - the spread's layout: 16 tap threads per atom, 8 atoms per CTA of
+//     128 (1,537 CTAs at 12,290 atoms), the support staged in shared
+//     memory by 3 threads per atom (warp 0), here with the derivative
+//     weights and the wrapped cell indices (two compares, no modulus),
+//     while one thread of warp 1 computes the box's inverse;
+//   - tap thread t owns (j, k) = (t / 4, t % 4) and loops over the 4 x
+//     taps: the 4 threads of a grid row read 4 neighbouring cells in one
+//     instruction (one sector request, two where the row crosses a sector
+//     or wraps at K3), and each thread keeps 4 partial sums (phi w and the
+//     three derivative products);
+//   - a fixed-order reduction: __shfl_xor_sync over 8, 4, 2, 1 within each
+//     16-lane half-warp, so repeats are bit-identical (no atomics, no
+//     memset); lane 0 of each atom writes its outputs;
+//   - the force conversion F_e = -sum_d q K_d dphi/du_d binv[e, d] inside
+//     the kernel, with binv of the lower-triangular box in closed form,
+//     staged once per CTA;
+//   - a neutral atom is gathered like any other (its dE/dq feeds dV/dl;
+//     its force is 0), the tail CTA's missing atoms stage the support of
+//     u = 0 and are masked at the store, after the shuffles.
+// No grid tile in shared memory: the atoms of a CTA are not spatially
+// bucketed.  The layout holds 128 atoms in flight per SM where one thread
+// per atom held 2,048, and it spends more instructions per atom (the
+// shuffles, the staging): at 81,002 atoms, where one thread per atom
+// already fills the card, it is the slower of the two.
 //
 // Weights: closed-form M4(w + j), j = 0..3 (the _w4 of the TPU kernel),
 // tap j at grid cell (floor(u) - j) mod K; derivative taps
@@ -90,20 +120,25 @@ __device__ __forceinline__ int wrap(int i, int K) {
   return r < 0 ? r + K : r;
 }
 
-// the spread: order^2 tap threads per atom, kSpreadAtoms atoms per CTA
-constexpr int kSpreadThreads = 128;
-constexpr int kTaps = 16;
-constexpr int kSpreadAtoms = kSpreadThreads / kTaps;
+// wrap() for i in [-3, K], the taps of a cell floor(u), u in [0, K]
+__device__ __forceinline__ int wrap_tap(int i, int K) {
+  return i < 0 ? i + K : i >= K ? i - K : i;
+}
 
-__global__ void __launch_bounds__(kSpreadThreads)
+// both kernels: order^2 tap threads per atom, kAtoms atoms per CTA
+constexpr int kThreads = 128;
+constexpr int kTaps = 16;
+constexpr int kAtoms = kThreads / kTaps;
+
+__global__ void __launch_bounds__(kThreads)
 pme_spread_kernel(const float* __restrict__ x, const float* __restrict__ q,
                   const float* __restrict__ box, float* __restrict__ grid,
                   int n, int K1, int K2, int K3) {
-  __shared__ int s_g[kSpreadAtoms][3];
-  __shared__ float s_w[kSpreadAtoms][3][4];
-  __shared__ float s_q[kSpreadAtoms];
-  const int a0 = blockIdx.x * kSpreadAtoms;
-  if (threadIdx.x < 3 * kSpreadAtoms) {
+  __shared__ int s_g[kAtoms][3];
+  __shared__ float s_w[kAtoms][3][4];
+  __shared__ float s_q[kAtoms];
+  const int a0 = blockIdx.x * kAtoms;
+  if (threadIdx.x < 3 * kAtoms) {
     // stage: thread (atom la, axis d) computes that axis of the support
     const int la = threadIdx.x / 3, d = threadIdx.x - 3 * la;
     const int a = a0 + la;
@@ -139,65 +174,103 @@ pme_spread_kernel(const float* __restrict__ x, const float* __restrict__ q,
               qa * s_w[la][0][i] * wy * wz);
 }
 
-__global__ void pme_gather_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ q,
-                                  const float* __restrict__ box,
-                                  const float* __restrict__ phi,
-                                  float* __restrict__ out, int n, int K1,
-                                  int K2, int K3) {
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  if (a >= n) return;
-  const Box b = load_box(box);
-  float u[3];
-  grid_coords(x + 3 * a, b, K1, K2, K3, u);
-  if (!(isfinite(u[0]) && isfinite(u[1]) && isfinite(u[2]))) {
-    const float bad = nanf("");
-    out[4 * a] = bad;
-    out[4 * a + 1] = bad;
-    out[4 * a + 2] = bad;
-    out[4 * a + 3] = bad;
-    return;
-  }
-  const int g0 = (int)floorf(u[0]), g1 = (int)floorf(u[1]),
-            g2 = (int)floorf(u[2]);
-  float wx[4], wy[4], wz[4], dx[4], dy[4], dz[4], m3[3];
-  weights4(u[0] - (float)g0, wx, m3);
-  dx[0] = m3[0]; dx[1] = m3[1] - m3[0]; dx[2] = m3[2] - m3[1]; dx[3] = -m3[2];
-  weights4(u[1] - (float)g1, wy, m3);
-  dy[0] = m3[0]; dy[1] = m3[1] - m3[0]; dy[2] = m3[2] - m3[1]; dy[3] = -m3[2];
-  weights4(u[2] - (float)g2, wz, m3);
-  dz[0] = m3[0]; dz[1] = m3[1] - m3[0]; dz[2] = m3[2] - m3[1]; dz[3] = -m3[2];
-  int iz[4];
+// the gather, on the spread's layout
+__global__ void __launch_bounds__(kThreads)
+pme_gather_kernel(const float* __restrict__ x, const float* __restrict__ q,
+                  const float* __restrict__ box,
+                  const float* __restrict__ phi,
+                  float* __restrict__ forces, float* __restrict__ dedq,
+                  int n, int K1, int K2, int K3) {
+  __shared__ int s_c[kAtoms][3][4];     // wrapped cell of each tap
+  __shared__ float s_w[kAtoms][3][4];
+  __shared__ float s_dw[kAtoms][3][4];
+  __shared__ float s_q[kAtoms];
+  __shared__ int s_ok[kAtoms];
+  __shared__ float s_binv[6];           // i00, i10, i11, i20, i21, i22
+  const int a0 = blockIdx.x * kAtoms;
+  if (threadIdx.x < 3 * kAtoms) {
+    // stage (warp 0): thread (atom la, axis d) computes that axis of the
+    // support
+    const int la = threadIdx.x / 3, d = threadIdx.x - 3 * la;
+    const int a = a0 + la;
+    bool ok = false;
+    float ud = 0.0f;              // a missing or non-finite atom: u = 0
+    if (a < n) {
+      float u[3];
+      grid_coords(x + 3 * a, load_box(box), K1, K2, K3, u);
+      ok = isfinite(u[0]) && isfinite(u[1]) && isfinite(u[2]);
+      if (ok) ud = d == 0 ? u[0] : d == 1 ? u[1] : u[2];
+    }
+    const int K = d == 0 ? K1 : d == 1 ? K2 : K3;
+    const int g = (int)floorf(ud);
+    float m3[3];
+    weights4(ud - (float)g, s_w[la][d], m3);
+    s_dw[la][d][0] = m3[0];
+    s_dw[la][d][1] = m3[1] - m3[0];
+    s_dw[la][d][2] = m3[2] - m3[1];
+    s_dw[la][d][3] = -m3[2];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) iz[k] = wrap(g2 - k, K3);
-  float pw = 0.f, fxu = 0.f, fyu = 0.f, fzu = 0.f;
+    for (int i = 0; i < 4; ++i) s_c[la][d][i] = wrap_tap(g - i, K);
+    if (d == 0) {
+      s_q[la] = a < n ? q[a] : 0.0f;
+      s_ok[la] = ok;
+    }
+  } else if (threadIdx.x == 32) {
+    // meanwhile (warp 1): the inverse of the lower-triangular box in
+    // closed form, in gather_plain's order of operations
+    const Box b = load_box(box);
+    s_binv[0] = 1.0f / b.ax;
+    s_binv[1] = -b.bx / (b.ax * b.by);
+    s_binv[2] = 1.0f / b.by;
+    s_binv[3] = (b.bx * b.cy - b.by * b.cx) / (b.ax * b.by * b.cz);
+    s_binv[4] = -b.cy / (b.by * b.cz);
+    s_binv[5] = 1.0f / b.cz;
+  }
+  __syncthreads();
+  const int la = threadIdx.x / kTaps, t = threadIdx.x % kTaps;
+  const int j = t / 4, k = t % 4;
+  // 32-bit cell offsets: the wrapper takes grids of < 2^31 cells
+  const int yz = s_c[la][1][j] * K3 + s_c[la][2][k];
+  const int K23 = K2 * K3;
+  float px = 0.0f, pdx = 0.0f;    // sum over the x taps of w phi, dw phi
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int rx = wrap(g0 - i, K1) * K2;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* row = phi + (size_t)(rx + wrap(g1 - j, K2)) * K3;
-      float p = 0.f, pdz = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float v = row[iz[k]];
-        p += wz[k] * v;
-        pdz += dz[k] * v;
-      }
-      pw += wx[i] * wy[j] * p;
-      fxu += dx[i] * wy[j] * p;
-      fyu += wx[i] * dy[j] * p;
-      fzu += wx[i] * wy[j] * pdz;
-    }
+    const float v = __ldg(phi + s_c[la][0][i] * K23 + yz);
+    px += s_w[la][0][i] * v;
+    pdx += s_dw[la][0][i] * v;
   }
-  const float qa = q[a];
-  out[4 * a] = qa * fxu;
-  out[4 * a + 1] = qa * fyu;
-  out[4 * a + 2] = qa * fzu;
-  out[4 * a + 3] = pw;
+  const float wy = s_w[la][1][j], wz = s_w[la][2][k];
+  float pw = wy * wz * px;                        // phi at the atom
+  float fx = wy * wz * pdx;                       // dphi/du_x
+  float fy = s_dw[la][1][j] * wz * px;            // dphi/du_y
+  float fz = wy * s_dw[la][2][k] * px;            // dphi/du_z
+  // fixed-order reduction over the atom's 16 lanes (a half-warp)
+#pragma unroll
+  for (int m = kTaps / 2; m > 0; m >>= 1) {
+    pw += __shfl_xor_sync(0xffffffffu, pw, m);
+    fx += __shfl_xor_sync(0xffffffffu, fx, m);
+    fy += __shfl_xor_sync(0xffffffffu, fy, m);
+    fz += __shfl_xor_sync(0xffffffffu, fz, m);
+  }
+  const int a = a0 + la;
+  if (t != 0 || a >= n) return;
+  if (!s_ok[la]) {                // fail hard: NaN in the atom's row
+    const float bad = nanf("");
+    forces[3 * a] = bad;
+    forces[3 * a + 1] = bad;
+    forces[3 * a + 2] = bad;
+    dedq[a] = bad;
+    return;
+  }
+  // F_e = -sum_d g_d binv[e, d], g_d = q K_d dphi/du_d
+  const float qa = s_q[la];
+  const float g0 = fx * qa * (float)K1, g1 = fy * qa * (float)K2,
+              g2 = fz * qa * (float)K3;
+  forces[3 * a] = -(g0 * s_binv[0]);
+  forces[3 * a + 1] = -(g0 * s_binv[1] + g1 * s_binv[2]);
+  forces[3 * a + 2] = -(g0 * s_binv[3] + g1 * s_binv[4] + g2 * s_binv[5]);
+  dedq[a] = pw;
 }
-
-constexpr int kThreads = 128;
 
 }  // namespace
 
@@ -205,8 +278,8 @@ extern "C" int pme_spread_launch(const float* x, const float* q,
                                  const float* box, float* grid, int n,
                                  int K1, int K2, int K3, void* stream) {
   if (n > 0)
-    pme_spread_kernel<<<(n + kSpreadAtoms - 1) / kSpreadAtoms,
-                        kSpreadThreads, 0,
+    pme_spread_kernel<<<(n + kAtoms - 1) / kAtoms,
+                        kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         x, q, box, grid, n, K1, K2, K3);
   return (int)cudaGetLastError();
@@ -214,11 +287,12 @@ extern "C" int pme_spread_launch(const float* x, const float* q,
 
 extern "C" int pme_gather_launch(const float* x, const float* q,
                                  const float* box, const float* phi,
-                                 float* out, int n, int K1, int K2, int K3,
-                                 void* stream) {
+                                 float* forces, float* dedq, int n, int K1,
+                                 int K2, int K3, void* stream) {
   if (n > 0)
-    pme_gather_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+    pme_gather_kernel<<<(n + kAtoms - 1) / kAtoms,
+                        kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        x, q, box, phi, out, n, K1, K2, K3);
+        x, q, box, phi, forces, dedq, n, K1, K2, K3);
   return (int)cudaGetLastError();
 }

@@ -53,8 +53,9 @@ SIGNATURES = {
     "pme_spline": {
         # x, q, box(9), grid; n, K1, K2, K3; stream
         "pme_spread_launch": [_P] * 4 + [_I] * 4 + [_P],
-        # x, q, box(9), phi, out(n,4); n, K1, K2, K3; stream
-        "pme_gather_launch": [_P] * 5 + [_I] * 4 + [_P],
+        # x, q, box(9), phi, forces (n, 3), dE/dq (n,); n, K1, K2, K3;
+        # stream
+        "pme_gather_launch": [_P] * 6 + [_I] * 4 + [_P],
     },
 }
 

@@ -129,10 +129,12 @@ def influence_tensors(influence, device, dtype=torch.float32):
 
 
 def spread_charges_scatter(x, box, charges, grid_shape, order: int = 4):
-    """Plain differentiable spread (index_add_ of order^3 taps per atom)."""
-    K = torch.tensor(grid_shape, device=x.device)
+    """Plain differentiable spread (index_add_ of order^3 taps per atom).
+    The grid shape scales each axis as a Python float: a tensor of it would
+    be a synchronising host-to-device copy on every call on a GPU."""
     s = pbc_mod.frac_coords(x, box)
-    u = (s - torch.floor(s)) * K.to(x.dtype)
+    s = s - torch.floor(s)
+    u = torch.stack([s[:, d] * float(grid_shape[d]) for d in range(3)], -1)
     gi = torch.floor(u).detach().to(torch.int64)
     w = u - gi.to(x.dtype)
     ws = [bspline_weights(w[:, d], order) for d in range(3)]

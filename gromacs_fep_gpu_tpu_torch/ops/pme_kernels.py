@@ -14,10 +14,15 @@ count.  The spread is bound by the L2's atomic throughput (64 atomicAdds
 per atom; 786,560 at 12,290 atoms) and the grid's memset, not by bytes or
 flops: it runs 16 tap threads per atom, with each atom's spline support
 computed once and staged in shared memory, and the four threads of a grid
-row add to neighbouring cells in one instruction.  The gather runs one
-thread per atom with plain loads.  An atom with a non-finite grid
-coordinate poisons the result with NaN (the fail-hard rule of
-blocked_spread) instead of being dropped.
+row add to neighbouring cells in one instruction.  The gather, bound by
+latency and launch cost, runs on the same layout: 16 tap threads per
+atom read neighbouring cells of a row in one instruction, a fixed-order
+shuffle reduction sums each atom's taps (repeats are bit-identical), and
+the kernel converts dphi/du to forces itself, with the inverse of the
+lower-triangular box in closed form (`box_inverse`): one launch, no
+host-device copy, no sync.  An atom with a non-finite grid coordinate
+poisons the result with NaN (the fail-hard rule of blocked_spread)
+instead of being dropped.
 
 Dispatch is by device: CPU tensors take the plain PyTorch versions, CUDA
 tensors launch the kernels or raise.
@@ -82,8 +87,19 @@ def spread_plain(x, box, q, grid_shape) -> torch.Tensor:
     return grid.reshape(grid_shape)
 
 
-def gather_plain(x, box, q, phi) -> torch.Tensor:
-    """(n, 4) per-atom [q dphi/du_x, q dphi/du_y, q dphi/du_z, phi]."""
+def box_inverse(box):
+    """(i00, i10, i11, i20, i21, i22): the inverse of the lower-triangular
+    box in closed form, as the gather kernel computes it (its upper
+    entries are 0)."""
+    ax, bx, by = box[0, 0], box[1, 0], box[1, 1]
+    cx, cy, cz = box[2, 0], box[2, 1], box[2, 2]
+    return (1.0 / ax, -bx / (ax * by), 1.0 / by,
+            (bx * cy - by * cx) / (ax * by * cz), -cy / (by * cz), 1.0 / cz)
+
+
+def gather_plain(x, box, q, phi) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(forces (n, 3), dE/dq (n,)): F_e = -sum_d q K_d dphi/du_d binv[e, d]
+    and dE/dq = phi at the atom."""
     K1, K2, K3 = phi.shape
     finite, (i0, i1, i2), (wx, wy, wz), (dx, dy, dz) = _support(
         x, box, phi.shape)
@@ -93,13 +109,16 @@ def gather_plain(x, box, q, phi) -> torch.Tensor:
     p = torch.sum(v * wz[:, None, None, :], -1)            # (n, 4, 4)
     pdz = torch.sum(v * dz[:, None, None, :], -1)
     wxy = wx[:, :, None] * wy[:, None, :]
-    out = torch.stack([
-        torch.sum(dx[:, :, None] * wy[:, None, :] * p, (1, 2)) * q,
-        torch.sum(wx[:, :, None] * dy[:, None, :] * p, (1, 2)) * q,
-        torch.sum(wxy * pdz, (1, 2)) * q,
-        torch.sum(wxy * p, (1, 2))], -1)
-    return torch.where(finite[:, None], out,
-                       torch.full_like(out, float("nan")))
+    g0, g1, g2 = (torch.sum(w * a, (1, 2)) * q * float(k) for w, a, k in (
+        (dx[:, :, None] * wy[:, None, :], p, K1),
+        (wx[:, :, None] * dy[:, None, :], p, K2), (wxy, pdz, K3)))
+    i00, i10, i11, i20, i21, i22 = box_inverse(box)
+    forces = torch.stack([-(g0 * i00), -(g0 * i10 + g1 * i11),
+                          -(g0 * i20 + g1 * i21 + g2 * i22)], -1)
+    dedq = torch.sum(wxy * p, (1, 2))
+    nan = torch.full_like(dedq, float("nan"))
+    return (torch.where(finite[:, None], forces, nan[:, None]),
+            torch.where(finite, dedq, nan))
 
 
 def _check_inputs(x, box, q):
@@ -115,6 +134,8 @@ def spread_cuda(x, box, q, grid_shape) -> torch.Tensor:
     _check_inputs(x, box, q)
     K1, K2, K3 = grid_shape
     grid = torch.zeros((K1, K2, K3), dtype=torch.float32, device=x.device)
+    if x.shape[0] == 0:
+        return grid
     code = cuda_lib.library("pme_spline").pme_spread_launch(
         x.data_ptr(), q.data_ptr(), box.data_ptr(), grid.data_ptr(),
         x.shape[0], K1, K2, K3, torch.cuda.current_stream(x.device).cuda_stream)
@@ -123,21 +144,27 @@ def spread_cuda(x, box, q, grid_shape) -> torch.Tensor:
     return grid
 
 
-def gather_cuda(x, box, q, phi) -> torch.Tensor:
+def gather_cuda(x, box, q, phi) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_inputs(x, box, q)
     if phi.device != x.device or phi.dtype != torch.float32 \
             or phi.dim() != 3 or not phi.is_contiguous():
         raise ValueError("phi must be a contiguous float32 (K1, K2, K3) "
                          "grid on the atoms' device")
     K1, K2, K3 = phi.shape
-    out = torch.empty((x.shape[0], 4), dtype=torch.float32, device=x.device)
+    if phi.numel() >= 2 ** 31:
+        raise ValueError("the gather kernel takes grids of < 2^31 cells")
+    n = x.shape[0]
+    forces = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    dedq = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return forces, dedq
     code = cuda_lib.library("pme_spline").pme_gather_launch(
         x.data_ptr(), q.data_ptr(), box.data_ptr(), phi.data_ptr(),
-        out.data_ptr(), x.shape[0], K1, K2, K3,
+        forces.data_ptr(), dedq.data_ptr(), n, K1, K2, K3,
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(code, "pme_gather")
     launches["gather", (K1, K2, K3)] += 1
-    return out
+    return forces, dedq
 
 
 def spread(x, box, q, grid_shape) -> torch.Tensor:
@@ -151,13 +178,9 @@ def spread(x, box, q, grid_shape) -> torch.Tensor:
 def gather(x, box, q, phi, grid_shape) -> Tuple[torch.Tensor, torch.Tensor]:
     """(forces, dE/dq) from the potential grid phi = dE/dQ
     (blocked_phi_gather_pallas, phi_gather_pallas)."""
-    out = (gather_plain(x, box, q, phi) if x.device.type == "cpu"
-           else gather_cuda(x, box, q, phi))
-    binv = pbc_mod.inv3(box)
-    k = torch.tensor(grid_shape, dtype=x.dtype, device=x.device)
-    g = out[:, :3] * k
-    # forces_e = -sum_d g_d binv[e, d], elementwise (no reduced-precision
-    # matrix product on coordinates)
-    forces = -(g[:, 0:1] * binv[:, 0] + g[:, 1:2] * binv[:, 1]
-               + g[:, 2:3] * binv[:, 2])
-    return forces, out[:, 3]
+    if tuple(phi.shape) != tuple(grid_shape):
+        raise ValueError(f"phi has shape {tuple(phi.shape)}, expected "
+                         f"{tuple(grid_shape)}")
+    if x.device.type == "cpu":
+        return gather_plain(x, box, q, phi)
+    return gather_cuda(x, box, q, phi)

@@ -12,7 +12,10 @@ largest force (torch.fft in place of the matmul DFT).  The spread kernel's
 edge cases (chip_smoke.spread_edge_cases) hold the grid at test_pme.py's
 atol 1e-5 scaled by max(1, the largest grid value): 4,096 atoms summed
 into one cell's support reach 8.6, where float32 sums differ by ~2e-6 of
-the value.
+the value.  The gather on the same edge cases (gather_plain against JAX's
+XLA phi_gather, op by op: _jax_gather says why) holds forces and dE/dq at
+5e-6 of their largest, the gate above, with NaN in exactly the non-finite
+atom's row.
 """
 import functools
 
@@ -290,3 +293,59 @@ def test_spread_edge_cases_match_jax(name):
     atol = 1e-5 * max(1.0, float(np.abs(g[~nan]).max(initial=0.0)))
     for r in refs:
         np.testing.assert_allclose(g[~nan], r[~nan], rtol=0, atol=atol)
+
+
+def _jax_gather(x, box, q, phi, K):
+    """JAX's phi_gather run op by op, of the atoms padded to EDGE_PAD so
+    that each operation compiles once per grid shape; the padding's rows
+    are dropped.  Not under jax.jit: there XLA contracts the fractional
+    coordinates' back-substitution into FMAs, which moves u by an ulp, and
+    on a white-noise phi on the (40, 36, 45) grid that moved one
+    triclinic dE/dq by 6.4e-6 of the largest, beyond the gate, against
+    2e-7 op by op: a rounding difference inside the reference."""
+    n, pad = x.shape[0], EDGE_PAD - x.shape[0]
+    x = np.concatenate([x, np.zeros((pad, 3), np.float32)])
+    q = np.concatenate([q, np.zeros(pad, np.float32)])
+    return [np.asarray(a)[:n] for a in jpme.phi_gather(
+        jnp.asarray(x), jnp.asarray(box), jnp.asarray(q), jnp.asarray(phi),
+        K)]
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_gather_edge_cases_match_jax(name):
+    """gather_plain, which chip_smoke.py holds the gather kernel against on
+    the card, on the spread's edge cases with a potential grid made with
+    numpy (chip_smoke.edge_phi), against JAX's phi_gather: forces and
+    dE/dq at 5e-6 of their largest; a non-finite atom fails hard in both,
+    NaN in exactly its row."""
+    x, box, q, K = _edge_cases()[name]
+    phi = chip_smoke.edge_phi(K)
+    f, d = (a.numpy() for a in pme_kernels.gather_plain(
+        t(x), t(box), t(q), t(phi)))
+    f_j, d_j = _jax_gather(x, box, q, phi, K)
+    assert f.shape == (x.shape[0], 3) and d.shape == (x.shape[0],)
+    bad = ~np.isfinite(x).all(1)
+    for fa, da in ((f, d), (f_j, d_j)):
+        assert np.array_equal(np.isnan(da), bad)
+        assert np.array_equal(np.isnan(fa).any(1), bad)
+        assert np.isnan(fa[bad]).all()
+    ok = ~bad
+    for a, r in ((f[ok], f_j[ok]), (d[ok], d_j[ok])):
+        np.testing.assert_allclose(
+            a, r, rtol=0, atol=5e-6 * float(np.abs(r).max(initial=0.0)))
+
+
+def test_gather_neutral_atoms_match_jax():
+    """A neutral atom is gathered, not skipped: its dE/dq is phi at its
+    site (nonzero, as JAX's phi_gather has it), which dV/dlambda reads for
+    a perturbed atom whose charge is 0 at this lambda; its force is 0."""
+    x, box, q, K, _ = _setup(seed=5)
+    q[::2] = 0.0
+    phi = np.random.RandomState(6).normal(size=K).astype(np.float32)
+    f, d = (a.numpy() for a in pme_kernels.gather_plain(
+        t(x), t(box), t(q), t(phi)))
+    f_j, d_j = _jax_gather(x, box, q, phi, K)
+    assert (f[::2] == 0).all() and (f_j[::2] == 0).all()
+    assert (np.abs(d_j[::2]) > 0).all() and (np.abs(f[1::2]) > 0).any()
+    np.testing.assert_allclose(d, d_j, rtol=0, atol=5e-6 * np.abs(d_j).max())
+    np.testing.assert_allclose(f, f_j, rtol=0, atol=5e-6 * np.abs(f_j).max())
