@@ -131,7 +131,18 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    against the single-domain force at the lattice start (the gates of
    14), then 100 steps each of the single-domain and
    the DD runner with the equilibration parameters (dt 0.5 fs, tau_t 0.1
-   ps), finite energies, no halo violation, ms/step of both.
+   ps), finite energies, no halo violation, ms/step of both;
+16. the CLI (phase_cli): cli.main in-process on the default device, the
+   inputs written from Python: examples/solvation_fep.sh as published
+   (solvate, 5 x grompp + mdrun at box 1.24 nm, bar and bar -method mbar;
+   the table route, as its Lorentz-Berthelot table demands) and its
+   window 0 with combination rule 3 on K1's minimum-image flavour; then
+   the same topology (rule 3) solvated at 5.0 nm (12,289 atoms, PME 42^3,
+   MTS2, pme_mdp) through grompp and mdrun: 2,000 equilibration steps and
+   windows 1 and 2 from its .cpt (launches exact, T in TEMP_BAND, no
+   overflow, ener.csv/dhdl.xvg/edr/gmx.cpt read back), bar over the 1 -> 2
+   leg, -fep gpu against -fep cpu (rel 1e-4), and a 20 + 20 restart
+   against 40 steps; the CLI's ms/step beside phase 5's.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
@@ -139,11 +150,14 @@ prints no result.
 """
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -207,6 +221,74 @@ REPLACES = {"super": "gromacs_fep_gpu_tpu/ops/pallas_nb.py:90",
             "table": "gromacs_fep_gpu_tpu/ops/cluster_nb.py:57",
             "table_dd": "gromacs_fep_gpu_tpu/ops/cluster_nb.py:112",
             "k6": "gromacs_fep_gpu_tpu/parallel/spatial.py:337"}
+
+
+# phase 16: the CLI on the card (examples/solvation_fep.sh, then the main
+# path's size and physics in mdp form)
+EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "solvation_fep.sh")
+EXAMPLE_BOX = 1.24       # nm, the script's default
+EXAMPLE_STEPS = 200      # per window, the script's default NSTEPS
+CLI_BOX = 5.0            # nm: ~4,100 waters + the ligand
+CLI_EQ_STEPS = 2000     # 1 ps at dt 0.5 fs: the solvated box cools
+                        # to ~300 K
+CLI_WINDOW_STEPS = 400
+CLI_WINDOWS = (1, 2)
+CLI_RESTART_STEPS = 20
+
+
+def example_inputs(path=EXAMPLE):
+    """The published example's inputs, from the here-documents of
+    examples/solvation_fep.sh: (lig.gro text, topol.top template over
+    {nsol}, mdp template over {nsteps} and {window}, the ladder's window
+    count)."""
+    with open(path) as f:
+        text = f.read()
+    docs = dict(re.findall(r"cat > (\S+) <<'?EOF'?\n(.*?)\nEOF\n", text,
+                           re.S))
+    mdp = docs["md$N.mdp"].replace("$NSTEPS", "{nsteps}").replace(
+        "$N", "{window}")
+    n_win = len(re.search(r'LAMBDAS="([^"]*)"', text).group(1).split())
+    return (docs["lig.gro"] + "\n",
+            docs["topol.top"].replace("$NSOL", "{nsol}") + "\n", mdp + "\n",
+            n_win)
+
+
+def mdp_with(text, keys):
+    """mdp text with each key of `keys` set: its line replaced in place, or
+    a new line appended."""
+    lines = text.splitlines()
+    for k, v in keys.items():
+        line = f"{k} = {v}"
+        hit = [i for i, ln in enumerate(lines)
+               if ln.split("=")[0].strip() == k]
+        if hit:
+            lines[hit[0]] = line
+        else:
+            lines.append(line)
+    return "\n".join(lines) + "\n"
+
+
+def geometric_top(top):
+    """The example's topology with combination rule 3 (geometric sigma and
+    epsilon, as the main path's system): the published rule 2
+    (Lorentz-Berthelot) table demotes every NB layout to the table route,
+    as the JAX package drops its Pallas kernel."""
+    out = top.replace("1 2 yes 0.5 0.8333", "1 3 yes 0.5 0.8333")
+    if out == top:
+        raise ValueError("the example's [ defaults ] line changed")
+    return out
+
+
+def pme_mdp(mdp):
+    """The example's mdp with the main path's physics: PME at rc 0.9 nm,
+    fourier-spacing 0.12, nstlist 20, MTS2 on the reciprocal force,
+    energies and Delta H every 100 steps (bench.py::_base_params)."""
+    return mdp_with(mdp, {
+        "coulombtype": "pme", "rcoulomb": 0.9, "rvdw": 0.9, "rlist": 0.9,
+        "fourier-spacing": 0.12, "nstlist": 20, "mts": "yes",
+        "mts-levels": 2, "mts-level2-forces": "longrange-nonbonded",
+        "mts-level2-factor": 2, "nstcalcenergy": 100, "nstdhdl": 100})
 
 
 def _say(msg):
@@ -364,22 +446,27 @@ def _expected_counts(runner, start_step, nsteps):
     energy steps 'E' and 'D', VF+virial on the pressure steps 'R' and
     'S'), no other NB kernel, spread and gather once per step that is not
     an MTS off-step (a pressure step's reciprocal virial reuses its force
-    pass's grid), and per foreign sweep ('D', 'S') two more spreads (qA of
-    all atoms, dq of the perturbed ones) and one more gather.  Under
+    pass's grid), and per foreign sweep ('D', 'S') on a system with
+    perturbed charges two more spreads (qA of all atoms, dq of the
+    perturbed ones) and one more gather.  Under
     domain decomposition the NB kernel and the spread and gather run once
     per domain."""
     pat = runner._flavor_pattern(start_step, nsteps)
-    n_d = pat.count("D") + pat.count("S")
-    sfx = _pme_suffix(runner.params.pme_grid)
+    # the sweep's reciprocal slope runs only on perturbed charges
+    q_pert = bool((runner.system.charge_a != runner.system.charge_b).any())
+    n_d = (pat.count("D") + pat.count("S")) if q_pert else 0
     nsh = 1 if runner.mesh is None else len(runner.mesh.spatial_devices)
     out = dict.fromkeys(_nb_counts(), 0)
     out.update(dict.fromkeys(PME_KEYS, 0))
     nb = _nb_prefix(runner)
     out.update({nb + "F": nsh * (pat.count("F") + pat.count("f")),
-                nb + "VF": nsh * (pat.count("E") + pat.count("D")),
-                "pme_spread" + sfx: nsh * (nsteps - pat.count("f"))
-                + 2 * n_d,
-                "pme_gather" + sfx: nsh * (nsteps - pat.count("f")) + n_d})
+                nb + "VF": nsh * (pat.count("E") + pat.count("D"))})
+    if runner.params.pme_grid is not None:     # no PME kernels without PME
+        sfx = _pme_suffix(runner.params.pme_grid)
+        out.update({"pme_spread" + sfx: nsh * (nsteps - pat.count("f"))
+                    + 2 * n_d,
+                    "pme_gather" + sfx: nsh * (nsteps - pat.count("f"))
+                    + n_d})
     n_vir = pat.count("R") + pat.count("S")
     if n_vir or nb + "VFV" in out:
         out[nb + "VFV"] = n_vir
@@ -2866,6 +2953,291 @@ def phase_dd_big(device, smi, timer):
     return row
 
 
+def _cli(argv, device):
+    """cli.main(argv) on its default device, the card (device "cuda"), or
+    on `device` for a rehearsal on the CPU; returns (what the command
+    returns, its standard output)."""
+    import contextlib
+    import io
+    from gromacs_fep_gpu_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = (cli.main(argv) if device == "cuda"
+               else cli.main(argv, device=device))
+    return out, buf.getvalue()
+
+
+def _cli_perf(text):
+    """(ns/day, ms/step) of the CLI's performance line."""
+    m = re.search(r"Performance:\s+([\d.]+) ns/day\s+([\d.]+) ms/step",
+                  text)
+    return float(m.group(1)), float(m.group(2))
+
+
+def _cli_outputs(deffnm, runner, step0, nsteps):
+    """Check one mdrun's files: ener.csv (Epot finite on exactly the
+    nstcalcenergy steps, the rest of the row finite), dhdl.xvg (Delta H
+    finite, on exactly the nstdhdl steps), the .edr read back (its energies
+    equal to ener.csv at rel 1e-5, its Delta H blocks on the nstdhdl
+    frames) and the .gmx.cpt read back; returns ener.csv's rows."""
+    from gromacs_fep_gpu_tpu_torch.io.cptio import read_gmx_cpt
+    from gromacs_fep_gpu_tpu_torch.io.edrio import ENX_DH, read_edr
+    from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg
+    p = runner.params
+    steps = step0 + np.arange(nsteps)
+    ener = np.loadtxt(f"{deffnm}.ener.csv", ndmin=2)
+    if ener.shape != (nsteps, 5):
+        raise AssertionError(f"{deffnm}.ener.csv: shape {ener.shape}")
+    on = np.isfinite(ener[:, 1])
+    if not (np.array_equal(on, steps % p.nstcalcenergy == 0)
+            and np.isfinite(ener[:, [0, 2, 3, 4]]).all()):
+        raise AssertionError(f"{deffnm}.ener.csv: non-finite values")
+    dh_steps = steps[steps % p.fep.nstdhdl == 0]
+    data, _ = read_xvg(f"{deffnm}.dhdl.xvg")
+    data = data.reshape(len(dh_steps), -1) if data.size else np.zeros((0, 1))
+    if not (np.allclose(data[:, 0], dh_steps * p.dt)
+            and np.isfinite(data).all()):
+        raise AssertionError(f"{deffnm}.dhdl.xvg: rows at "
+                             f"{data[:, 0]} ps, expected {dh_steps * p.dt}")
+    names, _, frames = read_edr(f"{deffnm}.edr")
+    e = np.array([f.ener for f in frames])
+    if ([f.step for f in frames] != list(steps)
+            or [f.step for f in frames
+                if any(b.id == ENX_DH for b in f.blocks)] != list(dh_steps)):
+        raise AssertionError(f"{deffnm}.edr: frames or Delta H blocks")
+    np.testing.assert_allclose(e[:, [0, 1, 3, 4]], ener[:, 1:], rtol=1e-5,
+                               equal_nan=True)
+    cp = read_gmx_cpt(f"{deffnm}.gmx.cpt")
+    if cp.step != step0 + nsteps or cp.natoms != runner.system.n_atoms:
+        raise AssertionError(f"{deffnm}.gmx.cpt: step {cp.step}")
+    return ener
+
+
+def phase_cli(device, smi, ms_main, box=CLI_BOX, eq_steps=CLI_EQ_STEPS,
+              win_steps=CLI_WINDOW_STEPS, ex_steps=EXAMPLE_STEPS,
+              counted=True):
+    """Phase 16: the port's CLI (cli.main, in-process, default device) in a
+    temporary directory, the inputs written from Python:
+    (a) examples/solvation_fep.sh as published (solvate, 5 x grompp +
+        mdrun, bar and bar -method mbar), then window 0 with combination
+        rule 3 and -fep gpu (K1's in-loop minimum image on the 1.24 nm box,
+        launches exact);
+    (b) the same topology (rule 3) solvated at `box` with the main path's
+        physics in mdp form (pme_mdp): an equilibration (dt 0.5 fs, tau-t
+        0.1 ps, gen-vel), then windows 1 and 2 from its .cpt, launches
+        exact, T in TEMP_BAND on every step, no overflow left, outputs read
+        back (_cli_outputs), bar over the 1 -> 2 leg;
+    (c) -fep gpu against -fep cpu from one run input (the equilibrated
+        frame), one step each: energies rel 1e-4, the dhdl.xvg row 1e-4 of
+        its largest entry;
+    (d) -cpi x.cpt -nsteps 20 restores the state exactly and continues
+        the step count; 20 + 20 steps against 40 in one run: max |dx|
+        printed beside the 1e-5 nm gate and beside two uninterrupted runs'
+        spread (the card's runs are not bitwise reproducible), and held to
+        the larger of 1e-5 nm and 3 x that spread.
+    counted=False (a CPU rehearsal: plain versions count no launch) skips
+    the launch checks."""
+    t_start = time.perf_counter()
+    lig, top_t, mdp_t, n_win = example_inputs()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
+                            ex_steps, counted, lig, top_t, mdp_t, n_win)
+        finally:
+            os.chdir(cwd)
+    _say(f"CLI phase: {time.perf_counter() - t_start:.1f} s on {smi}")
+
+
+def _cli_mdrun(argv, device, counted, step0, nsteps, what):
+    """One mdrun with the counters zeroed just before and read just after;
+    the launches must be what the flavour pattern predicts."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    _zero_counts()
+    (runner, state), out = _cli(["mdrun"] + argv, device)
+    counts = _counts()
+    expected = _expected_counts(runner, step0, nsteps) if counted else None
+    if counted and counts != expected:
+        raise AssertionError(f"{what}: launches {counts}, expected "
+                             f"{expected}")
+    fl = runner.last_flags
+    left = {k: fl[k] for k in ("fep_ovf", "s_ovf", "n_ovf", "excl_bad",
+                               "shift_bad", "t_ovf", "halo_bad")}
+    if any(left.values()):
+        raise AssertionError(f"{what}: list flags after growth {left}")
+    if state.step != step0 + nsteps:
+        raise AssertionError(f"{what}: ended at step {state.step}")
+    nb = {k: v for k, v in counts.items() if v}
+    return runner, state, out, nb
+
+
+def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
+                    ex_steps, counted, lig, top_t, mdp_t, n_win):
+    from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg
+
+    def write(path, text):
+        with open(path, "w") as f:
+            f.write(text)
+
+    def grompp(mdp, top, conf, tpz):
+        _cli(["grompp", "-f", mdp, "-p", top, "-c", conf, "-o", tpz], device)
+
+    # (a) the example as published
+    write("lig.gro", lig)
+    _, out = _cli(["solvate", "-cp", "lig.gro", "-box", str(EXAMPLE_BOX),
+                   "-o", "conf.gro"], device)
+    nsol = int(re.search(r"added (\d+)", out).group(1))
+    write("topol.top", top_t.format(nsol=nsol))
+    xvgs, layouts = [], set()
+    for w in range(n_win):
+        write(f"md{w}.mdp", mdp_t.format(nsteps=ex_steps, window=w))
+        grompp(f"md{w}.mdp", "topol.top", "conf.gro", f"w{w}.tpz")
+        runner, _, _, _ = _cli_mdrun(["-s", f"w{w}.tpz", "-deffnm", f"w{w}"],
+                                     device, counted, 0, ex_steps,
+                                     f"example window {w}")
+        _cli_outputs(f"w{w}", runner, 0, ex_steps)
+        layouts.add(runner.layout)
+        xvgs.append(f"w{w}.dhdl.xvg")
+    (dg_bar, e_bar), _ = _cli(["bar", "-f"] + xvgs, device)
+    (dg_mbar, e_mbar), _ = _cli(["bar", "-f"] + xvgs + ["-method", "mbar"],
+                                device)
+    if not (np.isfinite(dg_bar) and np.isfinite(dg_mbar)):
+        raise AssertionError(f"example: BAR {dg_bar}, MBAR {dg_mbar}")
+    _say(f"CLI (a) examples/solvation_fep.sh as published: LIG + {nsol} "
+         f"SOL ({3 * nsol + 1} atoms, box {EXAMPLE_BOX} nm, reaction "
+         f"field), {n_win} windows x {ex_steps} steps, NB route "
+         f"{sorted(layouts)} (combination rule 2 demotes -fep auto to the "
+         f"table route); dG(vdW decoupling) BAR {dg_bar:.3f} +- "
+         f"{e_bar:.3f} kJ/mol, MBAR {dg_mbar:.3f} +- {e_mbar:.3f} kJ/mol; "
+         f"{smi}")
+    write("topol3.top", geometric_top(top_t).format(nsol=nsol))
+    grompp("md0.mdp", "topol3.top", "conf.gro", "g0.tpz")
+    runner, _, out, nb = _cli_mdrun(
+        ["-s", "g0.tpz", "-deffnm", "g0", "-fep", "gpu"], device, counted,
+        0, ex_steps, "example window 0, rule 3, -fep gpu")
+    _cli_outputs("g0", runner, 0, ex_steps)
+    if runner.layout != "v2u" or runner.config.baked_shifts:
+        raise AssertionError(f"rule 3 -fep gpu: layout {runner.layout}, "
+                             f"baked shifts {runner.config.baked_shifts}")
+    _say(f"CLI (a) window 0 with combination rule 3, -fep gpu: K1 with the "
+         f"in-loop minimum image (baked shifts off), launches {nb}; "
+         f"{_cli_perf(out)[1]:.3f} ms/step on {smi}")
+
+    # (b) the main path's size and physics through grompp and mdrun
+    _, out = _cli(["solvate", "-cp", "lig.gro", "-box", str(box), "-o",
+                   "big.gro"], device)
+    nsol = int(re.search(r"added (\d+)", out).group(1))
+    write("big.top", geometric_top(top_t).format(nsol=nsol))
+    w1, w2 = CLI_WINDOWS
+    write("eq.mdp", mdp_with(pme_mdp(mdp_t.format(nsteps=eq_steps,
+                                                  window=w1)),
+                             {"dt": 0.0005, "tau-t": 0.1, "nsttcouple": 1,
+                              "mts": "no"}))
+    grompp("eq.mdp", "big.top", "big.gro", "eq.tpz")
+    runner, _, out, nb = _cli_mdrun(["-s", "eq.tpz", "-deffnm", "eq"],
+                                    device, counted, 0, eq_steps,
+                                    "CLI equilibration")
+    eq_ener = _cli_outputs("eq", runner, 0, eq_steps)
+    grid = runner.params.pme_grid
+    if box == CLI_BOX and tuple(grid) != (42, 42, 42):
+        raise AssertionError(f"PME grid {grid} at box {box}")
+    _say(f"CLI (b) LIG + {nsol} SOL = {runner.system.n_atoms} atoms, box "
+         f"{box} nm, PME grid {tuple(grid)} (gromacs_pme_grid at "
+         f"fourier-spacing 0.12), layout {runner.layout}; equilibration "
+         f"{eq_steps} steps at dt 0.5 fs: T every 100 steps "
+         f"{[round(float(t), 1) for t in eq_ener[::100, 3]]} K, "
+         f"{_cli_perf(out)[1]:.3f} ms/step, launches {nb}; {smi}")
+    xvgs = []
+    for w in CLI_WINDOWS:
+        write(f"win{w}.mdp", pme_mdp(mdp_t.format(nsteps=win_steps,
+                                                  window=w)))
+        grompp(f"win{w}.mdp", "big.top", "big.gro", f"win{w}.tpz")
+        runner, _, out, nb = _cli_mdrun(
+            ["-s", f"win{w}.tpz", "-cpi", "eq.cpt", "-deffnm", f"win{w}"],
+            device, counted, eq_steps, win_steps, f"CLI window {w}")
+        ener = _cli_outputs(f"win{w}", runner, eq_steps, win_steps)
+        t_lo, t_hi = float(ener[:, 3].min()), float(ener[:, 3].max())
+        if not (TEMP_BAND[0] <= t_lo and t_hi <= TEMP_BAND[1]):
+            raise AssertionError(f"CLI window {w}: temperature left "
+                                 f"{TEMP_BAND} K: {t_lo:.1f}..{t_hi:.1f}")
+        ns_day, ms = _cli_perf(out)
+        _say(f"CLI (b) window {w} (MTS2, dt 2 fs, {win_steps} steps from "
+             f"eq.cpt): {ms:.3f} ms/step, {ns_day:.3f} ns/day by the CLI's "
+             f"performance line against MdRunner's {ms_main:.3f} ms/step "
+             f"(phase 5, 12,290 atoms) in this call; T {t_lo:.1f}.."
+             f"{t_hi:.1f} K; launches {nb}; layout {runner.layout}; {smi}")
+        xvgs.append(f"win{w}.dhdl.xvg")
+    (dg, err), out = _cli(["bar", "-f"] + xvgs, device)
+    leg = re.search(rf"\n\s*{w1} -> {w2}\s+(\S+)\s+(\S+)", out)
+    if not np.isfinite(float(leg.group(1))):
+        raise AssertionError(f"bar over {w1} -> {w2}: {out}")
+    _say(f"CLI (b) bar over the {w1} -> {w2} leg: {leg.group(1)} +- "
+         f"{leg.group(2)} kJ/mol")
+
+    # (c) -fep gpu against -fep cpu from one run input
+    write("one.mdp", pme_mdp(mdp_t.format(nsteps=1, window=w1)))
+    grompp("one.mdp", "big.top", "eq.gro", "one.tpz")
+    rows = {}
+    for fep in ("gpu", "cpu"):
+        runner, _, _, nb = _cli_mdrun(
+            ["-s", "one.tpz", "-deffnm", f"one_{fep}", "-fep", fep],
+            device, counted, 0, 1, f"-fep {fep}")
+        rows[fep] = (np.loadtxt(f"one_{fep}.ener.csv"),
+                     read_xvg(f"one_{fep}.dhdl.xvg")[0].reshape(-1),
+                     runner.layout, nb)
+    e_rel = float(np.max(np.abs(rows["gpu"][0] - rows["cpu"][0])
+                         / np.maximum(np.abs(rows["cpu"][0]), 1e-30)))
+    d_gpu, d_cpu = rows["gpu"][1][1:], rows["cpu"][1][1:]
+    d_rel = float(np.abs(d_gpu - d_cpu).max() / np.abs(d_cpu).max())
+    _say(f"CLI (c) -fep gpu ({rows['gpu'][2]}, {rows['gpu'][3]}) against "
+         f"-fep cpu ({rows['cpu'][2]}, {rows['cpu'][3]}), step 0 of the "
+         f"equilibrated frame: energies rel {e_rel:.2e} (gate 1e-4), dhdl "
+         f"row {d_rel:.2e} of its largest entry (gate 1e-4)")
+    if rows["gpu"][2] == rows["cpu"][2] or e_rel > 1e-4 or d_rel > 1e-4:
+        raise AssertionError("-fep gpu against -fep cpu")
+
+    # (d) restart: 20 + 20 steps against 40.  The card's runs are not
+    # bitwise reproducible (the spread's atomics, autograd's scatters), so
+    # a second uninterrupted run from the same checkpoint measures the
+    # spread the restart is held to; the restore itself is checked exact.
+    from gromacs_fep_gpu_tpu_torch import cli
+    n = CLI_RESTART_STEPS
+    tpz = f"win{w1}.tpz"
+    whole = []
+    for tag in ("r40", "r40b"):
+        _, st, _, _ = _cli_mdrun(["-s", tpz, "-cpi", "eq.cpt", "-nsteps",
+                                  str(2 * n), "-deffnm", tag], device,
+                                 counted, eq_steps, 2 * n, f"restart, {tag}")
+        whole.append(st)
+    runner, half, _, _ = _cli_mdrun(
+        ["-s", tpz, "-cpi", "eq.cpt", "-nsteps", str(n), "-deffnm", "r20"],
+        device, counted, eq_steps, n, "restart, first 20")
+    back = cli._restore(types.SimpleNamespace(cpi="r20.cpt"),
+                        half.replace(step=0), runner, runner.params, device)
+    for k in ("x", "v", "box", "lam"):
+        if not torch.equal(getattr(back, k), getattr(half, k)):
+            raise AssertionError(f"restart: {k} not restored exactly")
+    if back.step != half.step or not torch.equal(
+            back.coupling.ekinh_prev, half.coupling.ekinh_prev):
+        raise AssertionError("restart: step or thermostat not restored")
+    runner, rest, _, _ = _cli_mdrun(
+        ["-s", tpz, "-cpi", "r20.cpt", "-nsteps", str(n), "-deffnm",
+         "r20b"], device, counted, eq_steps + n, n, "restart, next 20")
+    _cli_outputs("r20b", runner, eq_steps + n, n)
+    dx = float((rest.x - whole[0].x).abs().max())
+    noise = float((whole[1].x - whole[0].x).abs().max())
+    _say(f"CLI (d) -cpi r20.cpt -nsteps {n}: steps {eq_steps + n}.."
+         f"{rest.step}, state restored exactly; final positions against "
+         f"{2 * n} steps in one run: max |dx| {dx:.2e} nm (1e-5 gate "
+         f"{'met' if dx <= 1e-5 else 'missed'}); two uninterrupted "
+         f"{2 * n}-step runs from one checkpoint differ by {noise:.2e} nm")
+    if dx > max(1e-5, 3.0 * noise):
+        raise AssertionError(f"restart: max |dx| {dx} nm, uninterrupted "
+                             f"runs {noise} nm apart")
+
+
 def run(device="cuda", smi=None):
     """All phases on `device`; returns the kernel rows."""
     import gromacs_fep_gpu_tpu_torch  # noqa: F401  (sets TF32 off)
@@ -2961,6 +3333,8 @@ def run(device="cuda", smi=None):
     done("lambda windows")
     npt_rows, npt_counts = phase_npt(timer, smi, *npt_start)
     done("NPT windows")
+    phase_cli(device, smi, ms_step)
+    done("the CLI (phase 16)")
     for r in rows:
         if r["name"].startswith("nb_v2u"):    # K1 runs on every path
             r["launches_window"] = window_counts[r["name"]]

@@ -1,6 +1,6 @@
 """Host-side topology construction — PyTorch counterpart of
 gromacs_fep_gpu_tpu/core/topology.py (MoleculeType, build_system,
-lj_table_from_sigma_eps).
+lj_table_from_types, lj_table_from_sigma_eps).
 
 Only the parts of a molecule template the solvation-FEP path uses are
 ported: per-atom A/B data, harmonic bonds and angles, 1-4 pairs, SETTLE
@@ -36,6 +36,9 @@ class MoleculeType:
     angles: List[Tuple] = dataclasses.field(default_factory=list)
     # 1-4 pairs: ((i, j), (qi*qj, c6, c12)[, B-state params])
     pairs14: List[Tuple] = dataclasses.field(default_factory=list)
+    # unresolved 1-4 pair rows (ai, aj, (c6, c12)A, (c6, c12)B); the
+    # topology reader's grompp transforms bake the charges in
+    pairs_raw: List[Tuple] = dataclasses.field(default_factory=list)
     settle: Optional[Tuple[int, int, int, float, float]] = None
     extra_exclusions: List[Tuple[int, int]] = dataclasses.field(
         default_factory=list)
@@ -71,6 +74,20 @@ class MoleculeType:
             excl[i].add(j)
             excl[j].add(i)
         return excl
+
+
+def lj_table_from_types(c6: Sequence[float], c12: Sequence[float],
+                        comb_rule: int = 1) -> np.ndarray:
+    """(T, T, 2) pairwise c6/c12 table from per-type values (combination
+    rule 1: geometric c6 and c12; float32)."""
+    if comb_rule != 1:
+        raise NotImplementedError("use lj_table_from_sigma_eps for "
+                                  "combination rules 2 and 3")
+    c6 = np.asarray(c6, np.float64)
+    c12 = np.asarray(c12, np.float64)
+    t6 = np.sqrt(c6[:, None] * c6[None, :])
+    t12 = np.sqrt(c12[:, None] * c12[None, :])
+    return np.stack([t6, t12], axis=-1).astype(np.float32)
 
 
 def lj_table_from_sigma_eps(sigma: Sequence[float], eps: Sequence[float],

@@ -80,6 +80,8 @@ class FepCoupling(enum.IntEnum):
 class FepParams:
     """Static FEP settings (reference: t_lambda, inputrec.h)."""
     enabled: bool = False
+    init_lambda_state: int = -1        # index into all_lambda (-1 = unset)
+    init_lambda: float = -1.0          # scalar lambda (-1 = unset)
     delta_lambda: float = 0.0
     sc_alpha: float = 0.0
     sc_power: int = 1
@@ -88,6 +90,8 @@ class FepParams:
     sc_coul: bool = False
     softcore: SoftcoreType = SoftcoreType.BEUTLER
     nstdhdl: int = 100
+    calc_foreign: bool = True          # compute all foreign-lambda energies
+    calc_lambda_neighbors: int = -1    # -1 = all, n = +-n neighbors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +99,7 @@ class MdParams:
     """Static run parameters — the t_inputrec analogue (the subset of the
     JAX MdParams that the ported path reads; same names and defaults)."""
     dt: float = 0.002
+    nsteps: int = 0
     integrator: IntegratorType = IntegratorType.MD
     rcoulomb: float = 1.0
     rvdw: float = 1.0
@@ -107,6 +112,7 @@ class MdParams:
     epsilon_rf: float = 0.0            # 0 => infinity (conducting RF)
     rvdw_switch: float = 0.9
     ewald_rtol: float = 1e-5
+    fourier_spacing: float = 0.12
     pme_order: int = 4
     pme_grid: Optional[Tuple[int, int, int]] = None
     dispcorr: bool = False
@@ -122,8 +128,14 @@ class MdParams:
     tau_p: float = 5.0                 # ps
     compressibility: float = 4.5e-5    # bar^-1
     nstpcouple: int = 10
+    ld_seed: int = 1993                # seeds the thermostat's generator
     nstcomm: int = 100
+    # trajectory output (trr / xtc frames every N steps; the port writes
+    # neither yet, so the mdp reader raises on N > 0)
+    nstxout: int = 0
+    nstxout_compressed: int = 0
     nstcalcenergy: int = 1
+    nstlog: int = 1000                 # md.log energy-block interval
     mts: bool = False
     mts_factor: int = 2
     mts_forces: str = "longrange-nonbonded"

@@ -35,7 +35,7 @@ on the home device (the system's).  Pressure coupling under DD raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +48,7 @@ from ..ops.foreign import make_foreign_delta_fn
 from ..ops.nb_v2u import BU, prepare_v2u
 from ..ops.pairlist import (build_cluster_pairlist, build_fep_pairlist,
                             check_exclusions, dd_geometry)
+from ..utils.timing import Wallcycle
 from .simulator import StepLog, make_step_fn, stack_logs
 from .verletbuf import effective_rlist
 
@@ -153,6 +154,11 @@ class MdRunner:
         self._rlist = None
         self.last_flags = None      # flags of the newest accepted rebuild
         self.n_regrow = 0           # chunks restarted after an overflow
+        # host-clock regions of run(): "overflow_check" (the rebuild with
+        # its flag read, which waits for the device work queued before
+        # it) and "chunk" (the steps' launches)
+        self.wallcycle = Wallcycle()
+        self.stopped_at = None      # steps done when stop_condition ended
 
     def _dd_setup(self):
         """Domain decomposition from config.mesh (JAX runner.py:143-163):
@@ -464,28 +470,46 @@ class MdRunner:
                 continue
             return nlist, feplist, prep, fl
 
-    def run(self, state: State, nsteps: int
+    def run(self, state: State, nsteps: int,
+            callback: Optional[Callable] = None,
+            stop_condition: Optional[Callable[[], bool]] = None
             ) -> Tuple[State, List[StepLog]]:
         """Run nsteps; returns (final state, per-chunk stacked StepLogs).
         Each chunk rebuilds its lists at its verified start state (lists),
         so a roll-back on overflow never runs a step on an overflowed
-        list."""
+        list.
+
+        After each chunk (a verified state: its lists were checked before
+        its first step) callback(state, chunk_log, done) is called, then
+        stop_condition() is polled; when it returns True the run ends
+        there, with self.stopped_at = the steps done (the StopHandler
+        analogue, reference: mdlib/stophandler.h:125; JAX
+        md/runner.py:605-615).  Neither adds a device sync."""
         self._check_run(state)
         self._set_geometry(state)
+        self.stopped_at = None
         nst = max(1, min(self.params.nstlist, nsteps))
         logs, done = [], 0
         while done < nsteps:
             seg_len = min(nst, nsteps - done)
             flavors = self._flavor_pattern(state.step, seg_len)
-            nlist, feplist, prep, fl = self.lists(state)
+            with self.wallcycle.region("overflow_check"):
+                nlist, feplist, prep, fl = self.lists(state)
             self.last_flags = fl
             step = self.step_fn(nlist, feplist, prep)
             chunk_logs = []
-            for flavor in flavors:
-                state, lg = step(state, flavor)
-                chunk_logs.append(lg)
+            with self.wallcycle.region("chunk"):
+                for flavor in flavors:
+                    state, lg = step(state, flavor)
+                    chunk_logs.append(lg)
             logs.append(stack_logs(chunk_logs))
             done += seg_len
+            if callback is not None:
+                callback(state, logs[-1], done)
+            if (stop_condition is not None and done < nsteps
+                    and stop_condition()):
+                self.stopped_at = done
+                break
         return state, logs
 
 

@@ -27,8 +27,8 @@ from typing import Callable, Optional
 import torch
 
 from ..core import pbc as pbc_mod
-from ..core.types import (FepCoupling, IntegratorType, MdParams, PcouplType,
-                          State, System, TcouplType)
+from ..core.types import (_ENERGY_FIELDS, FepCoupling, IntegratorType,
+                          MdParams, PcouplType, State, System, TcouplType)
 from ..core.units import BOLTZ
 from ..ops.dispcorr import make_dispersion_correction
 from . import constraints as constr_mod
@@ -50,6 +50,9 @@ class StepLog:
     # scalar pressure in bar on the pressure-coupling steps, NaN on the
     # others; 0 without pressure coupling
     pres: torch.Tensor
+    # (12,) energy decomposition in EnergyTerms field order (lj, coulomb,
+    # lj_recip, ..., dispcorr), NaN on force-only steps
+    terms: torch.Tensor
 
 
 def degrees_of_freedom(system: System, params: MdParams) -> float:
@@ -157,6 +160,8 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
     ndf = degrees_of_freedom(system, params)
     dt = params.dt
     has_settle = constr_mod.n_constraints(system) > 0
+    nan_terms = torch.full((len(_ENERGY_FIELDS),), float("nan"),
+                           device=system.device)
     p_tail_fn = (make_dispersion_correction(system, params)[1]
                  if has_pcoupl and params.dispcorr else None)
     pressure_fn = (make_pressure_fn(energy_epot_fn, p_tail_fn)
@@ -251,7 +256,10 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
             x_new = x_new * mu
         log = StepLog(epot=terms.epot if do_ener else nan, ekin=ekin,
                       temp=temp, lam=lam, dvdl=terms.dvdl,
-                      constr_rmsd=constr_rmsd, delta_h=delta_h, pres=pres)
+                      constr_rmsd=constr_rmsd, delta_h=delta_h, pres=pres,
+                      terms=(torch.stack([getattr(terms, k)
+                                          for k in _ENERGY_FIELDS])
+                             if do_ener else nan_terms))
         return state.replace(x=x_new, v=v_new, box=box_new, coupling=coupl,
                              step=state.step + 1), log
 

@@ -1,0 +1,247 @@
+"""The port's CLI end to end on the CPU (device="cpu", the kernels' plain
+versions) against the JAX package's CLI on the same files: the example's
+solvate -> grompp -> mdrun window -> bar, on examples/solvation_fep.sh's
+1.24 nm box and topology (~190 atoms, reaction field, couple-moltype LIG,
+vdW ladder of 5) with combination rule 3, so that -fep gpu runs K1's
+layout (the published rule 2 demotes every layout to the table route, in
+both packages), tcoupl = no, gen-vel with a fixed gen-seed, nsteps 10,
+nstlist 10, nstdhdl 5.  The JAX CLI runs once (-fep cpu, its XLA route),
+in a fixture whose directory the xdist workers share.
+
+Tolerances: dhdl.xvg Delta H and dH/dlambda 1e-4 of their largest
+magnitude (as tests/test_torch_dhdl.py; float32 dynamics on both sides),
+ener.csv rows rel 1e-4, the same edr names, frame count and Delta H frames;
+bar on the port's dhdl.xvg files equal to JAX's bar_profile on them at
+1e-12.  Restarts: from the JAX CLI's md.gmx.cpt (x, v, box, step, lambda
+state restored exactly), and 10 + 10 steps from the port's own .cpt
+(v-rescale, its generator restored) equal to 20 steps in one run.
+"""
+import fcntl
+import os
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gromacs_fep_gpu_tpu import cli as jcli
+from gromacs_fep_gpu_tpu.analysis.bar import bar_profile as jbar_profile
+from gromacs_fep_gpu_tpu.io.cptio import read_gmx_cpt as jread_gmx_cpt
+from gromacs_fep_gpu_tpu.io.xvgio import read_xvg as jread_xvg
+from gromacs_fep_gpu_tpu_torch import cli as tcli
+from gromacs_fep_gpu_tpu_torch.io.checkpoint import load_checkpoint
+from gromacs_fep_gpu_tpu_torch.io.edrio import ENX_DH, read_edr
+from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg
+
+import torch_bridge  # noqa: F401  (one torch thread per worker)
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+LIG, EX_TOP, EX_MDP, N_WIN = chip_smoke.example_inputs()
+NSTEPS, NSTDHDL = 10, 5
+
+
+def _mdp(window, **keys):
+    return chip_smoke.mdp_with(
+        EX_MDP.format(nsteps=NSTEPS, window=window),
+        dict({"tcoupl": "no", "gen-seed": 7, "nstdhdl": NSTDHDL}, **keys))
+
+
+def _port(*argv):
+    return tcli.main(list(argv), device="cpu")
+
+
+def _once(tmp_path_factory, name, make):
+    """A directory `name` that make() fills, run inside it, once per session:
+    under xdist the workers share it (the session's base directory) and
+    the first to take the lock fills it, so the JAX CLI runs once."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        d = tmp_path_factory.getbasetemp().parent / name
+    else:
+        d = tmp_path_factory.getbasetemp() / name
+    d.mkdir(exist_ok=True)
+    with open(d.parent / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not (d / "done").exists():
+                cwd = os.getcwd()
+                os.chdir(d)
+                try:
+                    make()
+                finally:
+                    os.chdir(cwd)
+                (d / "done").write_text("")
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return d
+
+
+def _make_inputs():
+    """The example's inputs (rule 3) and the port's run inputs of windows 0
+    and 1."""
+    Path("lig.gro").write_text(LIG)
+    _port("solvate", "-cp", "lig.gro", "-box", str(chip_smoke.EXAMPLE_BOX),
+          "-o", "conf.gro")
+    n_atoms = int(Path("conf.gro").read_text().splitlines()[1])
+    Path("topol.top").write_text(chip_smoke.geometric_top(EX_TOP).format(
+        nsol=(n_atoms - 1) // 3))
+    for w in (0, 1):
+        Path(f"md{w}.mdp").write_text(_mdp(w))
+        _port("grompp", "-f", f"md{w}.mdp", "-p", "topol.top", "-c",
+              "conf.gro", "-o", f"t{w}.tpz")
+    # the JAX CLI's window-1 run, the reference ("jax.*")
+    jcli.main(["grompp", "-f", "md1.mdp", "-p", "topol.top", "-c",
+               "conf.gro", "-o", "j1.tpz"])
+    jcli.main(["mdrun", "-s", "j1.tpz", "-deffnm", "jax", "-fep", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def example(tmp_path_factory):
+    """A directory with the example's inputs, the port's run inputs and
+    the JAX CLI's window-1 run, made once per session."""
+    return _once(tmp_path_factory, "torch_cli_example", _make_inputs)
+
+
+def _dhdl_close(got, want):
+    (tg, lg), (tw, lw) = got, want
+    assert lg == lw and tg.shape == tw.shape
+    np.testing.assert_array_equal(tg[:, 0], tw[:, 0])
+    for cols in (slice(1, 4), slice(4, None)):
+        a, b = tg[:, cols], tw[:, cols]
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("fep,layout", [("cpu", "table"), ("gpu", "v2u")])
+def test_window_matches_jax_cli(example, monkeypatch, fep, layout):
+    monkeypatch.chdir(example)
+    runner, state = _port("mdrun", "-s", "t1.tpz", "-deffnm", f"t_{fep}",
+                          "-fep", fep)
+    assert runner.layout == layout and state.step == NSTEPS
+    got = read_xvg(f"t_{fep}.dhdl.xvg")
+    assert got[0].shape[0] == NSTEPS // NSTDHDL
+    assert np.isfinite(got[0]).all()
+    _dhdl_close(got, jread_xvg("jax.dhdl.xvg"))
+    t, j = np.loadtxt(f"t_{fep}.ener.csv"), np.loadtxt("jax.ener.csv")
+    assert t.shape == j.shape == (NSTEPS, 5) and np.isfinite(t).all()
+    np.testing.assert_allclose(t, j, rtol=1e-4)
+    (tn, _, tf), (jn, _, jf) = (read_edr(f"t_{fep}.edr"),
+                                read_edr("jax.edr"))
+    assert tn == jn and len(tf) == len(jf) == NSTEPS
+
+    def dh_steps(frames):
+        return [f.step for f in frames if any(b.id == ENX_DH
+                                              for b in f.blocks)]
+    assert dh_steps(tf) == dh_steps(jf) == list(range(0, NSTEPS, NSTDHDL))
+
+
+def test_bar_matches_jax_bar_profile(example, monkeypatch, capsys):
+    monkeypatch.chdir(example)
+    files = []
+    for w in (0, 1):
+        _port("mdrun", "-s", f"t{w}.tpz", "-deffnm", f"bar{w}", "-fep",
+              "cpu")
+        files.append(f"bar{w}.dhdl.xvg")
+    total, err = _port("bar", "-f", *files)
+    rows, idx = [], []
+    for i, f in enumerate(files):
+        data, legends = jread_xvg(f)
+        ndvdl = sum(1 for lg in legends if lg.startswith("dH/d"))
+        rows.append(data[:, 1 + ndvdl:])
+        idx.append(np.full(len(data), i))
+    legs, want, want_err = jbar_profile(np.concatenate(rows),
+                                        np.concatenate(idx), 300.0,
+                                        skip_frac=0.1)
+    assert np.isfinite(total)
+    np.testing.assert_allclose([total, err], [want, want_err], rtol=1e-12,
+                               atol=1e-12)
+    assert "total" in capsys.readouterr().out
+
+
+def test_restart_from_jax_gmx_cpt(example, monkeypatch):
+    monkeypatch.chdir(example)
+    cp = jread_gmx_cpt("jax.gmx.cpt")
+    pp, _ = tcli._load_tpz("t1.tpz", "cpu")
+    runner = types.SimpleNamespace(generator=None)
+    st = tcli._restore(types.SimpleNamespace(cpi="jax.gmx.cpt"), pp.state,
+                       runner, pp.params, "cpu")
+    for k in ("x", "v", "box"):
+        assert np.array_equal(getattr(st, k).numpy(),
+                              cp.state[k].astype(np.float32)), k
+    assert st.step == cp.step == NSTEPS and st.fep_state == 1
+    with pytest.raises(ValueError, match="gmx.cpt"):   # JAX's own .cpt
+        load_checkpoint("jax.cpt", "cpu")
+    runner, state = _port("mdrun", "-s", "t1.tpz", "-cpi", "jax.gmx.cpt",
+                          "-deffnm", "from_jax", "-fep", "cpu")
+    assert state.step == 2 * NSTEPS
+    _, _, frames = read_edr("from_jax.edr")
+    assert [f.step for f in frames] == list(range(NSTEPS, 2 * NSTEPS))
+    ener = np.loadtxt("from_jax.ener.csv")
+    assert np.isfinite(ener).all()
+    np.testing.assert_allclose(ener[0, 0], NSTEPS * 0.002)
+
+
+def test_restart_from_own_cpt_equals_one_run(example, monkeypatch):
+    """v-rescale: the restart restores the thermostat's generator."""
+    monkeypatch.chdir(example)
+    Path("vr.mdp").write_text(_mdp(1, **{"tcoupl": "v-rescale",
+                                         "nsttcouple": 5}))
+    _port("grompp", "-f", "vr.mdp", "-p", "topol.top", "-c", "conf.gro",
+          "-o", "vr.tpz")
+    _, whole = _port("mdrun", "-s", "vr.tpz", "-deffnm", "whole",
+                     "-nsteps", str(2 * NSTEPS), "-fep", "gpu")
+    _port("mdrun", "-s", "vr.tpz", "-deffnm", "half", "-fep", "gpu")
+    _, rest = _port("mdrun", "-s", "vr.tpz", "-deffnm", "rest", "-cpi",
+                    "half.cpt", "-fep", "gpu")
+    assert rest.step == whole.step == 2 * NSTEPS
+    for k in ("x", "v"):
+        assert torch.equal(getattr(rest, k), getattr(whole, k)), k
+    assert torch.equal(rest.coupling.therm_integral,
+                       whole.coupling.therm_integral)
+    assert float(whole.coupling.therm_integral) != 0.0
+    # -maxh: a clean stop at the first verified chunk, outputs written
+    runner, st = _port("mdrun", "-s", "vr.tpz", "-deffnm", "stopped",
+                       "-nsteps", str(2 * NSTEPS), "-maxh", "1e-12")
+    assert runner.stopped_at == st.step == NSTEPS
+    assert np.loadtxt("stopped.ener.csv").shape[0] == NSTEPS
+
+
+@pytest.mark.parametrize("fep,device,box,layout", [
+    ("gpu", "cpu", np.eye(3), "v2u"), ("cpu", "cuda", np.eye(3), "table"),
+    ("auto", "cuda", np.eye(3), "v2u"), ("auto", "cpu", np.eye(3), "table"),
+    ("auto", "cuda", np.array([[1.0, 0, 0], [0.5, 1, 0], [0, 0, 1]]),
+     "table")])
+def test_fep_flag_maps_to_layout(fep, device, box, layout):
+    assert tcli.fep_layout(fep, box, device) == layout
+
+
+@pytest.mark.parametrize("argv,what", [
+    (["mdrun", "-s", "t1.tpz", "-rerun", "x.trr"], "rerun"),
+    (["mdrun", "-s", "t1.tpz", "-tunepme"], "tunepme"),
+    (["mdrun", "-s", "t1.tpz", "-dd", "2x2x2"], "-dd"),
+    (["mdrun", "-s", "x.tpr", "-mdp", "md1.mdp"], "tpr"),
+    (["grompp", "-f", "md1.mdp", "-p", "topol.top", "-c", "conf.gro",
+      "-o", "x.tpr"], "tpr"),
+    (["check", "-f", "x.xtc"], "xtc")])
+def test_unported_cli_options_raise(argv, what):
+    with pytest.raises(NotImplementedError, match=what):
+        _port(*argv)
+
+
+def test_default_device_is_the_gpu(tmp_path, monkeypatch):
+    """With no GPU the CLI stops before reading or building anything; it
+    never runs on the CPU (`python -m`: tests/test_torch_nojax.py)."""
+    monkeypatch.chdir(tmp_path)
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device runs")
+    for argv in (["mdrun", "-s", "t1.tpz", "-deffnm", "nogpu"],
+                 ["grompp", "-f", "md1.mdp", "-p", "topol.top", "-c",
+                  "conf.gro", "-o", "nogpu.tpz"],
+                 ["check", "-s", "t1.tpz"]):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            tcli.main(argv)
+    assert not list(Path(".").glob("nogpu*"))

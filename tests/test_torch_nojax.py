@@ -2,8 +2,9 @@
 every module of gromacs_fep_gpu_tpu_torch imports, and one MD step, one
 step on a (2, 2, 2) domain grid of eight CPU domains, one step of the
 table route (Lorentz-Berthelot, force-switch) and of K7a and K7b, two
-C-rescale NPT steps with the dispersion correction, and a two-step lambda
-window with its dhdl.xvg and BAR run on the CPU.  Run in a subprocess so this test's own interpreter, which has
+C-rescale NPT steps with the dispersion correction, a two-step lambda
+window with its dhdl.xvg and BAR, and the CLI (solvate -> grompp -> mdrun
+-> bar -> check, and `python -m` through __main__) run on the CPU.  Run in a subprocess so this test's own interpreter, which has
 JAX loaded, does not hide a stray import."""
 import os
 import subprocess
@@ -21,10 +22,14 @@ torch.set_num_threads(1)
 import gromacs_fep_gpu_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
-    importlib.import_module(m)
+    if not m.endswith(".__main__"):     # __main__ runs the CLI (below)
+        importlib.import_module(m)
 for m in ("ops.nonbonded_ref", "ops.forces", "ops.foreign", "ops.dispcorr",
           "ops.nb_cluster", "io.xvgio", "analysis.bar", "analysis.mbar",
-          "parallel.ensemble", "parallel.mesh", "parallel.spatial"):
+          "parallel.ensemble", "parallel.mesh", "parallel.spatial",
+          "io.mdpio", "io.ndxio", "io.groio", "io.pdbio", "io.topio",
+          "io.grompp", "io.buildtools", "io.edrio", "io.cptio",
+          "io.checkpoint", "io.logio", "utils.timing", "cli", "__main__"):
     assert pkg.__name__ + "." + m in mods, m
 from gromacs_fep_gpu_tpu_torch.core.types import (CoulombType, FepParams,
                                                   MdParams)
@@ -107,6 +112,51 @@ with tempfile.TemporaryDirectory() as tmp:
 legs, total, err = bar_profile(np.concatenate(rows), np.concatenate(idx),
                                300.0, skip_frac=0.0)
 assert np.isfinite(legs[0][0]) and np.isnan(legs[1][0])
+# the CLI: solvate -> grompp -> 2 steps of mdrun -> bar -> check, then
+# `python -m gromacs_fep_gpu_tpu_torch check` through __main__
+import runpy
+from gromacs_fep_gpu_tpu_torch import cli
+TOP = '''[ defaults ]
+1 3 yes 0.5 0.8333
+[ atomtypes ]
+OW 15.9994 -0.834 A 0.315061 0.636386
+HW 1.008 0.417 A 0.0 0.0
+[ moleculetype ]
+SOL 2
+[ atoms ]
+1 OW 1 SOL OW 1 -0.834 15.9994
+2 HW 1 SOL HW1 1 0.417 1.008
+3 HW 1 SOL HW2 1 0.417 1.008
+[ settles ]
+1 1 0.09572 0.15139
+[ exclusions ]
+1 2 3
+2 3
+[ system ]
+water
+[ molecules ]
+SOL %d
+'''
+MDP = ("integrator = md\ndt = 0.001\nnsteps = 2\nnstlist = 2\n"
+       "coulombtype = reaction-field\nrcoulomb = 0.55\nrvdw = 0.55\n"
+       "rlist = 0.6\nfree-energy = yes\nfep-lambdas = 0 1\n"
+       "init-lambda-state = %d\nnstdhdl = 1\n")
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)
+    cli.main(["solvate", "-box", "1.3", "-o", "conf.gro"])
+    nsol = (int(open("conf.gro").read().splitlines()[1])) // 3
+    open("topol.top", "w").write(TOP % nsol)
+    for w in (0, 1):
+        open("md%d.mdp" % w, "w").write(MDP % w)
+        cli.main(["grompp", "-f", "md%d.mdp" % w, "-p", "topol.top", "-c",
+                  "conf.gro", "-o", "w%d.tpz" % w], device="cpu")
+        cli.main(["mdrun", "-s", "w%d.tpz" % w, "-deffnm", "w%d" % w],
+                 device="cpu")
+    cli.main(["bar", "-f", "w0.dhdl.xvg", "w1.dhdl.xvg", "-b", "0"])
+    cli.main(["check", "-s", "w1.cpt"], device="cpu")
+    sys.argv = ["gromacs_fep_gpu_tpu_torch", "check", "-s", "w1.edr"]
+    runpy.run_module("gromacs_fep_gpu_tpu_torch", run_name="__main__")
+    os.chdir("/")
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")
             and sys.modules[m] is not None]
 print("OK", len(mods))
@@ -124,19 +174,30 @@ def test_port_imports_and_steps_without_jax():
 
 def test_default_device_is_cuda_without_fallback():
     """Entry points default to the GPU and fail where there is none; they
-    never carry on quietly on the CPU."""
-    script = ("import torch, sys\n"
+    never carry on quietly on the CPU: solvation_system, and `python -m
+    gromacs_fep_gpu_tpu_torch mdrun` (run as __main__), which exits with
+    "no CUDA device"."""
+    script = ("import runpy, sys, torch\n"
               "from gromacs_fep_gpu_tpu_torch.models.solvation import "
               "solvation_system\n"
               "if torch.cuda.is_available():\n"
               "    print('HAS_CUDA'); sys.exit(0)\n"
               "try:\n"
               "    solvation_system(n_side=3)\n"
+              "    sys.exit(1)\n"
               "except (RuntimeError, AssertionError) as e:\n"
-              "    print('RAISED', type(e).__name__); sys.exit(0)\n"
-              "sys.exit(1)\n")
+              "    print('RAISED', type(e).__name__)\n"
+              "sys.argv = ['gromacs_fep_gpu_tpu_torch', 'mdrun', '-s', "
+              "'x.tpz']\n"
+              "try:\n"
+              "    runpy.run_module('gromacs_fep_gpu_tpu_torch', "
+              "run_name='__main__')\n"
+              "except SystemExit as e:\n"
+              "    print('CLI', 'no CUDA device' in str(e.code))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.split()[0] in ("RAISED", "HAS_CUDA")
+    if r.stdout.split()[0] == "RAISED":
+        assert "CLI True" in r.stdout, r.stdout + r.stderr
