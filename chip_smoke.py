@@ -16,8 +16,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    foreign-lambda Delta H; then the GPU's Delta H on its final frame
    against the dense O(N^2) oracle in float64;
 3. main path, equilibration: the 12,290-atom solvation-FEP system
-   (n_side 16, ligand at lambda_coul = lambda_vdw = 0.5), dt 0.5 fs,
-   tau_t 0.1 ps, no MTS, 2000 steps (1 ps), through MdRunner.run;
+   (n_side 16, ligand at lambda_coul = lambda_vdw = 0.5), dt 1 fs,
+   tau_t 0.1 ps, no MTS, 1,000 steps (1 ps), through MdRunner.run;
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (equilibrated state, production pair list), with
    its time, its plain version's time and its bound (the gather also: no
@@ -50,7 +50,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    grid; below the size at which the JAX package buckets atoms for PME, so
    its spread and gather are the small-system TPU kernels K4/K5),
    equilibrated at window 10 of a 20-window ladder, then windows 10 and 11
-   for 400 steps each with MTS2 and a Delta H sweep every 100 steps; the
+   for 200 steps each with MTS2 and a Delta H sweep every 100 steps; the
    launch counters must match the flavour pattern, Delta H must be finite
    on exactly the sweep steps and ~0 for the own window; dhdl.xvg is
    written and read back and BAR's estimate of the 10 -> 11 leg printed;
@@ -61,7 +61,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 9. NPT lambda window: from the window path's equilibrated state at window
    10, C-rescale (isotropic, tau_p 1 ps, ref_p 1 bar, compressibility
    4.5e-5 /bar, nstpcouple 10) with the dispersion correction (DispCorr =
-   EnerPres): 1,000 NPT steps, then windows 10 and 11 for 400 steps each
+   EnerPres): 500 NPT steps, then windows 10 and 11 for 200 steps each
    with a Delta H sweep every 100 steps -> dhdl.xvg -> BAR.  Each pressure
    step runs K1's virial flavour; the launch counters must match the
    flavour pattern exactly, the density stay in 0.90-1.10 g/cm^3 and the
@@ -86,7 +86,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 12. the CHARMM path at 12,290 atoms: the main path's system with the
    Lorentz-Berthelot table and the GROMACS manual's CHARMM settings
    (force-switch, rvdw 1.2 nm, rvdw-switch 1.0 nm, PME rcoulomb 1.2 nm,
-   DispCorr no), from the main path's production state: 500 steps of
+   DispCorr no), from the main path's production state: 250 steps of
    re-equilibration (tau_t 0.1 ps), the table kernel's F, VF and VF+virial
    against its plain version at these shapes (virial 1e-4 of max |Xi_aa|),
    400 production steps on the default RunnerConfig (every NB launch the
@@ -119,7 +119,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    VF against its plain version at the main path's shapes, per domain;
    the whole DD force (K6 + sharded PME + FEP) against the single-domain
    force at the production state (Epot rel 1e-4, F rel 5e-4 of max |F|,
-   dV/dlambda rel 1e-4 of max |dV/dlambda|); 400 MTS2 steps of the main
+   dV/dlambda rel 1e-4 of max |dV/dlambda|); 100 MTS2 steps of the main
    path under DD with exact launch counts (K6 8 per step, K2/K3 8 per
    reciprocal step), ms/step and ns/day beside the single-domain figure;
    then the main path under DD's device time and kernels per step
@@ -138,11 +138,22 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    the table route, as its Lorentz-Berthelot table demands) and its
    window 0 with combination rule 3 on K1's minimum-image flavour; then
    the same topology (rule 3) solvated at 5.0 nm (12,289 atoms, PME 42^3,
-   MTS2, pme_mdp) through grompp and mdrun: 2,000 equilibration steps and
+   MTS2, pme_mdp) through grompp and mdrun: 1,000 equilibration steps and
    windows 1 and 2 from its .cpt (launches exact, T in TEMP_BAND, no
    overflow, ener.csv/dhdl.xvg/edr/gmx.cpt read back), bar over the 1 -> 2
    leg, -fep gpu against -fep cpu (rel 1e-4), and a 20 + 20 restart
-   against 40 steps; the CLI's ms/step beside phase 5's.
+   against 40 steps; the CLI's ms/step beside phase 5's;
+17. a user's ligand (phase_ethanol): OPLS-AA ethanol (ETH_TOP: RB
+   dihedrals from [ dihedraltypes ], a perturbed dihedral, a dihedral
+   restraint, a flat-bottomed position restraint under -DPOSRES) solvated
+   at 5.0 nm (~12,300 atoms, PME 42^3, MTS2, dt 1 fs, no constraints on
+   the ligand) and decoupled over a 5-state ladder of the coul, vdw,
+   bonded and restraint columns under sd, through grompp -r and mdrun -fep
+   gpu: 1,000 equilibration steps, windows 1 and 2 x 400 steps from its
+   .cpt; each listed term on the card against the CPU, the sweep against
+   single e_lambda calls, each window's mean T in 285-315 K, launches
+   exact, ms/step, ns/day and kernels/step, a 20 + 20 sd restart against
+   40 steps, BAR and MBAR over the 1 -> 2 leg.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
@@ -167,12 +178,16 @@ N_SIDE = 16
 N_SIDE_WINDOW = 12      # 1,727 waters + the ligand: 5,186 atoms
 N_LAMBDA = 20
 WINDOWS = (10, 11)
-WINDOW_STEPS = 400
-NPT_EQ_STEPS = 1000
+WINDOW_STEPS = 200
+NPT_EQ_STEPS = 500
 DENSITY_BAND = (0.90, 1.10)     # g/cm^3
 MAX_DV = 0.03                   # |V - V0| / V0 over the NPT windows
 AMU_PER_NM3_IN_G_PER_CM3 = 1.66053906660e-3
-EQ_STEPS = 2000        # 1 ps at dt 0.5 fs: the lattice start cools to ~300 K
+# the equilibrations of the main path, the lambda window and the CLI: 1 ps
+# at dt 1 fs (1,000 steps, where 2,000 at 0.5 fs took twice the time):
+# the lattice start cools to ~315 K
+EQ_STEPS = 1000
+EQ_DT = 0.001
 PROD_STEPS = 400
 REPS = 50               # kernel launches per timing
 # gates of the reference fork (freeenergy.cpp:115-136)
@@ -202,14 +217,14 @@ FLOPS_GATHER_ATOM = 90 + 256 + 192 + 33
 TEMP_BAND = (260.0, 380.0)      # K, every production step
 # the CHARMM path (GROMACS manual, "Force fields in GROMACS -> CHARMM")
 CHARMM_RC, CHARMM_RSW = 1.2, 1.0
-CHARMM_EQ_STEPS = 500
+CHARMM_EQ_STEPS = 250
 CHARMM_NPT_STEPS = 100
 LAYOUT_STEPS = 100
 # domain decomposition: the grid and block of mdrun -dd 2x2x2, the steps
 # of each DD run, and the 81,002-atom system (26,999 waters + the ligand)
 DD_GRID = (2, 2, 2)
 DD_BLOCK = 8
-DD_STEPS = 400
+DD_STEPS = 100
 DD_CHARMM_STEPS = 100
 N_SIDE_BIG = 30
 BIG_STEPS = 100
@@ -230,11 +245,213 @@ EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 EXAMPLE_BOX = 1.24       # nm, the script's default
 EXAMPLE_STEPS = 200      # per window, the script's default NSTEPS
 CLI_BOX = 5.0            # nm: ~4,100 waters + the ligand
-CLI_EQ_STEPS = 2000     # 1 ps at dt 0.5 fs: the solvated box cools
-                        # to ~300 K
-CLI_WINDOW_STEPS = 400
+CLI_EQ_STEPS = EQ_STEPS
+CLI_WINDOW_STEPS = 200
 CLI_WINDOWS = (1, 2)
 CLI_RESTART_STEPS = 20
+
+
+# phase 17: a user's OPLS-AA ligand with dihedrals and restraints, under
+# sd, through grompp -r -> mdrun -fep gpu -> bar
+ETH_BOX = 5.0            # nm: ~4,100 waters + ethanol, PME 42^3
+ETH_EQ_STEPS = 1000      # 1 ps at dt 1 fs
+ETH_EQ_TAU_T = 0.1       # ps: the equilibration's inverse friction
+ETH_WINDOW_STEPS = 400
+ETH_WINDOWS = (1, 2)
+ETH_RESTART_STEPS = 20
+ETH_T_MEAN_BAND = (285.0, 315.0)    # K, each window's mean temperature
+
+# ethanol on the force field's bond lengths and angles (below): C1-C2-O-HO
+# trans, both CH groups staggered
+ETH_GRO = """ethanol
+    9
+    1ETH     C1    1   0.799   0.918   0.900
+    1ETH    H11    2   0.760   0.867   0.988
+    1ETH    H12    3   0.760   1.020   0.900
+    1ETH    H13    4   0.760   0.867   0.812
+    1ETH     C2    5   0.952   0.918   0.900
+    1ETH    H21    6   0.988   0.969   0.811
+    1ETH    H22    7   0.988   0.969   0.989
+    1ETH      O    8   0.999   0.785   0.900
+    1ETH     HO    9   1.093   0.787   0.900
+   1.80000   1.80000   1.80000
+"""
+
+# OPLS-AA ethanol (Jorgensen, Maxwell & Tirado-Rives 1996; the type,
+# bond, angle and Ryckaert-Bellemans lines as GROMACS's oplsaa.ff carries
+# them for opls_135/140/154/155/157) in TIP3P water.  The C1-C2-O-HO
+# dihedral carries a B state whose C_n are zero (bonded-lambdas), a
+# dihedral restraint on it whose centre moves from 165 to 175 degrees and
+# whose force constant grows fourfold (restraint-lambdas) and, under
+# -DPOSRES, a
+# flat-bottomed position restraint holds C1 within 0.1 nm of grompp -r's
+# position.
+ETH_TOP = """[ defaults ]
+1 3 yes 0.5 0.5
+
+[ atomtypes ]
+opls_135  CT  6  12.01100  -0.180  A  3.50000e-01  2.76144e-01
+opls_140  HC  1   1.00800   0.060  A  2.50000e-01  1.25520e-01
+opls_154  OH  8  15.99940  -0.683  A  3.12000e-01  7.11280e-01
+opls_155  HO  1   1.00800   0.418  A  0.00000e+00  0.00000e+00
+opls_157  CT  6  12.01100   0.145  A  3.50000e-01  2.76144e-01
+OW  OW  8  15.99940  -0.834  A  3.15061e-01  6.36386e-01
+HW  HW  1   1.00800   0.417  A  0.00000e+00  0.00000e+00
+
+[ bondtypes ]
+CT  CT  1  0.15290  224262.4
+CT  HC  1  0.10900  284512.0
+CT  OH  1  0.14100  267776.0
+HO  OH  1  0.09450  462750.4
+
+[ angletypes ]
+CT  CT  HC  1  110.700  313.800
+HC  CT  HC  1  107.800  276.144
+CT  CT  OH  1  109.500  418.400
+HC  CT  OH  1  109.500  292.880
+CT  OH  HO  1  108.500  460.240
+
+[ dihedraltypes ]
+HC  CT  CT  HC  3   0.62760  1.88280  0.00000  -2.51040  0.00000  0.00000
+HC  CT  CT  OH  3   0.97905  2.93716  0.00000  -3.91622  0.00000  0.00000
+CT  CT  OH  HO  3  -0.44350  3.83255  0.72801  -4.11705  0.00000  0.00000
+HC  CT  OH  HO  3   0.94140  2.82420  0.00000  -3.76560  0.00000  0.00000
+
+[ moleculetype ]
+ETH 3
+
+[ atoms ]
+1 opls_135 1 ETH C1  1 -0.180 12.011
+2 opls_140 1 ETH H11 1  0.060  1.008
+3 opls_140 1 ETH H12 1  0.060  1.008
+4 opls_140 1 ETH H13 1  0.060  1.008
+5 opls_157 1 ETH C2  1  0.145 12.011
+6 opls_140 1 ETH H21 1  0.060  1.008
+7 opls_140 1 ETH H22 1  0.060  1.008
+8 opls_154 1 ETH O   1 -0.683 15.9994
+9 opls_155 1 ETH HO  1  0.418  1.008
+
+[ bonds ]
+1 2 1
+1 3 1
+1 4 1
+1 5 1
+5 6 1
+5 7 1
+5 8 1
+8 9 1
+
+[ pairs ]
+2 6 1
+2 7 1
+2 8 1
+3 6 1
+3 7 1
+3 8 1
+4 6 1
+4 7 1
+4 8 1
+1 9 1
+6 9 1
+7 9 1
+
+[ angles ]
+2 1 3 1
+2 1 4 1
+3 1 4 1
+2 1 5 1
+3 1 5 1
+4 1 5 1
+1 5 6 1
+1 5 7 1
+6 5 7 1
+1 5 8 1
+6 5 8 1
+7 5 8 1
+5 8 9 1
+
+[ dihedrals ]
+2 1 5 6 3
+2 1 5 7 3
+2 1 5 8 3
+3 1 5 6 3
+3 1 5 7 3
+3 1 5 8 3
+4 1 5 6 3
+4 1 5 7 3
+4 1 5 8 3
+1 5 8 9 3 -0.44350 3.83255 0.72801 -4.11705 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0
+6 5 8 9 3
+7 5 8 9 3
+
+[ dihedral_restraints ]
+1 5 8 9 1 165.0 5.0 100.0 175.0 5.0 400.0
+
+#ifdef POSRES
+[ position_restraints ]
+1 2 1 0.1 1000.0
+#endif
+
+[ moleculetype ]
+SOL 2
+
+[ atoms ]
+1 OW 1 SOL OW  1 -0.834 15.9994
+2 HW 1 SOL HW1 1  0.417 1.008
+3 HW 1 SOL HW2 1  0.417 1.008
+
+[ settles ]
+1 1 0.09572 0.15139
+
+[ exclusions ]
+1 2 3
+2 3
+
+[ system ]
+ethanol in water
+
+[ molecules ]
+ETH 1
+SOL {nsol}
+"""
+
+# sd at tau-t 1 ps, flexible ethanol at dt 1 fs (no LINCS in the port
+# yet), the ligand decoupled over a 5-state ladder of the coul, vdw,
+# bonded and restraint columns
+ETH_MDP = """integrator = sd
+dt = 0.001
+nsteps = {nsteps}
+nstlist = 10
+coulombtype = reaction-field
+rcoulomb = 0.55
+rvdw = 0.55
+rlist = 0.6
+tc-grps = System
+tau-t = 1.0
+ref-t = 300
+ld-seed = 2024
+gen-vel = yes
+gen-temp = 300
+gen-seed = 11
+define = -DPOSRES
+constraints = none
+free-energy = yes
+init-lambda-state = {window}
+coul-lambdas = 0.0 0.5 1.0 1.0 1.0
+vdw-lambdas = 0.0 0.0 0.0 0.5 1.0
+bonded-lambdas = 0.0 0.25 0.5 0.75 1.0
+restraint-lambdas = 0.0 0.25 0.5 0.75 1.0
+couple-moltype = ETH
+couple-lambda0 = vdw-q
+couple-lambda1 = none
+couple-intramol = no
+sc-alpha = 0.5
+sc-power = 1
+sc-sigma = 0.3
+nstcalcenergy = 10
+nstdhdl = 10
+"""
+ETH_N_WIN = 5
 
 
 def example_inputs(path=EXAMPLE):
@@ -991,7 +1208,10 @@ def phase_gather_calls():
     It runs first, while the process has profiled nothing else: on the
     H100 with torch 2.11, each long profiled window (20 steps of the main
     path) left a later short window with fewer of its device events, until
-    none were seen, with or without idle time around the calls."""
+    none were seen, with or without idle time around the calls.  Even the
+    first windows drop an event now and then (9 kernels seen in 10 calls
+    on the H100), so a window that sees fewer kernels than calls is
+    profiled once more; more kernels, or a copy, fail at once."""
     from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
     from gromacs_fep_gpu_tpu_torch.ops import pme
     for n_side in (N_SIDE, N_SIDE_WINDOW, N_SIDE_BIG):
@@ -1000,8 +1220,13 @@ def phase_gather_calls():
         K = tuple(_params(True, n_side).pme_grid)
         q = (0.5 * system.charge_a + 0.5 * system.charge_b).contiguous()
         phi = torch.as_tensor(edge_phi(K), device="cuda")
-        n_kern, n_copy, names = _device_ops(
-            lambda: pme.phi_gather(state.x, state.box, q, phi, K), 10)
+        for _ in range(2):
+            n_kern, n_copy, names = _device_ops(
+                lambda: pme.phi_gather(state.x, state.box, q, phi, K), 10)
+            if n_kern >= 10 or n_copy:
+                break
+            _say(f"pme.phi_gather at {system.n_atoms:,} atoms: the profiler "
+                 f"saw {n_kern} kernels in 10 calls; profiling again")
         ok = (n_kern == 10 and n_copy == 0
               and all("pme_gather_kernel" in k for k in names))
         _say(f"pme.phi_gather at {system.n_atoms:,} atoms, grid {K}: "
@@ -1642,7 +1867,7 @@ def _profile_window(runner, state, nsteps, ms_step, top=10):
     """torch.profiler over `nsteps` steps of runner.run: the device's busy
     time (the sum of its kernels' times: one stream, so they do not
     overlap), its idle share against the unprofiled ms/step, the top
-    kernels and host ops.  Returns the idle share."""
+    kernels and host ops.  Returns (the idle share, kernels per step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1672,7 +1897,7 @@ def _profile_window(runner, state, nsteps, ms_step, top=10):
     _say("  host: " + "; ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / nsteps:.2f} ms/step"
         for e in cpu[:8]))
-    return 1.0 - busy_ms / nsteps / ms_step
+    return 1.0 - busy_ms / nsteps / ms_step, n_kern / nsteps
 
 
 def _run_windows(runner_for, start, params, ladder, smi, what,
@@ -1778,7 +2003,7 @@ def phase_window(device, timer, smi):
          f"{float(state.box[0, 0]):.2f} nm, PME grid {params.pme_grid}, "
          f"ladder of {N_LAMBDA}, nstdhdl {params.fep.nstdhdl}")
     eq_params = _params(mts=False, n_side=N_SIDE_WINDOW).replace(
-        dt=0.0005, tau_t=0.1, nsttcouple=1)
+        dt=EQ_DT, tau_t=0.1, nsttcouple=1)
     eq = MdRunner(system, eq_params, RunnerConfig(super_nnbr=448,
                                                   fep_max_nbr=512))
     state, lg, sec, counts = _drive(eq, at_window(state, WINDOWS[0]),
@@ -1829,12 +2054,14 @@ def phase_npt(timer, smi, system, eq_state, caps):
     free-energy tutorial's NPT settings with DispCorr = EnerPres), from its
     equilibrated state at window 10: NPT_EQ_STEPS steps, then windows 10
     and 11.  Gates: exact launches (checked by _drive against the flavour
-    pattern, and the pattern against the expected flavour counts: per
-    window S 4, R 36, F 160, f 200; equilibration R 100, F 400, f 500),
+    pattern, and the pattern against the expected flavour counts of MTS2,
+    nstpcouple 10 and nstdhdl 100: per window of n steps S n/100, R
+    n/10 - n/100, F n/2 - n/10, f n/2; the equilibration likewise without
+    the sweep),
     finite values, density in DENSITY_BAND at every sample, and the
     windows' volumes within MAX_DV of V_eq, the volume after the NPT
     equilibration.  The NVT-equilibrated start is ~2 % denser than TIP3P
-    at 1 bar with the tail correction; the 1,000 NPT steps relax it, and
+    at 1 bar with the tail correction; the NPT_EQ_STEPS steps relax it, and
     the drift from the NVT volume is printed, not gated.  Returns the K1
     VF+virial row (measured at this path's shapes) and the launches."""
     from gromacs_fep_gpu_tpu_torch.core.types import PcouplType
@@ -1862,8 +2089,9 @@ def phase_npt(timer, smi, system, eq_state, caps):
          f"{density(v0):.4f} g/cm^3")
 
     eq = runner_for(seed=100, all_lambda=None)
-    pat = eq._flavor_pattern(0, NPT_EQ_STEPS)
-    want = {"R": 100, "F": 400, "f": 500}
+    n = NPT_EQ_STEPS
+    pat = eq._flavor_pattern(0, n)
+    want = {"R": n // 10, "F": n // 2 - n // 10, "f": n // 2}
     if {c: pat.count(c) for c in set(pat)} != want:
         raise AssertionError(f"NPT equilibration flavours {pat!r}")
     vols = []
@@ -1875,18 +2103,22 @@ def phase_npt(timer, smi, system, eq_state, caps):
          f"volume every 100 steps {[round(v, 4) for v in vols]} nm^3; mean "
          f"P {float(p_on.mean()):.1f} bar over {p_on.numel()} pressure "
          f"steps")
-    if counts["nb_v2u_VFV"] != 100 or counts["nb_v2u_F"] != 900:
+    if counts["nb_v2u_VFV"] != n // 10 or counts["nb_v2u_F"] != n - n // 10:
         raise AssertionError(f"NPT equilibration launches {counts}")
 
+    n = WINDOW_STEPS
     for w in WINDOWS:
-        pat = runner_for(seed=w)._flavor_pattern(0, WINDOW_STEPS)
-        if {c: pat.count(c) for c in set(pat)} != {"S": 4, "R": 36,
-                                                   "F": 160, "f": 200}:
+        pat = runner_for(seed=w)._flavor_pattern(0, n)
+        if {c: pat.count(c) for c in set(pat)} != {
+                "S": n // 100, "R": n // 10 - n // 100,
+                "F": n // 2 - n // 10, "f": n // 2}:
             raise AssertionError(f"NPT window {w} flavours {pat!r}")
     wvols = []
     total, state_w, lg_w = _run_windows(runner_for, state, params, ladder,
                                         smi, "NPT window", wvols)
-    if total["nb_v2u_VFV"] != 80 or total["nb_v2u_F"] != 720 \
+    n_win = len(WINDOWS)
+    if total["nb_v2u_VFV"] != n_win * (n // 10) \
+            or total["nb_v2u_F"] != n_win * (n - n // 10) \
             or total["nb_v2u_VF"] != 0:
         raise AssertionError(f"NPT windows launches {total}")
     p_on = lg_w.pres[torch.isfinite(lg_w.pres)]
@@ -1900,9 +2132,9 @@ def phase_npt(timer, smi, system, eq_state, caps):
          f"g/cm^3; max |V - V_eq| / V_eq {dv:.4f} over the windows; drift "
          f"from the NVT volume: final {(all_v[-1] - v0) / v0:+.4f}, largest "
          f"{max(abs(v - v0) for v in all_v) / v0:.4f}")
-    if not bool(torch.isfinite(p_on).all()) or p_on.numel() != 40:
+    if not bool(torch.isfinite(p_on).all()) or p_on.numel() != n // 10:
         raise AssertionError("NPT window: pressure not finite on exactly "
-                             "the 40 pressure steps")
+                             f"the {n // 10} pressure steps")
     if not DENSITY_BAND[0] <= rho <= DENSITY_BAND[1] or not all(
             DENSITY_BAND[0] <= density(v) <= DENSITY_BAND[1] for v in all_v):
         raise AssertionError(f"NPT density left {DENSITY_BAND} g/cm^3")
@@ -2281,7 +2513,7 @@ def phase_charmm(device, timer, smi, start):
     if not (TEMP_BAND[0] <= t_lo and t_hi <= TEMP_BAND[1]):
         raise AssertionError(f"CHARMM path: temperature left {TEMP_BAND} "
                              f"K: {t_lo:.1f}..{t_hi:.1f}")
-    idle = _profile_window(prod, state, params.nstlist, ms_step, top=6)
+    idle, _ = _profile_window(prod, state, params.nstlist, ms_step, top=6)
     _say(f"CHARMM production idle share {idle:.3f} on {smi}")
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -3023,7 +3255,7 @@ def phase_cli(device, smi, ms_main, box=CLI_BOX, eq_steps=CLI_EQ_STEPS,
         rule 3 and -fep gpu (K1's in-loop minimum image on the 1.24 nm box,
         launches exact);
     (b) the same topology (rule 3) solvated at `box` with the main path's
-        physics in mdp form (pme_mdp): an equilibration (dt 0.5 fs, tau-t
+        physics in mdp form (pme_mdp): an equilibration (dt 1 fs, tau-t
         0.1 ps, gen-vel), then windows 1 and 2 from its .cpt, launches
         exact, T in TEMP_BAND on every step, no overflow left, outputs read
         back (_cli_outputs), bar over the 1 -> 2 leg;
@@ -3133,7 +3365,7 @@ def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
     w1, w2 = CLI_WINDOWS
     write("eq.mdp", mdp_with(pme_mdp(mdp_t.format(nsteps=eq_steps,
                                                   window=w1)),
-                             {"dt": 0.0005, "tau-t": 0.1, "nsttcouple": 1,
+                             {"dt": EQ_DT, "tau-t": 0.1, "nsttcouple": 1,
                               "mts": "no"}))
     grompp("eq.mdp", "big.top", "big.gro", "eq.tpz")
     runner, _, out, nb = _cli_mdrun(["-s", "eq.tpz", "-deffnm", "eq"],
@@ -3146,7 +3378,7 @@ def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
     _say(f"CLI (b) LIG + {nsol} SOL = {runner.system.n_atoms} atoms, box "
          f"{box} nm, PME grid {tuple(grid)} (gromacs_pme_grid at "
          f"fourier-spacing 0.12), layout {runner.layout}; equilibration "
-         f"{eq_steps} steps at dt 0.5 fs: T every 100 steps "
+         f"{eq_steps} steps at dt {EQ_DT * 1e3:g} fs: T every 100 steps "
          f"{[round(float(t), 1) for t in eq_ener[::100, 3]]} K, "
          f"{_cli_perf(out)[1]:.3f} ms/step, launches {nb}; {smi}")
     xvgs = []
@@ -3198,22 +3430,28 @@ def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
     if rows["gpu"][2] == rows["cpu"][2] or e_rel > 1e-4 or d_rel > 1e-4:
         raise AssertionError("-fep gpu against -fep cpu")
 
-    # (d) restart: 20 + 20 steps against 40.  The card's runs are not
-    # bitwise reproducible (the spread's atomics, autograd's scatters), so
-    # a second uninterrupted run from the same checkpoint measures the
-    # spread the restart is held to; the restore itself is checked exact.
+    # (d) restart: 20 + 20 steps against 40
+    _cli_restart(device, counted, f"win{w1}.tpz", "eq.cpt", eq_steps,
+                 CLI_RESTART_STEPS, "CLI (d)")
+
+
+def _cli_restart(device, counted, tpz, cpt, step0, n, what):
+    """-cpi `cpt` -nsteps n restores the state exactly and continues the
+    step count; n + n steps against 2n in one run.  The card's runs are
+    not bitwise reproducible (the spread's atomics, autograd's scatters),
+    so a second uninterrupted run from the same checkpoint measures the
+    spread the restart is held to: max |dx| at most the larger of 1e-5 nm
+    and 3 x that spread."""
     from gromacs_fep_gpu_tpu_torch import cli
-    n = CLI_RESTART_STEPS
-    tpz = f"win{w1}.tpz"
     whole = []
     for tag in ("r40", "r40b"):
-        _, st, _, _ = _cli_mdrun(["-s", tpz, "-cpi", "eq.cpt", "-nsteps",
+        _, st, _, _ = _cli_mdrun(["-s", tpz, "-cpi", cpt, "-nsteps",
                                   str(2 * n), "-deffnm", tag], device,
-                                 counted, eq_steps, 2 * n, f"restart, {tag}")
+                                 counted, step0, 2 * n, f"restart, {tag}")
         whole.append(st)
     runner, half, _, _ = _cli_mdrun(
-        ["-s", tpz, "-cpi", "eq.cpt", "-nsteps", str(n), "-deffnm", "r20"],
-        device, counted, eq_steps, n, "restart, first 20")
+        ["-s", tpz, "-cpi", cpt, "-nsteps", str(n), "-deffnm", "r20"],
+        device, counted, step0, n, "restart, first 20")
     back = cli._restore(types.SimpleNamespace(cpi="r20.cpt"),
                         half.replace(step=0), runner, runner.params, device)
     for k in ("x", "v", "box", "lam"):
@@ -3224,18 +3462,231 @@ def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
         raise AssertionError("restart: step or thermostat not restored")
     runner, rest, _, _ = _cli_mdrun(
         ["-s", tpz, "-cpi", "r20.cpt", "-nsteps", str(n), "-deffnm",
-         "r20b"], device, counted, eq_steps + n, n, "restart, next 20")
-    _cli_outputs("r20b", runner, eq_steps + n, n)
+         "r20b"], device, counted, step0 + n, n, "restart, next 20")
+    _cli_outputs("r20b", runner, step0 + n, n)
     dx = float((rest.x - whole[0].x).abs().max())
     noise = float((whole[1].x - whole[0].x).abs().max())
-    _say(f"CLI (d) -cpi r20.cpt -nsteps {n}: steps {eq_steps + n}.."
-         f"{rest.step}, state restored exactly; final positions against "
-         f"{2 * n} steps in one run: max |dx| {dx:.2e} nm (1e-5 gate "
-         f"{'met' if dx <= 1e-5 else 'missed'}); two uninterrupted "
-         f"{2 * n}-step runs from one checkpoint differ by {noise:.2e} nm")
+    _say(f"{what} -cpi r20.cpt -nsteps {n} ({runner.params.integrator.value})"
+         f": steps {step0 + n}..{rest.step}, state restored exactly; final "
+         f"positions against {2 * n} steps in one run: max |dx| {dx:.2e} nm "
+         f"(1e-5 gate {'met' if dx <= 1e-5 else 'missed'}); two "
+         f"uninterrupted {2 * n}-step runs from one checkpoint differ by "
+         f"{noise:.2e} nm")
     if dx > max(1e-5, 3.0 * noise):
         raise AssertionError(f"restart: max |dx| {dx} nm, uninterrupted "
                              f"runs {noise} nm apart")
+
+
+def phase_ethanol(device, smi, ms_main, box=ETH_BOX, eq_steps=ETH_EQ_STEPS,
+                  win_steps=ETH_WINDOW_STEPS, counted=True):
+    """Phase 17: a user's OPLS-AA ligand (ETH_TOP: RB dihedrals from
+    [ dihedraltypes ], a perturbed dihedral, a dihedral restraint, a
+    flat-bottomed position restraint under -DPOSRES) decoupled in water
+    under sd, through the port's CLI in a temporary directory: solvate at
+    `box`, grompp -r, mdrun -fep gpu (K1, and K2/K3 on PME), bar.
+    An equilibration (tau-t ETH_EQ_TAU_T, gen-vel), then windows 1 and 2
+    from its .cpt (tau-t 1 ps) with (c) each window's mean T in
+    ETH_T_MEAN_BAND, (d) exact launches and (e) ms/step and ns/day by the
+    CLI's performance line and kernels per step (torch.profiler over a
+    fresh 40-step window); on the equilibrated frame (a) each listed
+    term's energy, forces and dV/dlambda (7,) on the card against the CPU
+    (E rel 1e-4 of max(|E|, 1e-3 kJ/mol), F 5e-4 of max |F|, dV/dlambda
+    1e-4 of max(|dV/dlambda|, |E|, 1e-3)) and (b) each Delta H column of the
+    sweep against the difference of two single e_lambda calls (1e-4 of
+    max(|Delta H|, 1e-3 kJ/mol)); (f) the 20 + 20 restart under sd
+    (_cli_restart); (g) BAR (the CLI) and MBAR over the 1 -> 2 leg,
+    finite and within their errors of each other.  counted=False (a CPU
+    rehearsal) skips the launch checks and the profile."""
+    t_start = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            _ethanol_body(device, smi, ms_main, box, eq_steps, win_steps,
+                          counted)
+        finally:
+            os.chdir(cwd)
+    _say(f"ethanol phase: {time.perf_counter() - t_start:.1f} s on {smi}")
+
+
+def _ethanol_term_checks(runner, state):
+    """(a): each listed term on the card against the CPU at the run's
+    lambda vector, on the frame and on the frame displaced by seeded
+    0.03 nm noise (a flat-bottomed term at rest on one of them is off it
+    on the other); returns the printed rows."""
+    from gromacs_fep_gpu_tpu_torch.core.types import InteractionList
+    from gromacs_fep_gpu_tpu_torch.ops import bonded
+
+    def term(name, il, x0, dev):
+        il = InteractionList(*(getattr(il, f).to(dev) for f in
+                               ("atoms", "params_a", "params_b", "mask")))
+        x = x0.detach().to(dev).requires_grad_(True)
+        lam = state.lam.detach().to(dev).requires_grad_(True)
+        with torch.enable_grad():
+            e = bonded.listed_energy(name, x, state.box.to(dev), il, lam,
+                                     runner.params.disre_fc)
+            gx, gl = torch.autograd.grad(e, [x, lam], allow_unused=True)
+        gl = torch.zeros_like(lam) if gl is None else gl
+        return e.detach().cpu(), -gx.cpu(), gl.cpu()
+
+    noise = 0.03 * torch.randn(state.x.shape,
+                               generator=torch.Generator().manual_seed(17))
+    frames = (("frame", state.x),
+              ("displaced", state.x + noise.to(state.x.device)))
+    rows = []
+    for what, x0 in frames:
+        for name, il in runner.system.bonded.items():
+            (e_g, f_g, d_g), (e_c, f_c, d_c) = (
+                term(name, il, x0, d) for d in (state.x.device, "cpu"))
+            e_rel = float((e_g - e_c).abs()) / max(float(e_c.abs()), 1e-3)
+            f_rel = (_rel(f_g, f_c)[0] if float(f_c.abs().max()) > 0
+                     else float(f_g.abs().max()))
+            # dV/dlambda = E_B - E_A for terms linear in their parameters:
+            # its float32 rounding scales with the energies, not with the
+            # difference (a perturbed RB dihedral near its minimum gives
+            # -0.005 kJ/mol out of terms of ~4)
+            d_rel = float((d_g - d_c).abs().max()) / max(
+                float(d_c.abs().max()), float(e_c.abs()), 1e-3)
+            comp = int(d_c.abs().argmax())
+            rows.append(f"{name} (n {il.n}, {what}): E {float(e_c):.5f} "
+                        f"kJ/mol rel {e_rel:.1e}, F rel {f_rel:.1e}, "
+                        f"dV/dl[{comp}] {float(d_c[comp]):.5f} rel "
+                        f"{d_rel:.1e}")
+            if e_rel > 1e-4 or f_rel > 5e-4 or d_rel > 1e-4:
+                raise AssertionError(f"(a) {rows[-1]}")
+    return rows
+
+
+def _ethanol_sweep_check(runner, state):
+    """(b): each Delta H column of the sweep on the card against the
+    difference of two single e_lambda calls on the card; returns the
+    sweep and the largest gap relative to max(|Delta H|, 1e-3)."""
+    from gromacs_fep_gpu_tpu_torch.ops.foreign import make_lambda_energy_fn
+    _, feplist, _, _ = runner.rebuild(state)
+    e_lam = make_lambda_energy_fn(runner.system, runner.params,
+                                  runner.recip_slope_fn)
+    with torch.no_grad():
+        dh = runner._foreign(feplist)(state.x, state.box, state.lam)
+        e_cur = e_lam(state.x, state.box, state.lam, feplist)
+        single = torch.stack([e_lam(state.x, state.box, lam, feplist) - e_cur
+                              for lam in runner.all_lambda])
+    gap = float((dh - single).abs().max()) / max(float(single.abs().max()),
+                                                 1e-3)
+    if gap > 1e-4 or float(dh[state.fep_state].abs()) != 0.0:
+        raise AssertionError(f"(b) sweep {dh.tolist()} against single "
+                             f"calls {single.tolist()}")
+    return dh, gap
+
+
+def _ethanol_body(device, smi, ms_main, box, eq_steps, win_steps, counted):
+    from gromacs_fep_gpu_tpu_torch.analysis.mbar import mbar
+    from gromacs_fep_gpu_tpu_torch.core.units import BOLTZ
+    from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg
+
+    def write(path, text):
+        with open(path, "w") as f:
+            f.write(text)
+
+    def grompp(mdp, tpz):
+        _cli(["grompp", "-f", mdp, "-p", "topol.top", "-c", "conf.gro",
+              "-r", "conf.gro", "-o", tpz], device)
+
+    write("eth.gro", ETH_GRO)
+    _, out = _cli(["solvate", "-cp", "eth.gro", "-box", str(box), "-o",
+                   "conf.gro"], device)
+    nsol = int(re.search(r"added (\d+)", out).group(1))
+    write("topol.top", ETH_TOP.format(nsol=nsol))
+    w1, w2 = ETH_WINDOWS
+    # the windows log Delta H every 20 steps: 20 samples per window
+    win_keys = {"nstcalcenergy": 20, "nstdhdl": 20}
+    write("eq.mdp", mdp_with(pme_mdp(ETH_MDP.format(nsteps=eq_steps,
+                                                    window=w1)),
+                             {"tau-t": ETH_EQ_TAU_T}))
+    grompp("eq.mdp", "eq.tpz")
+    runner, eq_state, out, nb = _cli_mdrun(
+        ["-s", "eq.tpz", "-deffnm", "eq", "-fep", "gpu"], device, counted,
+        0, eq_steps, "ethanol equilibration")
+    eq_ener = _cli_outputs("eq", runner, 0, eq_steps)
+    if runner.params.integrator.value != "sd" or runner.layout != "v2u":
+        raise AssertionError(f"ethanol: integrator "
+                             f"{runner.params.integrator.value}, layout "
+                             f"{runner.layout}")
+    grid = tuple(runner.params.pme_grid)
+    if box == ETH_BOX and grid != (42, 42, 42):
+        raise AssertionError(f"PME grid {grid} at box {box}")
+    terms = {k: v.n for k, v in runner.system.bonded.items()}
+    _say(f"ethanol: ETH + {nsol} SOL = {runner.system.n_atoms} atoms, box "
+         f"{box} nm, PME {grid}, layout {runner.layout}, listed terms "
+         f"{terms}; equilibration (sd, tau-t {ETH_EQ_TAU_T} ps, dt 1 fs, "
+         f"MTS2) {eq_steps} steps: T every 200 steps "
+         f"{[round(float(t), 1) for t in eq_ener[::200, 3]]} K, "
+         f"{_cli_perf(out)[1]:.3f} ms/step, launches {nb}; {smi}")
+
+    xvgs = []
+    for w in ETH_WINDOWS:
+        write(f"win{w}.mdp", mdp_with(pme_mdp(ETH_MDP.format(
+            nsteps=win_steps, window=w)), win_keys))
+        grompp(f"win{w}.mdp", f"win{w}.tpz")
+        runner, state, out, nb = _cli_mdrun(
+            ["-s", f"win{w}.tpz", "-cpi", "eq.cpt", "-deffnm", f"win{w}",
+             "-fep", "gpu"], device, counted, eq_steps, win_steps,
+            f"ethanol window {w}")
+        ener = _cli_outputs(f"win{w}", runner, eq_steps, win_steps)
+        t_mean = float(ener[:, 3].mean())
+        ns_day, ms = _cli_perf(out)
+        _say(f"ethanol window {w} (sd, tau-t 1 ps, dt 1 fs, MTS2, "
+             f"{win_steps} steps from eq.cpt): (e) {ms:.3f} ms/step, "
+             f"{ns_day:.3f} ns/day by the CLI's performance line against "
+             f"MdRunner's {ms_main:.3f} ms/step on the main path (phase 5) "
+             f"in this call; (c) mean T {t_mean:.1f} K (band "
+             f"{ETH_T_MEAN_BAND}), range {ener[:, 3].min():.1f}.."
+             f"{ener[:, 3].max():.1f}; (d) launches {nb}; {smi}")
+        if not ETH_T_MEAN_BAND[0] <= t_mean <= ETH_T_MEAN_BAND[1]:
+            raise AssertionError(f"ethanol window {w}: mean T {t_mean:.1f}")
+        xvgs.append(f"win{w}.dhdl.xvg")
+        if w == w1:
+            # (a) and (b) on window 1's equilibrated start frame
+            st1 = eq_state.replace(lam=state.lam, fep_state=state.fep_state)
+            for row in _ethanol_term_checks(runner, st1):
+                _say(f"ethanol (a) {row}")
+            dh, gap = _ethanol_sweep_check(runner, st1)
+            _say(f"ethanol (b) the sweep at window {w} "
+                 f"{[round(float(v), 4) for v in dh]} kJ/mol against "
+                 f"single e_lambda calls: max gap {gap:.1e} of max |Delta "
+                 f"H| (gate 1e-4)")
+    if counted:
+        # (e) kernels per step in a fresh 40-step window of the last runner
+        idle, kps = _profile_window(runner, state, 2 * runner.params.nstlist,
+                                    ms, top=6)
+        _say(f"ethanol (e) {kps:.0f} kernels/step, idle {idle:.3f} at "
+             f"{ms:.3f} ms/step, against the main path's 2,401 kernels/step "
+             f"(PERF.md section 5); {smi}")
+
+    # (g) BAR through the CLI, MBAR over the two sampled states
+    (dg, err), out = _cli(["bar", "-f"] + xvgs, device)
+    leg = re.search(rf"\n\s*{w1} -> {w2}\s+(\S+)\s+(\S+)", out)
+    dg_bar, e_bar = float(leg.group(1)), float(leg.group(2))
+    rows, idx = [], []
+    for i, path in enumerate(xvgs):
+        data, legends = read_xvg(path)
+        ndvdl = sum(1 for lg in legends if lg.startswith("dH/d"))
+        keep = data[int(0.1 * len(data)):, 1 + ndvdl:][:, [w1, w2]]
+        rows.append(keep)
+        idx.append(np.full(len(keep), i))
+    f, e = mbar(np.concatenate(rows), np.concatenate(idx),
+                BOLTZ * runner.params.ref_t)
+    dg_mbar, e_mbar = float(f[1] - f[0]), float(e[1])
+    _say(f"ethanol (g) the {w1} -> {w2} leg: BAR {dg_bar:.3f} +- "
+         f"{e_bar:.3f}, MBAR {dg_mbar:.3f} +- {e_mbar:.3f} kJ/mol "
+         f"({len(rows[0])} + {len(rows[1])} samples)")
+    if not (np.isfinite([dg_bar, dg_mbar]).all()
+            and abs(dg_bar - dg_mbar) <= e_bar + e_mbar + 1e-6):
+        raise AssertionError(f"(g) BAR {dg_bar} +- {e_bar}, MBAR "
+                             f"{dg_mbar} +- {e_mbar}")
+
+    # (f) the restart under sd: 20 + 20 steps against 40
+    _cli_restart(device, counted, f"win{w1}.tpz", "eq.cpt", eq_steps,
+                 ETH_RESTART_STEPS, "ethanol (f)")
 
 
 def run(device="cuda", smi=None):
@@ -3262,7 +3713,7 @@ def run(device="cuda", smi=None):
     state = _decoupled(state)
     _say(f"system: {system.n_atoms} atoms, box {float(state.box[0, 0]):.2f}"
          f" nm, PME grid {_params(True).pme_grid}")
-    eq_params = _params(mts=False).replace(dt=0.0005, tau_t=0.1,
+    eq_params = _params(mts=False).replace(dt=EQ_DT, tau_t=0.1,
                                            nsttcouple=1)
     eq = MdRunner(system, eq_params, RunnerConfig(super_nnbr=448,
                                                   fep_max_nbr=512))
@@ -3335,6 +3786,8 @@ def run(device="cuda", smi=None):
     done("NPT windows")
     phase_cli(device, smi, ms_step)
     done("the CLI (phase 16)")
+    phase_ethanol(device, smi, ms_step)
+    done("a ligand's dihedrals and restraints under sd (phase 17)")
     for r in rows:
         if r["name"].startswith("nb_v2u"):    # K1 runs on every path
             r["launches_window"] = window_counts[r["name"]]

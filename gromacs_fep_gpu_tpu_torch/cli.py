@@ -82,24 +82,26 @@ def cmd_grompp(args):
         raise NotImplementedError("grompp -o .tpr: writing GROMACS run "
                                   "input is not ported yet (ROADMAP item "
                                   "8); write a .tpz")
-    if args.r:
-        raise NotImplementedError("grompp -r: position restraints are not "
-                                  "ported yet (ROADMAP item 4)")
     device = _device(args)
     mdp_text, top_text = _read(args.f), _read(args.p)
     names, resnames, x, v, box = read_structure(args.c)
     ndx_text = _read(args.n) if args.n else ""
+    # -r: the position restraints' reference positions (else the -c ones)
+    posres_x = read_structure(args.r)[2] if args.r else None
     # validate by building once (every grompp transform)
     pp = preprocess_arrays(mdp_text, top_text, names, resnames, x, v, box,
                            include_dirs=[os.path.dirname(args.p)],
                            couple_moltype_override=args.couple_moltype,
-                           ndx_text=ndx_text or None, device=device)
+                           ndx_text=ndx_text or None, posres_x=posres_x,
+                           device=device)
+    extra = {} if posres_x is None else {"posres_x": posres_x}
     with open(args.o, "wb") as f:   # np.savez would append .npz to a path
         np.savez(f, top=top_text, mdp=mdp_text, x=x,
                  v=(v if v is not None else np.zeros_like(x)), box=box,
                  couple_moltype=args.couple_moltype or "",
                  names=names, resnames=resnames, ndx=ndx_text,
-                 include_dir=os.path.dirname(os.path.abspath(args.p)))
+                 include_dir=os.path.dirname(os.path.abspath(args.p)),
+                 **extra)
     print(f"wrote {args.o} ({pp.system.n_atoms} atoms)")
 
 
@@ -108,10 +110,6 @@ def _load_tpz(path, device):
     from .io.grompp import preprocess_arrays
 
     data = np.load(path)
-    if "posres_x" in data.files:
-        raise NotImplementedError(f"{path}: position-restraint reference "
-                                  "coordinates: position restraints are "
-                                  "not ported yet (ROADMAP item 4)")
     cm = str(data["couple_moltype"]) or None
     inc = [str(data["include_dir"])] if "include_dir" in data.files else []
     ndx = str(data["ndx"]) if "ndx" in data.files else ""
@@ -120,17 +118,20 @@ def _load_tpz(path, device):
                            [str(r) for r in data["resnames"]],
                            data["x"], data["v"], data["box"],
                            include_dirs=inc, couple_moltype_override=cm,
-                           ndx_text=ndx or None, device=device)
+                           ndx_text=ndx or None,
+                           posres_x=(data["posres_x"]
+                                     if "posres_x" in data.files else None),
+                           device=device)
     return pp, data
 
 
 def _restore(args, state, runner, params, device):
     """State from -cpi: the GROMACS-format checkpoint (x, v, box, step,
     lambda, fep_state, the v-rescale integral) or the port's own (every
-    field and the thermostat generator).  When the run input names another
-    lambda state than the checkpoint (a new window started from an
-    equilibrated frame), the run input's lambda vector and state are
-    kept."""
+    field and the generator of the v-rescale and sd draws).  When the run
+    input names another lambda state than the checkpoint (a new window
+    started from an equilibrated frame), the run input's lambda vector and
+    state are kept."""
     from .io.checkpoint import load_checkpoint
     from .io.cptio import is_gmx_cpt, read_gmx_cpt
 
@@ -172,7 +173,7 @@ def _restore(args, state, runner, params, device):
 def cmd_mdrun(args):
     """The md path; returns (runner, final state)."""
     from .core.types import FepCoupling as FC
-    from .core.types import PcouplType, TcouplType
+    from .core.types import IntegratorType, PcouplType, TcouplType
     from .io.checkpoint import save_checkpoint
     from .io.cptio import write_gmx_cpt
     from .io.edrio import (DHBT_DH, DHBT_DHDL, EdrFrame, EdrWriter, dh_block,
@@ -255,9 +256,13 @@ def cmd_mdrun(args):
                header="time epot ekin temp pres", comments="# ")
     if all_lambda is not None:
         keep = ~np.isnan(log.delta_h[:, 0])
+        # the JAX writer's columns, and dH/drestraint-lambda where the mdp
+        # gives restraint-lambdas
+        dhdl_comps = (FC.COUL, FC.VDW, FC.BONDED) + (
+            (FC.RESTRAINT,) if pp.separate_dvdl[int(FC.RESTRAINT)] else ())
         write_dhdl_xvg(f"{deffnm}.dhdl.xvg", times[keep], log.dvdl[keep],
                        log.delta_h[keep], lam_arr, state.fep_state,
-                       temperature=params.ref_t)
+                       components=dhdl_comps, temperature=params.ref_t)
     # binary .edr with per-frame BAR delta-H blocks (gmx energy / gmx bar
     # interop; reference: fileio/enxio.cpp, mdlib/mdebin_bar.cpp)
     etot = log.epot + log.ekin
@@ -278,9 +283,12 @@ def cmd_mdrun(args):
                     lambda_index=state.fep_state,
                     native_lambda_vec=[float(lam_now[c]) for c in comps],
                     lambda_components=comps))
+                # the total dH/dlambda; the JAX writer leaves out the
+                # restraint component
                 dvdl_sum = np.nansum(log.dvdl[i][[int(FC.FEP), int(FC.COUL),
                                                   int(FC.VDW),
-                                                  int(FC.BONDED)]])
+                                                  int(FC.BONDED),
+                                                  int(FC.RESTRAINT)]])
                 blocks.append(dh_block(DHBT_DHDL, [dvdl_sum], derivative=0))
                 for w in range(log.delta_h.shape[1]):
                     blocks.append(dh_block(
@@ -304,7 +312,8 @@ def cmd_mdrun(args):
                         if params.tcoupl == TcouplType.V_RESCALE else None),
         boxv=(np.zeros((3, 3), np.float32)
               if params.pcoupl != PcouplType.NO else None),
-        integrator=0)
+        # GROMACS's IntegrationAlgorithm: md 0, sd (SD1) 9
+        integrator=9 if params.integrator == IntegratorType.SD else 0)
     write_gro(f"{deffnm}.gro", "tpumd output",
               [str(n) for n in data["names"]],
               [str(r) for r in data["resnames"]], state.x.cpu().numpy(),
@@ -495,7 +504,7 @@ def main(argv=None, device="cuda"):
     g.add_argument("-c", required=True, help="gro or pdb file")
     g.add_argument("-n", default=None, help="index file (.ndx)")
     g.add_argument("-r", default=None, help="position-restraint reference "
-                   "coordinates (not ported yet)")
+                   "coordinates (default: those of -c)")
     g.add_argument("-o", default="topol.tpz")
     g.add_argument("--couple-moltype", default=None)
     g.set_defaults(fn=cmd_grompp)

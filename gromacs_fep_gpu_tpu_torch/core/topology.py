@@ -2,10 +2,12 @@
 gromacs_fep_gpu_tpu/core/topology.py (MoleculeType, build_system,
 lj_table_from_types, lj_table_from_sigma_eps).
 
-Only the parts of a molecule template the solvation-FEP path uses are
-ported: per-atom A/B data, harmonic bonds and angles, 1-4 pairs, SETTLE
-groups and exclusions from the bond graph.  MoleculeType has no field for
-any other interaction class yet.
+Ported: per-atom A/B data, every listed term of ops/bonded.py (bonds,
+angles, Urey-Bradley, proper, Ryckaert-Bellemans and improper dihedrals,
+position, flat-bottomed position, dihedral, angle, bond and distance
+restraints), 1-4 pairs, SETTLE groups and exclusions from the bond graph.
+MoleculeType has no field for constraints, virtual sites, CMAP,
+orientation restraints or shells yet.
 """
 from __future__ import annotations
 
@@ -18,7 +20,13 @@ import torch
 from .types import InteractionList, SettleGroups, System
 from .units import ONE_4PI_EPS0
 
-_TERM_SHAPES = {"bonds": (2, 2), "angles": (3, 2)}
+# term -> (atoms per row, parameters per state)
+_TERM_SHAPES = {
+    "bonds": (2, 2), "angles": (3, 2), "ub": (3, 4), "pdihs": (4, 3),
+    "rbdihs": (4, 6), "idihs": (4, 2), "posres": (1, 6),
+    "dihres": (4, 3), "angres": (4, 3), "restrbonds": (2, 4),
+    "disres": (2, 5), "fbposres": (1, 6),
+}
 
 
 @dataclasses.dataclass
@@ -34,6 +42,19 @@ class MoleculeType:
     # (atom indices, params_a[, params_b]); params_b missing => = A
     bonds: List[Tuple] = dataclasses.field(default_factory=list)
     angles: List[Tuple] = dataclasses.field(default_factory=list)
+    ub: List[Tuple] = dataclasses.field(default_factory=list)
+    pdihs: List[Tuple] = dataclasses.field(default_factory=list)
+    rbdihs: List[Tuple] = dataclasses.field(default_factory=list)
+    idihs: List[Tuple] = dataclasses.field(default_factory=list)
+    # ((ai,), (x0, y0, z0, kx, ky, kz)[, B]); x0 from grompp's reference
+    posres: List[Tuple] = dataclasses.field(default_factory=list)
+    dihres: List[Tuple] = dataclasses.field(default_factory=list)
+    angres: List[Tuple] = dataclasses.field(default_factory=list)
+    restrbonds: List[Tuple] = dataclasses.field(default_factory=list)
+    # NMR distance restraints: ((ai, aj), (lo, up1, up2, weight, label))
+    disres: List[Tuple] = dataclasses.field(default_factory=list)
+    # flat-bottomed posres: ((ai,), (geom, x0, y0, z0, r, k))
+    fbposres: List[Tuple] = dataclasses.field(default_factory=list)
     # 1-4 pairs: ((i, j), (qi*qj, c6, c12)[, B-state params])
     pairs14: List[Tuple] = dataclasses.field(default_factory=list)
     # unresolved 1-4 pair rows (ai, aj, (c6, c12)A, (c6, c12)B); the
@@ -138,12 +159,17 @@ def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
     term_rows = {k: [] for k in _TERM_SHAPES}
     settle_rows = []
     offset = 0
+    disre_label_base = 0
     for mol, count in molecules:
         nm = mol.n_atoms
         cb = mol.charges_b if mol.charges_b is not None else mol.charges_a
         tbv = mol.types_b if mol.types_b is not None else mol.types_a
         mbv = mol.masses_b if mol.masses_b is not None else mol.masses_a
         mol_excl = mol.generate_exclusions()
+        # dense disres label ids per molecule copy: copies share no
+        # restraint group (reference: disre.cpp init_disres)
+        disre_map = {lbl: i for i, lbl in enumerate(
+            sorted({int(r[1][4]) for r in mol.disres}))}
         for _ in range(count):
             qa += list(mol.charges_a)
             qb += list(cb)
@@ -155,8 +181,16 @@ def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
             for name in _TERM_SHAPES:
                 for row in getattr(mol, name):
                     idx = tuple(int(a) + offset for a in row[0])
-                    term_rows[name].append(
-                        (idx, row[1], row[2] if len(row) > 2 else None))
+                    par_a = row[1]
+                    par_b = row[2] if len(row) > 2 else None
+                    if name == "disres":
+                        lbl = float(disre_label_base
+                                    + disre_map[int(par_a[4])])
+                        par_a = tuple(par_a[:4]) + (lbl,)
+                        if par_b is not None:
+                            par_b = tuple(par_b[:4]) + (lbl,)
+                    term_rows[name].append((idx, par_a, par_b))
+            disre_label_base += len(disre_map)
             for row in mol.pairs14:
                 idx = tuple(int(a) + offset for a in row[0])
                 scaled = [None if par is None else
@@ -176,8 +210,11 @@ def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
     for i, s in enumerate(excl_sets):
         for k, e in enumerate(sorted(s)):
             excl[i, k] = e
-    bonded = {name: _pad_rows(rows, *_TERM_SHAPES[name], dev)
-              for name, rows in term_rows.items() if rows}
+    # posres last, as the JAX build_system orders its dict (the order in
+    # which the terms add up in their energy channel)
+    order = [n for n in _TERM_SHAPES if n != "posres"] + ["posres"]
+    bonded = {name: _pad_rows(term_rows[name], *_TERM_SHAPES[name], dev)
+              for name in order if term_rows[name]}
     ns = len(settle_rows)
     settle = SettleGroups(
         atoms=torch.as_tensor(np.array([r[0] for r in settle_rows],

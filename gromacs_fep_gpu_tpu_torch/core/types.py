@@ -3,10 +3,10 @@ gromacs_fep_gpu_tpu/core/types.py (MdParams, FepParams, the enums, System,
 State, InteractionList, SettleGroups, EnergyTerms, make_state).
 
 The flax pytrees become plain dataclasses of tensors.  Only the fields the
-solvation-FEP main path reads are kept; settings outside that path that
-MdParams does carry (integrator, thermostat, the Parrinello-Rahman and MTTK
-barostats, non-isotropic pressure coupling, slow growth) raise
-NotImplementedError where they are consumed.
+port's paths read are kept; settings outside them that MdParams does carry
+(the md-vv and bd integrators, thermostats other than v-rescale, the
+Parrinello-Rahman and MTTK barostats, non-isotropic pressure coupling, slow
+growth) raise NotImplementedError where they are consumed.
 
 `from_numpy` is the parameter bridge: it builds the port's System and State
 from dicts of numpy arrays (the tests fill them from the JAX pytrees with
@@ -41,9 +41,9 @@ class SoftcoreType(enum.Enum):
 
 
 class IntegratorType(enum.Enum):
-    MD = "md"            # leapfrog (the only one the port runs so far)
+    MD = "md"            # leapfrog
     MD_VV = "md-vv"
-    SD = "sd"
+    SD = "sd"            # leapfrog Langevin (md/integrators.py)
     BD = "bd"
 
 
@@ -139,6 +139,9 @@ class MdParams:
     mts: bool = False
     mts_factor: int = 2
     mts_forces: str = "longrange-nonbonded"
+    # distance-restraint force constant (mdp disre-fc; reference:
+    # listed_forces/disre.cpp)
+    disre_fc: float = 1000.0
     fep: FepParams = FepParams()
 
     def replace(self, **kw) -> "MdParams":

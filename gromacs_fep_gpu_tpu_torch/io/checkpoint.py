@@ -5,10 +5,10 @@ reference: src/gromacs/fileio/checkpoint.cpp:2333 write_checkpoint_data /
 coupling variables and the RNG).
 
 Format: an npz holding every State and CouplingState field by name and
-the thermostat generator's state.  The JAX package's .cpt flattens its
-pytree by position instead, so neither package reads the other's .cpt:
-restarts across the two go through the GROMACS-format .gmx.cpt
-(io/cptio.py), which both read.  Writes are atomic (tmp + rename), so an
+the state of the generator of the thermostat's and sd's draws.  The JAX
+package's .cpt flattens its pytree by position instead, so neither
+package reads the other's .cpt: restarts across the two go through the
+GROMACS-format .gmx.cpt (io/cptio.py), which both read.  Writes are atomic (tmp + rename), so an
 interrupted write never corrupts the previous checkpoint.
 """
 from __future__ import annotations

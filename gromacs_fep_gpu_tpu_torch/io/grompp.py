@@ -8,8 +8,9 @@ The transforms run in the reference order: couple-moltype conversion, the
 PME grid (fft/calcgrid.cpp), gen-vel start velocities and the initial
 lambda vector (mdlib/freeenergyparameters.cpp).  gen-vel draws from numpy's
 default_rng exactly as the JAX package does, so the same seed gives the
-same velocities.  The System and State are built on `device`; position
-restraints (grompp -r) raise, as their topology directive does.
+same velocities.  The position restraints' reference positions are those
+of grompp -r (posres_x), else the input conformation, as in the JAX
+package.  The System and State are built on `device`.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.types import (CoulombType, FepCoupling, MdParams, State, System,
                           make_state)
@@ -109,6 +111,29 @@ def gen_velocities(masses: np.ndarray, gen_temp: float, gen_seed: int,
     return v.astype(np.float32)
 
 
+def set_posres_reference(system: System, xr):
+    """Fill the reference positions of the position restraints (x0 of
+    both states) and of the flat-bottomed ones from xr, (N, 3) (reference:
+    grompp.cpp gen_posres / the -r option)."""
+    xr = np.asarray(xr, np.float32)
+    if xr.shape[0] != system.n_atoms:
+        raise ValueError(f"posres reference has {xr.shape[0]} atoms, "
+                         f"topology {system.n_atoms}")
+    for name, cols, states in (("posres", slice(0, 3),
+                                ("params_a", "params_b")),
+                               ("fbposres", slice(1, 4), ("params_a",))):
+        il = system.bonded.get(name)
+        if il is None:
+            continue
+        x0 = torch.as_tensor(xr, device=il.atoms.device)[il.atoms[:, 0]]
+        for st in states:
+            p = getattr(il, st).clone()
+            p[:, cols] = x0
+            setattr(il, st, p)
+        if name == "fbposres":   # state A only: B mirrors it
+            il.params_b = il.params_a.clone()
+
+
 @dataclasses.dataclass
 class Preprocessed:
     """The tpr analogue: everything mdrun needs."""
@@ -131,11 +156,6 @@ def preprocess_arrays(mdp_text: str, top_text: str, names, resnames,
                       posres_x: Optional[np.ndarray] = None,
                       device="cuda") -> Preprocessed:
     """The gmx_grompp analogue (in-memory tpr) on `device`."""
-    if posres_x is not None:
-        raise NotImplementedError("position-restraint reference "
-                                  "coordinates (grompp -r): position "
-                                  "restraints are not ported yet (ROADMAP "
-                                  "item 4)")
     params, all_lambda = mdp_to_params(mdp_text)
     extras = mdp_extras(mdp_text)
     if couple_moltype_override:
@@ -154,6 +174,7 @@ def preprocess_arrays(mdp_text: str, top_text: str, names, resnames,
     if system.n_atoms != x.shape[0]:
         raise ValueError(f"topology has {system.n_atoms} atoms, "
                          f"coordinates {x.shape[0]}")
+    set_posres_reference(system, x if posres_x is None else posres_x)
 
     # energy groups name index groups (reference: readir.cpp do_egp_flag):
     # checked here; md writes no per-group energies, as in the JAX package

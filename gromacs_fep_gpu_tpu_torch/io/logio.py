@@ -32,8 +32,9 @@ def _ebin_block(f, names, values, per_row: int = 5):
 
 def _terms_table(terms, i: Optional[int], extra):
     """(names, values) for one frame (i) or NaN-mean over all frames
-    (i=None); zero-valued constant terms are dropped like the reference
-    drops unused F_* entries."""
+    (i=None); a term that is zero on every energy step is dropped like the
+    reference drops unused F_* entries (the force-only steps' NaN rows do
+    not keep it, as the JAX writer's zero rows do not)."""
     def pick(a):
         a = np.asarray(a, np.float64)
         if i is not None:
@@ -54,7 +55,7 @@ def _terms_table(terms, i: Optional[int], extra):
     names, vals = [], []
     for n, a in rows:
         arr = np.asarray(a, np.float64)
-        if np.all(arr == 0.0):
+        if np.all(arr[np.isfinite(arr)] == 0.0):
             continue
         names.append(n)
         vals.append(pick(arr))

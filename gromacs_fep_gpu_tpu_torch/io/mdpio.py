@@ -9,9 +9,15 @@ accepts a setting whose physics the port lacks, this reader raises
 NotImplementedError naming the key and the value (unsupported_options):
 nothing is dropped silently.  Keys that only shape output the port writes
 (nstenergy, nstcalcenergy, nstlog, energygrps) are accepted.
+
+Under integrator = sd, tau-t is the inverse friction and ref-t the bath:
+the reader sets tcoupl = no with a warning, as grompp does (readir.cpp:
+sd handles temperature coupling itself), where the JAX reader keeps the
+tcoupl and its step then thermostats twice.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -27,7 +33,7 @@ _VMOD = {"none": VdwModifier.NONE,
          "potential-shift-verlet": VdwModifier.POTENTIAL_SHIFT,
          "potential-switch": VdwModifier.POTENTIAL_SWITCH,
          "force-switch": VdwModifier.FORCE_SWITCH}
-_INTEG = {"md": IntegratorType.MD}
+_INTEG = {"md": IntegratorType.MD, "sd": IntegratorType.SD}
 _TC = {"no": TcouplType.NO, "v-rescale": TcouplType.V_RESCALE}
 _PC = {"no": PcouplType.NO, "berendsen": PcouplType.BERENDSEN,
        "c-rescale": PcouplType.C_RESCALE}
@@ -58,7 +64,7 @@ def _nonzero(v: str) -> bool:
 # mdp_to_params as well.
 _UNSUPPORTED = (
     ("integrator", lambda v: _first(v) not in _INTEG,
-     "ROADMAP item 5 (sd, bd, md-vv) or slice 16 (steep, cg, l-bfgs, nm, "
+     "ROADMAP item 5 (bd, md-vv) or slice 16 (steep, cg, l-bfgs, nm, "
      "tpi)"),
     ("tcoupl", lambda v: _first(v) not in _TC, "ROADMAP item 5"),
     ("tc-grps", lambda v: len(v.split()) > 1,
@@ -307,6 +313,13 @@ def mdp_to_params(text: str) -> Tuple[MdParams, Optional[np.ndarray]]:
         mts=get("mts", "no", str).lower() in ("yes", "true"),
         mts_factor=get("mts-level2-factor", 2, int),
         mts_forces=get("mts-level2-forces", "longrange-nonbonded", str),
+        disre_fc=get("disre-fc", 1000.0),
         fep=fep,
     )
+    if (params.integrator == IntegratorType.SD
+            and params.tcoupl != TcouplType.NO):
+        warnings.warn(f"mdp: tcoupl = {params.tcoupl.value} is set to no: "
+                      "integrator sd handles temperature coupling itself "
+                      "(as grompp notes)")
+        params = params.replace(tcoupl=TcouplType.NO)
     return params, all_lambda

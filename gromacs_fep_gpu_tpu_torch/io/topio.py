@@ -8,17 +8,24 @@ The numpy code is a copy, cut to what the port's MoleculeType
 (core/topology.py) can hold: the cpp subset (#include, #define,
 #ifdef/#ifndef/#else/#endif), [ defaults ] with combination rules 1-3,
 gen-pairs, fudgeLJ and fudgeQQ, [ atomtypes ] (ptype A), [ nonbond_params ],
-[ bondtypes ], [ angletypes ], [ pairtypes ], [ moleculetype ], [ atoms ]
-with B-state columns, harmonic [ bonds ] (funct 1), harmonic [ angles ]
-(funct 1), [ pairs ] (funct 1), [ settles ], [ exclusions ], [ system ] and
-[ molecules ].  Rows without parameters resolve against the bonded-type
-databases as grompp does.
+[ bondtypes ], [ angletypes ], [ dihedraltypes ] (funct 1/2/3/4/9,
+wildcards, the 2- and 4-atom forms), [ pairtypes ], [ moleculetype ],
+[ atoms ] with B-state columns, [ bonds ] (funct 1, 10), [ angles ] (funct
+1, 5), [ dihedrals ] (funct 1/2/3/4/9), [ pairs ] (funct 1), [ settles ],
+[ exclusions ], [ position_restraints ] (funct 1 with A/B force constants,
+funct 2 flat-bottomed), [ dihedral_restraints ], [ angle_restraints ],
+[ system ] and [ molecules ].  Rows without parameters resolve against the
+bonded-type databases as grompp does: canonical atom order by bonded-type
+id, the most exact wildcard dihedral match (every line of it for funct 9,
+in file order), the B state through the B atom types with a fall-back to
+A and a warning for perturbed atoms.
 
 Every other directive that carries interactions, and every other function
-type, raises NotImplementedError naming it (dihedrals, Urey-Bradley
-angles, constraints, position restraints, CMAP, virtual sites, ...): the
-port never drops an interaction silently.  Type-database directives whose
-entries only such rows could use ([ dihedraltypes ], [ constrainttypes ],
+type, raises NotImplementedError naming it (constraints, distance and
+orientation restraints, CMAP, virtual sites, ...): the port never drops
+an interaction silently, where the JAX parser drops a directive it does
+not know ([ pairs_nb ], [ intermolecular_interactions ]).  Type-database
+directives whose entries only such rows could use ([ constrainttypes ],
 [ cmaptypes ], [ implicit_genborn_params ]) are read past.
 """
 from __future__ import annotations
@@ -50,16 +57,36 @@ class AtomType:
 
 
 # A-state force parameters per (directive, funct) the port can hold
-_NPARAM = {("bonds", 1): 2, ("angles", 1): 2, ("pairs", 1): 2}
+_NPARAM = {
+    ("bonds", 1): 2,
+    ("bonds", 10): 4,
+    ("angles", 1): 2,
+    ("angles", 5): 4,
+    ("dihedrals", 1): 3,
+    ("dihedrals", 9): 3,
+    ("dihedrals", 4): 3,
+    ("dihedrals", 2): 2,
+    ("dihedrals", 3): 6,
+    ("pairs", 1): 2,
+    ("dihedral_restraints", 1): 3,
+    ("angle_restraints", 1): 3,
+}
+
+# atoms per row of each interaction directive the port reads
+_ARITY = {"bonds": 2, "pairs": 2, "angles": 3, "dihedrals": 4,
+          "dihedral_restraints": 4, "angle_restraints": 4}
+
+# dihedral funct -> type-database group (F_PDIHS covers funct 1 and 9)
+_DIH_GROUP = {1: "pdihs", 9: "pdihs", 2: "idihs", 3: "rbdihs", 4: "pidihs"}
+
+_NO_JAX = ("the JAX package has no counterpart: its parser drops the "
+           "directive silently")
 
 # directives whose rows the port's MoleculeType has no field for, with
 # what lifts each
 _UNPORTED = {
-    "dihedrals": "ROADMAP item 4", "constraints": "ROADMAP item 6 (LINCS)",
-    "position_restraints": "ROADMAP item 4",
-    "dihedral_restraints": "ROADMAP item 4",
-    "angle_restraints": "ROADMAP item 4",
-    "angle_restraints_z": "ROADMAP item 4",
+    "constraints": "ROADMAP item 6 (LINCS)",
+    "angle_restraints_z": _NO_JAX,
     "distance_restraints": "ROADMAP slice 15",
     "orientation_restraints": "ROADMAP slice 15",
     "cmap": "ROADMAP slice 15", "polarization": "ROADMAP slice 15",
@@ -67,19 +94,18 @@ _UNPORTED = {
     "thole_polarization": "ROADMAP slice 15",
     "virtual_sites1": "ROADMAP item 6", "virtual_sites2": "ROADMAP item 6",
     "virtual_sites3": "ROADMAP item 6", "virtual_sites4": "ROADMAP item 6",
-    "virtual_sitesn": "ROADMAP item 6", "pairs_nb": "ROADMAP item 4",
-    "intermolecular_interactions": "ROADMAP item 4",
+    "virtual_sitesn": "ROADMAP item 6", "pairs_nb": _NO_JAX,
+    "intermolecular_interactions": _NO_JAX,
 }
 
 # type databases of interactions the port cannot hold: read past (any
 # molecule row that would use them raises)
-_SKIPPED_DB = ("dihedraltypes", "constrainttypes", "cmaptypes",
-               "implicit_genborn_params")
+_SKIPPED_DB = ("constrainttypes", "cmaptypes", "implicit_genborn_params")
 
 _SECTIONS = ("defaults", "atomtypes", "nonbond_params", "bondtypes",
-             "angletypes", "pairtypes", "moleculetype", "atoms", "bonds",
-             "pairs", "angles", "settles", "exclusions", "system",
-             "molecules") + _SKIPPED_DB
+             "angletypes", "dihedraltypes", "pairtypes", "moleculetype",
+             "atoms", "settles", "exclusions", "position_restraints",
+             "system", "molecules") + tuple(_ARITY) + _SKIPPED_DB
 
 
 class BondedDB:
@@ -90,6 +116,9 @@ class BondedDB:
         self.bonds: Dict[Tuple[int, int], Tuple] = {}
         self.angles: Dict[Tuple[int, int, int], Tuple] = {}
         self.pairs: Dict[Tuple[int, int], Tuple] = {}
+        # group -> [(4 type ids, -1 = wildcard X, params)] in file order
+        self.dihedrals: Dict[str, List[Tuple]] = {
+            g: [] for g in ("pdihs", "idihs", "rbdihs", "pidihs")}
 
     def bt_id(self, name: str) -> int:
         if name == "X":
@@ -106,6 +135,11 @@ class BondedDB:
     def canon3(k):
         return k if k[0] <= k[2] else (k[2], k[1], k[0])
 
+    @staticmethod
+    def canon4(k):
+        # reference: grompp.cpp sortDihedralAtomIds (reverse if al < ai)
+        return k if k[0] <= k[3] else (k[3], k[2], k[1], k[0])
+
     def add(self, section: str, names: List[str], funct: int, params: Tuple):
         ids = tuple(self.bt_id(n) for n in names)
         if section == "bondtypes":
@@ -114,6 +148,36 @@ class BondedDB:
             self.angles[self.canon3(ids)] = params
         elif section == "pairtypes":
             self.pairs[self.canon2(ids)] = params
+        elif section == "dihedraltypes":
+            if len(names) == 2:   # two-atom form: X-a-b-X on the inner pair
+                ids = (-1, ids[0], ids[1], -1)
+            # a funct no row can use (every [ dihedrals ] funct outside
+            # _NPARAM raises) is kept under its own key, never looked up
+            group = _DIH_GROUP.get(funct, f"funct {funct}")
+            self.dihedrals.setdefault(group, []).append((self.canon4(ids),
+                                                         params))
+
+    def lookup_dihedral_terms(self, group: str, ids4) -> List[Tuple]:
+        """Every database line of the most exact wildcard match, in file
+        order, trying both orientations (canon4 cannot orient X-a-b-X
+        lines; reference: toppush.cpp:1757 defaultInteractionsOfType).  An
+        exact type scores over a wildcard; the first key to reach the best
+        score wins."""
+        key = self.canon4(tuple(ids4))
+        best, best_n = None, -1
+        for tids, _ in self.dihedrals[group]:
+            for cand in (key, key[::-1]):
+                n = 0
+                for t, a in zip(tids, cand):
+                    if t == a:
+                        n += 1
+                    elif t != -1:
+                        break
+                else:
+                    if n > best_n:
+                        best, best_n = tids, n
+        return [] if best is None else [p for t, p in self.dihedrals[group]
+                                        if t == best]
 
 
 @dataclasses.dataclass
@@ -265,6 +329,9 @@ class _RawMol:
     rows: List[Tuple] = dataclasses.field(default_factory=list)
     settle: Optional[Tuple] = None
     exclusions: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
+    # (ai, (kx, ky, kz) A, B) and (ai, (geom, r, k))
+    posres: List[Tuple] = dataclasses.field(default_factory=list)
+    fbposres: List[Tuple] = dataclasses.field(default_factory=list)
 
 
 def parse_top(text: str, include_dirs: Optional[List[str]] = None,
@@ -326,6 +393,12 @@ def parse_top(text: str, include_dirs: Optional[List[str]] = None,
             na = {"bondtypes": 2, "angletypes": 3, "pairtypes": 2}[section]
             db.add(section, t[:na], int(t[na]),
                    tuple(float(v) for v in t[na + 1:]))
+        elif section == "dihedraltypes":
+            # the 4-atom or the legacy 2-atom form; funct follows the names
+            na = 4 if (len(t) > 4 and not _is_float(t[2])
+                       and not _is_float(t[3])) else 2
+            db.add(section, t[:na], int(t[na]),
+                   tuple(float(v) for v in t[na + 1:]))
         elif section in _SKIPPED_DB:
             continue
         elif section == "moleculetype":
@@ -351,16 +424,30 @@ def parse_top(text: str, include_dirs: Optional[List[str]] = None,
                         f"{atomtypes[nm].ptype} (shell or virtual site) is "
                         "not ported yet (ROADMAP item 6)")
             cur.atoms.append((tname, charge, mass, tb, qb, mb))
-        elif section in ("bonds", "pairs", "angles"):
-            k = {"bonds": 2, "pairs": 2, "angles": 3}[section]
+        elif section in _ARITY:
+            k = _ARITY[section]
             idx = tuple(int(v) - 1 for v in t[:k])
             funct = int(t[k])
             if (section, funct) not in _NPARAM:
                 raise NotImplementedError(
                     f"top: [ {section} ] funct {funct} in molecule "
-                    f"{cur.name} is not ported yet (ROADMAP item 4)")
+                    f"{cur.name} is not supported (nor by the JAX package)")
             cur.rows.append((section, funct, idx,
                              [float(v) for v in t[k + 1:]]))
+        elif section == "position_restraints":
+            ai, funct = int(t[0]) - 1, int(t[1])
+            vals = [float(v) for v in t[2:]]
+            if funct == 2:      # flat-bottomed: geom r k
+                cur.fbposres.append((ai, tuple(vals[:3])))
+            elif funct == 1:    # kx ky kz [kxB kyB kzB]
+                ka = tuple(vals[:3])
+                cur.posres.append((ai, ka, tuple(vals[3:6])
+                                   if len(vals) >= 6 else ka))
+            else:
+                raise NotImplementedError(
+                    f"top: [ position_restraints ] funct {funct} in "
+                    f"molecule {cur.name} is not supported (nor by the JAX "
+                    "package)")
         elif section == "settles":
             ow = int(t[0]) - 1
             cur.settle = (ow, ow + 1, ow + 2, float(t[2]), float(t[3]))
@@ -461,44 +548,85 @@ def _resolve_molecule(raw: _RawMol, atomtypes: Dict[str, AtomType],
                     warnings.warn(
                         f"{raw.name}: {section} {idx} explicit A-state "
                         "parameters copied to B for perturbed atoms")
+            terms = [(pa, pb)]
         else:
-            pa, pb = _db_lookup(db, section, idx, bt_a, bt_b, pert(idx),
-                                raw.name)
-        getattr(mol, section).append((idx, _pad2(pa), _pad2(pb)))
+            terms = _db_lookup(db, section, funct, idx, bt_a, bt_b,
+                               pert(idx), raw.name)
+        for pa, pb in terms:
+            _store_interaction(mol, section, funct, idx, pa, pb)
 
     mol.settle = raw.settle
     mol.extra_exclusions.extend(raw.exclusions)
+    # the reference positions are grompp's (-r or the input conformation)
+    for ai, ka, kb in raw.posres:
+        mol.posres.append(((ai,), (0.0, 0.0, 0.0) + ka,
+                           (0.0, 0.0, 0.0) + kb))
+    for ai, (geom, r, k) in raw.fbposres:
+        mol.fbposres.append(((ai,), (geom, 0.0, 0.0, 0.0, r, k)))
     return mol
 
 
-def _pad2(p) -> Tuple[float, float]:
-    return tuple(p[:2]) + (0.0,) * max(0, 2 - len(p))
-
-
-def _db_lookup(db: BondedDB, section: str, idx, bt_a, bt_b,
-               perturbed: bool, mol_name: str):
-    """A/B parameter lookup of a bond or angle row (reference:
-    toppush.cpp:1990-2240 push_bond)."""
-    def one(bt):
+def _db_lookup(db: BondedDB, section: str, funct: int, idx, bt_a, bt_b,
+               perturbed: bool, mol_name: str) -> List[Tuple]:
+    """A/B parameters of a row without explicit ones (reference:
+    toppush.cpp:1990-2240 push_bond): a list of (pa, pb), longer than one
+    only for a funct-9 dihedral whose type has several lines.  A perturbed
+    row takes B from the B atom types, or A with a warning where they
+    have no entry; A and B must then hold as many lines."""
+    def one(bt) -> List[Tuple]:
         if section == "bonds":
-            return db.bonds.get(db.canon2((bt[idx[0]], bt[idx[1]])))
-        return db.angles.get(db.canon3((bt[idx[0]], bt[idx[1]],
-                                        bt[idx[2]])))
+            hit = db.bonds.get(db.canon2((bt[idx[0]], bt[idx[1]])))
+        elif section == "angles":
+            hit = db.angles.get(db.canon3((bt[idx[0]], bt[idx[1]],
+                                           bt[idx[2]])))
+        elif section == "dihedrals":
+            terms = db.lookup_dihedral_terms(_DIH_GROUP[funct],
+                                             tuple(bt[i] for i in idx))
+            # only funct 9 repeats (toppush.cpp bAllowRepeat)
+            return terms if funct == 9 else terms[:1]
+        else:               # restraints take no database entry
+            hit = None
+        return [] if hit is None else [hit]
 
     la = one(bt_a)
-    if la is None:
+    if not la:
         raise ValueError(f"{mol_name}: no default {section} type for atoms "
                          f"{tuple(i + 1 for i in idx)}")
     lb = la
     if perturbed:
         lb = one(bt_b)
-        if lb is None:
+        if not lb:
             warnings.warn(
                 f"{mol_name}: no default {section} type for perturbed "
                 "atoms, using the same parameters for both states "
                 "(grompp: toppush.cpp:2233)")
             lb = la
-    return la, lb
+        elif len(lb) != len(la):
+            raise ValueError(
+                f"{mol_name}: perturbed {section} {tuple(i + 1 for i in idx)}"
+                f" has {len(la)} A-state but {len(lb)} B-state multiple "
+                "terms (reference errors likewise)")
+    return list(zip(la, lb))
+
+
+# (directive, funct) -> the MoleculeType field its rows go to
+_FIELD = {("bonds", 1): "bonds", ("bonds", 10): "restrbonds",
+          ("angles", 1): "angles", ("angles", 5): "ub",
+          ("dihedrals", 1): "pdihs", ("dihedrals", 9): "pdihs",
+          ("dihedrals", 4): "pdihs", ("dihedrals", 2): "idihs",
+          ("dihedrals", 3): "rbdihs", ("dihedral_restraints", 1): "dihres",
+          ("angle_restraints", 1): "angres"}
+
+
+def _store_interaction(mol: MoleculeType, section: str, funct: int, idx,
+                       pa: Tuple, pb: Tuple):
+    """Append one resolved row to its MoleculeType field, each state's
+    parameters padded with zeros to the term's count."""
+    n = _NPARAM[(section, funct)]
+
+    def pad(p):
+        return tuple(p[:n]) + (0.0,) * max(0, n - len(p))
+    getattr(mol, _FIELD[(section, funct)]).append((idx, pad(pa), pad(pb)))
 
 
 # ---------------------------------------------------------------------------

@@ -86,7 +86,8 @@ class RunnerConfig:
     # this off (in-loop minimum image) when a small box makes them
     # ambiguous, as the JAX runner does
     baked_shifts: bool = True
-    seed: int = 0                   # v-rescale generator seed
+    # seed of the generator of the v-rescale, sd and C-rescale draws
+    seed: int = 0
     # dense O(N^2) oracle force (ops/forces.py) instead of the pair lists
     # and the K1 kernel: small systems only
     use_dense: bool = False

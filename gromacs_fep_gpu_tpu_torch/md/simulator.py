@@ -1,8 +1,8 @@
 """The MD step — PyTorch counterpart of gromacs_fep_gpu_tpu/md/simulator.py
 (StepLog, degrees_of_freedom, masses_at_lambda, make_pressure_fn,
-make_step_fn) for the leapfrog / v-rescale / SETTLE / COM-removal / dhdl /
-foreign-lambda / MTS branches and isotropic Berendsen and C-rescale
-pressure coupling.
+make_step_fn) for the leapfrog / leapfrog-Langevin (sd) / v-rescale /
+SETTLE / COM-removal / dhdl / foreign-lambda / MTS branches and isotropic
+Berendsen and C-rescale pressure coupling.
 
 The force flavour of each step is chosen by the caller (the runner knows
 it on the host, as in the JAX runner's statically-flavoured segments):
@@ -11,6 +11,13 @@ foreign-lambda sweep, 'f' MTS off-step (force only, PME reciprocal
 skipped), 'R' energies and the virial (pressure steps), 'S' 'R' plus the
 sweep.  State.step is a host integer, so every step % N trigger is decided
 on the host without reading the device.
+
+The sd integrator is its own thermostat: the step raises on sd with a
+tcoupl, where the JAX step applies both (v-rescale's scale, then SD's
+friction and noise); grompp sets tcoupl = no under sd
+(readir.cpp), and so does the port's mdp reader.  SETTLE acts once, after
+the whole SD update, as in the JAX step (GROMACS constrains after the
+force update and again after the friction and noise).
 
 Pressure coupling differs from the JAX step where the JAX step differs
 from the reference: C-rescale scales the velocities by 1/mu
@@ -119,7 +126,7 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
     """step(state, flavor) -> (state, StepLog).
 
     force_fn(x, box, lam, flavor) -> (f, EnergyTerms); generator drives
-    the v-rescale and C-rescale draws.  foreign_delta_fn(x, box, lam) ->
+    the v-rescale, SD and C-rescale draws.  foreign_delta_fn(x, box, lam) ->
     (n_foreign,) Delta H vector, evaluated on 'D' and 'S' steps at x(t),
     before the update, so that it is frame-consistent with the energies of
     the same step (reference: md.cpp:1323).
@@ -138,9 +145,15 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
     lengths.  The port's System holds SETTLE waters only, whose lengths
     have no B state, so that term is identically zero and neither it nor
     the matrix is here."""
-    if params.integrator != IntegratorType.MD:
+    is_sd = params.integrator == IntegratorType.SD
+    if params.integrator not in (IntegratorType.MD, IntegratorType.SD):
         raise NotImplementedError(f"integrator {params.integrator.value} is "
-                                  "not ported yet (leapfrog only)")
+                                  "not ported yet (md, sd)")
+    if is_sd and params.tcoupl != TcouplType.NO:
+        raise ValueError(f"integrator sd with tcoupl {params.tcoupl.value}: "
+                         "sd is the thermostat (grompp sets tcoupl = no)")
+    if is_sd and generator is None:
+        raise ValueError("sd needs a torch.Generator")
     if params.tcoupl not in (TcouplType.NO, TcouplType.V_RESCALE):
         raise NotImplementedError(f"tcoupl {params.tcoupl.value} is not "
                                   "ported yet")
@@ -203,8 +216,13 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
                     coupl, therm_integral=coupl.therm_integral + d_int)
         coupl = dataclasses.replace(coupl, ekinh_prev=ekinh_cur)
 
-        x_new, v_new = integ_mod.leapfrog(state.x, state.v, f, invmass, dt,
-                                          v_scale)
+        if is_sd:
+            x_new, v_new = integ_mod.langevin_sd(
+                state.x, state.v, f, invmass, dt, params.tau_t, params.ref_t,
+                integ_mod.sd_draws(state.v.shape, generator, state.v.dtype))
+        else:
+            x_new, v_new = integ_mod.leapfrog(state.x, state.v, f, invmass,
+                                              dt, v_scale)
         constr_rmsd = torch.zeros((), dtype=x_new.dtype, device=x_new.device)
         constr_vir = None
         if has_settle:

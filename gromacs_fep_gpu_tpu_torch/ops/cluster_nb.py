@@ -163,7 +163,6 @@ def make_cluster_force_fn(system: System, params: MdParams,
         """FEP pairs + bonded terms + 1-4 pairs as one scalar for
         autograd."""
         lam_c, lam_v = lam[FepCoupling.COUL], lam[FepCoupling.VDW]
-        lam_b = lam[FepCoupling.BONDED]
         terms = EnergyTerms.zeros(x.device)
         if has_fep and feplist is not None:
             e_c, e_v = fep_pair_energy(x, box, lam_c, lam_v, feplist,
@@ -171,7 +170,8 @@ def make_cluster_force_fn(system: System, params: MdParams,
             terms = terms.replace(coulomb=e_c, lj=e_v)
         for name, il in system.bonded.items():
             ch = bonded_mod.TERM_CHANNEL[name]
-            e = bonded_mod.TERMS[name](x, box, il, lam_b)
+            e = bonded_mod.listed_energy(name, x, box, il, lam,
+                                         params.disre_fc)
             terms = terms.replace(**{ch: getattr(terms, ch) + e})
         if has_pairs14:
             e14c, e14l = pairs14_energy(x, box, system, lam_c, lam_v, params)

@@ -100,7 +100,6 @@ def dense_energy(x, box, lam, system: System, params: MdParams,
                  pme_recip_fn: Optional[Callable] = None) -> EnergyTerms:
     """Full potential-energy decomposition on the dense O(N^2) path."""
     lam_c, lam_v = lam[FepCoupling.COUL], lam[FepCoupling.VDW]
-    lam_b = lam[FepCoupling.BONDED]
     excl, pert_pair, pair, r2, triu = _pair_setup(x, box, system, params)
 
     # normal non-bonded (unperturbed pairs; A == B there)
@@ -119,13 +118,12 @@ def dense_energy(x, box, lam, system: System, params: MdParams,
     terms = EnergyTerms.zeros(x.device, x.dtype).replace(
         lj=e_lj_nb + torch.sum(v_v_fep),
         coulomb=e_coul_nb + torch.sum(v_c_fep))
-    # the port has no restraint terms, so every bonded term follows
-    # lambda_bonded
+    # restraint terms at lambda_restraint, the rest at lambda_bonded
     for name, il in system.bonded.items():
         if il.n == 0:
             continue
         ch = bonded_mod.TERM_CHANNEL[name]
-        e = bonded_mod.TERMS[name](x, box, il, lam_b)
+        e = bonded_mod.listed_energy(name, x, box, il, lam, params.disre_fc)
         terms = terms.replace(**{ch: getattr(terms, ch) + e})
     if system.pairs14 is not None and system.pairs14.n > 0:
         e14c, e14l = pairs14_energy(x, box, system, lam_c, lam_v, params)

@@ -5,8 +5,11 @@ make_foreign_delta_fn).
 The fork computes these with a dedicated energy-only CUDA kernel looping
 over all lambdas (nbnxm_foreign_fep_cuda_kernel.cuh) and re-evaluates the
 bonded and PME terms per lambda on the CPU.  Here the only lambda-dependent
-energy terms are the FEP pair list, the perturbed bonded terms, the 1-4
-pairs and the PME charge mix, all cheap next to the main kernel.  Where the
+energy terms are the FEP pair list, the perturbed bonded terms (at
+lambda_bonded) and restraints (at lambda_restraint), the 1-4 pairs and the
+PME charge mix, all cheap next to the main kernel.  The distance
+restraints take params.disre_fc here as in the force; the JAX sweep calls
+them at the default force constant.  Where the
 JAX side sweeps with jax.vmap over the (L, 7) lambda matrix, the port
 carries an explicit leading lambda axis through the same energy functions:
 one pass of (L, pairs) tensors instead of L passes, since the eager step is
@@ -44,7 +47,6 @@ def make_lambda_energy_fn(system: System, params: MdParams,
 
     def e_lambda(x, box, lam, feplist: Optional[FepPairlist]):
         lam_c, lam_v = lam[..., FepCoupling.COUL], lam[..., FepCoupling.VDW]
-        lam_b = lam[..., FepCoupling.BONDED]
         e = torch.zeros(lam.shape[:-1], dtype=x.dtype, device=x.device)
         if feplist is not None:
             e_c, e_v = fep_pair_energy(x, box, lam_c, lam_v, feplist,
@@ -52,7 +54,8 @@ def make_lambda_energy_fn(system: System, params: MdParams,
             e = e + e_c + e_v
         for name, il in system.bonded.items():
             if il.n > 0:
-                e = e + bonded_mod.TERMS[name](x, box, il, lam_b)
+                e = e + bonded_mod.listed_energy(name, x, box, il, lam,
+                                                 params.disre_fc)
         if system.pairs14 is not None and system.pairs14.n > 0:
             e14c, e14l = pairs14_energy(x, box, system, lam_c, lam_v, params)
             e = e + e14c + e14l

@@ -15,6 +15,15 @@ bar on the port's dhdl.xvg files equal to JAX's bar_profile on them at
 1e-12.  Restarts: from the JAX CLI's md.gmx.cpt (x, v, box, step, lambda
 state restored exactly), and 10 + 10 steps from the port's own .cpt
 (v-rescale, its generator restored) equal to 20 steps in one run.
+
+The OPLS-AA ethanol of chip_smoke.py (RB dihedrals from [ dihedraltypes ],
+a perturbed dihedral, a dihedral restraint, a flat-bottomed position
+restraint from grompp -r) decoupled in a 1.6 nm water box under sd: the
+JAX CLI runs its window 2 once (a second shared directory).  Step 0 is
+held to JAX's (the SD draws differ from there on): Epot rel 1e-5, the
+md.log energy block's names and potential terms (rel 1e-5), the first
+dhdl.xvg row at 1e-4 of its largest entry; 20 + 20 steps from the port's
+.cpt equal 40 in one run bitwise (the SD stream continues).
 """
 import fcntl
 import os
@@ -43,6 +52,7 @@ import chip_smoke  # noqa: E402
 
 LIG, EX_TOP, EX_MDP, N_WIN = chip_smoke.example_inputs()
 NSTEPS, NSTDHDL = 10, 5
+ETH_BOX = 1.6
 
 
 def _mdp(window, **keys):
@@ -104,6 +114,41 @@ def example(tmp_path_factory):
     """A directory with the example's inputs, the port's run inputs and
     the JAX CLI's window-1 run, made once per session."""
     return _once(tmp_path_factory, "torch_cli_example", _make_inputs)
+
+
+def _make_ethanol():
+    """The ethanol box (chip_smoke.ETH_*) at 1.6 nm, the port's run input
+    of window 2 and the JAX CLI's window-2 run ("jax.*")."""
+    Path("eth.gro").write_text(chip_smoke.ETH_GRO)
+    _port("solvate", "-cp", "eth.gro", "-box", str(ETH_BOX), "-o",
+          "conf.gro")
+    n_atoms = int(Path("conf.gro").read_text().splitlines()[1])
+    Path("topol.top").write_text(chip_smoke.ETH_TOP.format(
+        nsol=(n_atoms - 9) // 3))
+    Path("md.mdp").write_text(chip_smoke.mdp_with(
+        chip_smoke.ETH_MDP.format(nsteps=2 * NSTEPS, window=2),
+        {"nstcalcenergy": NSTDHDL, "nstdhdl": NSTDHDL}))
+    grompp = ["grompp", "-f", "md.mdp", "-p", "topol.top", "-c", "conf.gro",
+              "-r", "conf.gro", "-o"]
+    _port(*grompp, "t.tpz")
+    jcli.main(grompp + ["j.tpz"])
+    jcli.main(["mdrun", "-s", "j.tpz", "-deffnm", "jax", "-fep", "cpu",
+               "-nsteps", str(NSTEPS)])
+
+
+@pytest.fixture(scope="module")
+def ethanol(tmp_path_factory):
+    return _once(tmp_path_factory, "torch_cli_ethanol", _make_ethanol)
+
+
+def _log_block(text):
+    """(names, values) of md.log's first energy block."""
+    lines = text.split("   Energies (kJ/mol)\n", 1)[1].split("\n\n", 1)[0]
+    rows = lines.splitlines()
+    names = [n for r in rows[0::2] for n in
+             (r[i:i + 15].strip() for i in range(0, len(r), 15))]
+    values = [float(v) for r in rows[1::2] for v in r.split()]
+    return names, values
 
 
 def _dhdl_close(got, want):
@@ -245,3 +290,56 @@ def test_default_device_is_the_gpu(tmp_path, monkeypatch):
         with pytest.raises(SystemExit, match="no CUDA device"):
             tcli.main(argv)
     assert not list(Path(".").glob("nogpu*"))
+
+
+def test_ethanol_sd_window_matches_jax_at_step_0(ethanol, monkeypatch):
+    """Dihedrals, restraints and sd through grompp -r and mdrun -fep gpu:
+    step 0 equals the JAX CLI's; dhdl.xvg gains the restraint column."""
+    monkeypatch.chdir(ethanol)
+    runner, state = _port("mdrun", "-s", "t.tpz", "-deffnm", "t", "-fep",
+                          "gpu", "-nsteps", str(NSTEPS))
+    assert runner.layout == "v2u" and state.step == NSTEPS
+    assert runner.params.integrator.value == "sd"
+    assert {"rbdihs", "dihres", "fbposres"} <= set(runner.system.bonded)
+    t_e, j_e = np.loadtxt("t.ener.csv"), np.loadtxt("jax.ener.csv")
+    assert t_e.shape == j_e.shape == (NSTEPS, 5)
+    assert np.isfinite(t_e[::NSTDHDL]).all() and np.isfinite(
+        t_e[:, [0, 2, 3, 4]]).all()
+    np.testing.assert_allclose(t_e[0, 1], j_e[0, 1], rtol=1e-5)
+    (tg, tl), (jg, jl) = read_xvg("t.dhdl.xvg"), jread_xvg("jax.dhdl.xvg")
+    assert tl[:3] == jl[:3] and tl[3] == "dH/drestraint-lambda"
+    assert len(tl) == 4 + chip_smoke.ETH_N_WIN == len(jl) + 1
+    assert tg.shape[0] == jg.shape[0] == NSTEPS // NSTDHDL
+    for a, b in ((tg[0, 1:4], jg[0, 1:4]), (tg[0, 5:], jg[0, 4:])):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max())
+    assert abs(tg[0, 4]) > 0.0            # dV/dlambda_restraint
+    tn, tv = _log_block(Path("t.log").read_text())
+    jn, jv = _log_block(Path("jax.log").read_text())
+    assert tn == jn
+    assert {"Proper Dih.", "Restraints"} <= set(tn)
+    pot = tn.index("Kinetic En.")
+    np.testing.assert_allclose(tv[:pot], jv[:pot], rtol=1e-5, atol=1e-3)
+    # each package's run input runs on the other's mdrun
+    _, st = _port("mdrun", "-s", "j.tpz", "-deffnm", "from_jax", "-nsteps",
+                  "2")
+    assert st.step == 2 and bool(torch.isfinite(st.x).all())
+
+
+def test_ethanol_sd_restart_is_bitwise(ethanol, monkeypatch):
+    """sd: 20 + 20 steps from the port's .cpt equal 40 in one run, bit for
+    bit on the CPU (the checkpoint carries the generator of the SD
+    draws)."""
+    monkeypatch.chdir(ethanol)
+    n = 2 * NSTEPS
+    _, whole = _port("mdrun", "-s", "t.tpz", "-deffnm", "sd_whole",
+                     "-nsteps", str(2 * n))
+    _port("mdrun", "-s", "t.tpz", "-deffnm", "sd_half", "-nsteps", str(n))
+    _, rest = _port("mdrun", "-s", "t.tpz", "-deffnm", "sd_rest", "-cpi",
+                    "sd_half.cpt", "-nsteps", str(n))
+    assert rest.step == whole.step == 2 * n
+    for k in ("x", "v"):
+        assert torch.equal(getattr(rest, k), getattr(whole, k)), k
+    _, once = _port("mdrun", "-s", "t.tpz", "-deffnm", "sd_other",
+                    "-nsteps", str(2 * n))
+    assert torch.equal(once.x, whole.x)           # seeded: reproducible

@@ -114,6 +114,117 @@ SOL 3
 """
 
 
+# [ dihedraltypes ] with wildcards (X), the legacy 2-atom form, several
+# funct-9 lines, funct 2/3/4; Urey-Bradley from [ angletypes ] and
+# explicit; a restraint bond (funct 10); position restraints funct 1 (A/B)
+# and funct 2 under #ifdef; dihedral and angle restraints; a perturbed
+# atom (H21 -> HX) whose B lookups hit an exact, a wildcard and a missing
+# entry
+BONDED_TOP = """
+[ defaults ]
+1 2 yes 0.5 0.8333
+
+[ atomtypes ]
+CA  CT  6  12.011  0.0  A  0.34   0.36
+CB  CT  6  12.011  0.0  A  0.34   0.36
+OH  OH  8  15.999  0.0  A  0.30   0.70
+HO  HO  1   1.008  0.0  A  0.0    0.0
+HC  HC  1   1.008  0.0  A  0.25   0.12
+HX  HX  1   1.008  0.0  A  0.24   0.10
+
+[ bondtypes ]
+CT CT 1 0.153 224262.4
+CT HC 1 0.109 284512.0
+CT HX 1 0.110 290000.0
+CT OH 1 0.141 267776.0
+OH HO 1 0.0945 462750.4
+
+[ angletypes ]
+HC CT HC 1 107.8 276.144
+HC CT CT 1 110.7 313.8
+HX CT CT 1 111.0 300.0
+CT CT OH 5 109.5 418.4 0.24 5000.0
+HC CT OH 1 109.5 292.88
+CT OH HO 1 108.5 460.24
+
+[ dihedraltypes ]
+X  CT CT X  9   0.0 0.6 3
+X  CT CT X  9 180.0 0.3 2
+HC CT CT HC 9   0.0 0.5 3
+HC CT CT HC 9   0.0 0.2 1
+CT CT OH HO 3 -0.4435 3.83255 0.72801 -4.11705 0.0 0.0
+X  CT OH X  3  0.9414 2.8242 0.0 -3.7656 0.0 0.0
+X  CT HC OH 2   0.0 40.0
+X  X  CT CT 4 180.0 4.6 2
+CT OH 1 0.0 2.0 3
+
+[ moleculetype ]
+MOL 3
+
+[ atoms ]
+1 CA 1 MOL C1  1 -0.18 12.011
+2 HC 1 MOL H11 1  0.06  1.008
+3 HC 1 MOL H12 1  0.06  1.008
+4 CB 1 MOL C2  1  0.145 12.011
+5 HC 1 MOL H21 1  0.06  1.008 HX 0.0 1.008
+6 OH 1 MOL O   1 -0.683 15.999
+7 HO 1 MOL HO  1  0.352 1.008
+
+[ bonds ]
+1 2 1
+1 3 1
+1 4 1
+4 5 1
+4 6 1
+6 7 1
+1 7 10 0.2 0.3 0.4 1000.0 0.2 0.35 0.45 500.0
+
+[ angles ]
+2 1 3 1
+2 1 4 1
+3 1 4 1
+1 4 5 1
+1 4 6 5
+5 4 6 1
+4 6 7 1
+2 1 7 5 100.0 300.0 0.25 4000.0
+
+[ dihedrals ]
+2 1 4 5 9
+3 1 4 6 9
+1 4 6 7 3
+5 4 6 7 3
+2 1 4 6 1 0.0 5.0 2
+4 1 5 6 2
+2 3 1 4 4
+1 4 6 7 1
+
+[ pairs ]
+2 5 1
+3 6 1
+
+[ position_restraints ]
+1 1 1000 1000 1000
+6 1 500 600 700 100 200 300
+#ifdef POSRES
+4 2 1 0.5 800
+7 2 6 0.3 400
+#endif
+
+[ dihedral_restraints ]
+1 4 6 7 1 180.0 20.0 10.0 170.0 25.0 50.0
+
+[ angle_restraints ]
+2 1 6 7 1 90.0 10.0 2 100.0 20.0 2
+
+[ system ]
+bonded terms
+
+[ molecules ]
+MOL 2
+"""
+
+
 def _example_mdp(window=2):
     return EX_MDP.format(nsteps=200, window=window)
 
@@ -148,7 +259,7 @@ def test_mdp_params_match_jax(name):
 # (mdp lines, the key the port's message names): every key of
 # mdpio._UNSUPPORTED (each raises NotImplementedError naming it)
 UNSUPPORTED = [
-    ("integrator = sd", "integrator"), ("integrator = bd", "integrator"),
+    ("integrator = bd", "integrator"),
     ("integrator = md-vv", "integrator"),
     ("integrator = steep", "integrator"), ("integrator = cg", "integrator"),
     ("integrator = l-bfgs", "integrator"), ("integrator = nm", "integrator"),
@@ -218,6 +329,10 @@ def _tops():
         "ligand_decoupled": (LIGAND_TOP, dict(
             couple_moltype="LIG", couple_lam0="vdw-q", couple_lam1="q",
             couple_intramol=False)),
+        "bonded": (BONDED_TOP, dict(defines={"POSRES": "1"})),
+        "bonded_decoupled": (BONDED_TOP, dict(
+            couple_moltype="MOL", couple_lam0="vdw-q", couple_lam1="none",
+            couple_intramol=False)),
     }
 
 
@@ -233,6 +348,100 @@ def test_top_system_matches_jax(name):
     if name.startswith("ligand"):
         assert {"bonded_bonds_atoms", "bonded_angles_atoms",
                 "pairs14_atoms"} <= set(got)
+    if name.startswith("bonded"):
+        terms = {k[len("bonded_"):-len("_atoms")] for k in got
+                 if k.startswith("bonded_") and k.endswith("_atoms")}
+        assert terms == {"bonds", "angles", "ub", "pdihs", "rbdihs",
+                         "idihs", "posres", "dihres", "angres",
+                         "restrbonds"} | (
+                             {"fbposres"} if name == "bonded" else set())
+        # per copy: 2 + 2 funct-9 lines, funct 1, funct 4 and the legacy
+        # 2-atom funct-1 line
+        assert got["bonded_pdihs_atoms"].shape[0] == 2 * 7
+
+
+def test_top_dihedraltypes_lookup():
+    """An exact dihedral type scores over a wildcard; funct 9 keeps every
+    line of the best match in file order; a perturbed atom whose B types
+    have no entry falls back to A with JAX's warning; A and B holding
+    different counts of funct-9 lines raise in both packages."""
+    with pytest.warns(UserWarning, match="no default angles type for "
+                      "perturbed atoms"):
+        mol = ttop.parse_top(BONDED_TOP).moltypes["MOL"]
+    ab = [(r[1], r[2]) for r in mol.pdihs if r[0] == (1, 0, 3, 4)]
+    # A: HC CT CT HC exactly (two lines), B: HX -> X CT CT X (two lines)
+    assert [a for a, _ in ab] == [(0.0, 0.5, 3.0), (0.0, 0.2, 1.0)]
+    assert [b for _, b in ab] == [(0.0, 0.6, 3.0), (180.0, 0.3, 2.0)]
+    # the legacy 2-atom line X CT OH X (funct 1) beside funct 9's lines
+    assert [r[1] for r in mol.pdihs if r[0] == (0, 3, 5, 6)] == [
+        (0.0, 2.0, 3.0)]
+    bad = BONDED_TOP.replace("CT OH 1 0.0 2.0 3",
+                             "CT OH 1 0.0 2.0 3\nHX CT CT HC 9 0.0 0.1 3")
+    for mod in (ttop, jtop):
+        with pytest.raises(ValueError, match="multiple"):
+            mod.parse_top(bad)
+
+
+def test_grompp_posres_reference_matches_jax():
+    """grompp -r: the position restraints' x0 (both states) and the
+    flat-bottomed ones' from the reference coordinates, else from the
+    input conformation, as in the JAX package."""
+    mdp = "integrator = md\nnsteps = 10\ndefine = -DPOSRES\n"
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0.0, 2.0, (14, 3))
+    xr = x + rng.normal(0, 0.05, x.shape)
+    names = ["C1", "H11", "H12", "C2", "H21", "O", "HO"] * 2
+    res = ["MOL"] * 14
+    box = np.diag([2.0, 2.0, 2.0])
+    for ref in (None, xr):
+        jp = jgrompp.preprocess_arrays(mdp, BONDED_TOP, names, res, x, None,
+                                       box, posres_x=ref)
+        tp = tgrompp.preprocess_arrays(mdp, BONDED_TOP, names, res, x, None,
+                                       box, posres_x=ref, device="cpu")
+        want, got = system_arrays(jp.system), to_numpy(tp.system)
+        for name in ("posres", "fbposres"):
+            for k in ("atoms", "params_a", "params_b", "mask"):
+                key = f"bonded_{name}_{k}"
+                assert np.array_equal(got[key], want[key]), key
+        xw = x if ref is None else xr
+        ai = got["bonded_posres_atoms"][:, 0]
+        np.testing.assert_array_equal(got["bonded_posres_params_b"][:, :3],
+                                      xw[ai].astype(np.float32))
+    with pytest.raises(ValueError, match="posres reference"):
+        tgrompp.preprocess_arrays(mdp, BONDED_TOP, names, res, x, None, box,
+                                  posres_x=xr[:5], device="cpu")
+
+
+def test_lj_table_from_types_matches_jax():
+    """c6/c12 per type (combination rule 1) into the (T, T, 2) table, as
+    the JAX package builds it; rules 2 and 3 take sigma/epsilon and raise
+    in both."""
+    from gromacs_fep_gpu_tpu.core.topology import lj_table_from_types as jlj
+    from gromacs_fep_gpu_tpu_torch.core.topology import (
+        lj_table_from_types as tlj)
+    rng = np.random.default_rng(8)
+    c6, c12 = rng.uniform(0, 5e-3, 6), rng.uniform(0, 5e-6, 6)
+    np.testing.assert_array_equal(tlj(c6, c12), jlj(c6, c12))
+    for mod in (tlj, jlj):
+        with pytest.raises(NotImplementedError):
+            mod(c6, c12, comb_rule=2)
+
+
+def test_sd_resets_tcoupl():
+    """integrator = sd with a tcoupl: the port sets tcoupl = no with a
+    warning (grompp's note), where the JAX reader keeps both thermostats;
+    tau-t and ref-t stay the friction and the bath."""
+    text = ("integrator = sd\ntcoupl = v-rescale\ntc-grps = System\n"
+            "tau-t = 2.0\nref-t = 310\n")
+    with pytest.warns(UserWarning, match="sd handles temperature"):
+        tp, _ = tmdp.mdp_to_params(text)
+    jp, _ = jmdp.mdp_to_params(text)
+    assert tp.integrator == ttypes.IntegratorType.SD
+    assert tp.tcoupl == ttypes.TcouplType.NO
+    assert jp.tcoupl.value == "v-rescale"
+    assert (tp.tau_t, tp.ref_t) == (jp.tau_t, jp.ref_t) == (2.0, 310.0)
+    tp, _ = tmdp.mdp_to_params("integrator = sd\ndisre-fc = 250\n")
+    assert tp.tcoupl == ttypes.TcouplType.NO and tp.disre_fc == 250.0
 
 
 @pytest.mark.parametrize("vdw,coul", [(True, True), (True, False),
@@ -252,14 +461,19 @@ def test_decouple_moltype_matches_jax(vdw, coul):
 
 
 UNPORTED_TOP = [
-    ("[ dihedrals ]\n1 2 3 4 9 0.0 4.0 3\n", "dihedrals"),
     ("[ constraints ]\n1 2 1 0.1\n", "constraints"),
-    ("[ position_restraints ]\n1 1 1000 1000 1000\n",
-     "position_restraints"),
     ("[ virtual_sites3 ]\n5 1 2 3 1 0.1 0.1\n", "virtual_sites3"),
     ("[ cmap ]\n1 2 3 4 5 1\n", "cmap"),
-    ("[ angles ]\n1 2 3 5 109.5 292.88 0.2 1000.0\n", "angles"),
     ("[ bonds ]\n1 2 2 0.1 1000.0\n", "bonds"),
+    ("[ dihedrals ]\n1 2 3 4 5 1.0 2.0 3.0 4.0\n", "dihedrals"),
+    ("[ distance_restraints ]\n1 2 1 1 0 0.1 0.2 0.3 1.0\n",
+     "distance_restraints"),
+    ("[ orientation_restraints ]\n1 2 1 1 1 3 6.0 0.5 1.0\n",
+     "orientation_restraints"),
+    ("[ position_restraints ]\n1 3 1000 1000 1000\n",
+     "position_restraints"),
+    ("[ pairs_nb ]\n1 2 1 0.0 0.0 0.3 0.5\n", "pairs_nb"),
+    ("[ intermolecular_interactions ]\n", "intermolecular_interactions"),
 ]
 
 
@@ -268,8 +482,11 @@ UNPORTED_TOP = [
 def test_unported_topology_directive_raises(section, name):
     top = LIGAND_TOP.replace("[ moleculetype ]\nSOL 2",
                              section + "\n[ moleculetype ]\nSOL 2")
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(NotImplementedError, match=name) as err:
         ttop.system_from_top(top, device="cpu")
+    if name in ("pairs_nb", "intermolecular_interactions"):
+        assert "JAX package has no counterpart" in str(err.value)
+        jtop.system_from_top(top)     # which drops the directive silently
 
 
 def test_gro_pdb_and_solvate_match_jax(tmp_path):

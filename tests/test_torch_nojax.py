@@ -3,8 +3,10 @@ every module of gromacs_fep_gpu_tpu_torch imports, and one MD step, one
 step on a (2, 2, 2) domain grid of eight CPU domains, one step of the
 table route (Lorentz-Berthelot, force-switch) and of K7a and K7b, two
 C-rescale NPT steps with the dispersion correction, a two-step lambda
-window with its dhdl.xvg and BAR, and the CLI (solvate -> grompp -> mdrun
--> bar -> check, and `python -m` through __main__) run on the CPU.  Run in a subprocess so this test's own interpreter, which has
+window with its dhdl.xvg and BAR, the CLI (solvate -> grompp -> mdrun
+-> bar -> check, and `python -m` through __main__) and two sd steps of
+chip_smoke.py's OPLS-AA ethanol (dihedrals, restraints, grompp -r) run on
+the CPU.  Run in a subprocess so this test's own interpreter, which has
 JAX loaded, does not hide a stray import."""
 import os
 import subprocess
@@ -156,6 +158,23 @@ with tempfile.TemporaryDirectory() as tmp:
     cli.main(["check", "-s", "w1.cpt"], device="cpu")
     sys.argv = ["gromacs_fep_gpu_tpu_torch", "check", "-s", "w1.edr"]
     runpy.run_module("gromacs_fep_gpu_tpu_torch", run_name="__main__")
+    os.chdir("/")
+# a user's ligand: OPLS-AA ethanol with RB dihedrals, a dihedral and a
+# flat-bottomed position restraint (grompp -r), decoupled under sd
+import chip_smoke
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)
+    open("eth.gro", "w").write(chip_smoke.ETH_GRO)
+    cli.main(["solvate", "-cp", "eth.gro", "-box", "1.4", "-o", "conf.gro"])
+    nsol = (int(open("conf.gro").read().splitlines()[1]) - 9) // 3
+    open("topol.top", "w").write(chip_smoke.ETH_TOP.format(nsol=nsol))
+    open("md.mdp", "w").write(chip_smoke.ETH_MDP.format(nsteps=2, window=1))
+    cli.main(["grompp", "-f", "md.mdp", "-p", "topol.top", "-c", "conf.gro",
+              "-r", "conf.gro", "-o", "eth.tpz"], device="cpu")
+    runner, st = cli.main(["mdrun", "-s", "eth.tpz", "-deffnm", "eth"],
+                          device="cpu")
+    assert st.step == 2 and {"rbdihs", "dihres", "fbposres"} <= set(
+        runner.system.bonded)
     os.chdir("/")
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")
             and sys.modules[m] is not None]
