@@ -86,14 +86,17 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 12. the CHARMM path at 12,290 atoms: the main path's system with the
    Lorentz-Berthelot table and the GROMACS manual's CHARMM settings
    (force-switch, rvdw 1.2 nm, rvdw-switch 1.0 nm, PME rcoulomb 1.2 nm,
-   DispCorr no), from the main path's production state: 250 steps of
+   DispCorr no, constraints = h-bonds: the ligand's four C-H bonds on
+   LINCS), from the main path's production state: 250 steps of
    re-equilibration (tau_t 0.1 ps), the table kernel's F, VF and VF+virial
    against its plain version at these shapes (virial 1e-4 of max |Xi_aa|),
    400 production steps on the default RunnerConfig (every NB launch the
    table kernel's, launches as the flavour pattern says, the per-cluster
    capacity grown from 64 with its roll-backs printed, no overflow left,
    idle share under torch.profiler), then 100 C-rescale steps on the same
-   route for its virial flavour; then the table kernel's edge cases
+   route for its virial flavour (with the SETTLE and LINCS virial; density
+   in 0.90-1.10 g/cm^3, |dV|/V < 3 %, the LINCS rows within 1e-4 of their
+   lengths); then the table kernel's edge cases
    (phase_table_edges) against its plain version in F, VF and VF+virial,
    each launch twice and bit-identical, NaN exactly where the plain
    version has it: the production frame (with the tiles the cull keeps and
@@ -146,20 +149,25 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 17. a user's ligand (phase_ethanol): OPLS-AA ethanol (ETH_TOP: RB
    dihedrals from [ dihedraltypes ], a perturbed dihedral, a dihedral
    restraint, a flat-bottomed position restraint under -DPOSRES) solvated
-   at 5.0 nm (~12,300 atoms, PME 42^3, MTS2, dt 1 fs, no constraints on
-   the ligand) and decoupled over a 5-state ladder of the coul, vdw,
-   bonded and restraint columns under sd, through grompp -r and mdrun -fep
-   gpu: 1,000 equilibration steps, windows 1 and 2 x 400 steps from its
-   .cpt; each listed term on the card against the CPU, the sweep against
-   single e_lambda calls, each window's mean T in 285-315 K, launches
-   exact, ms/step, ns/day and kernels/step, a 20 + 20 sd restart against
-   40 steps, BAR and MBAR over the 1 -> 2 leg.
+   at 5.0 nm (~12,300 atoms, PME 42^3, MTS2, constraints = h-bonds: its
+   six C-H and O-H bonds on LINCS, dt 2 fs) and decoupled over a 5-state
+   ladder of the coul, vdw, bonded and restraint columns under sd, through
+   grompp -r and mdrun -fep gpu: 500 equilibration steps, windows 1 and 2
+   x 400 steps from its .cpt; each listed term on the card against the
+   CPU, the sweep against single e_lambda calls, each window's mean T in
+   285-315 K, launches exact, ms/step, ns/day and kernels/step, the LINCS
+   rows' largest relative deviation after each run (<= 1e-4), SETTLE +
+   LINCS with a perturbed O-HO length on the card against the CPU
+   (positions 5e-6 nm, dV/dlambda rel 1e-4) and the constraint layer's
+   time and kernels per call, a 20 + 20 sd restart against 40 steps, BAR
+   and MBAR over the 1 -> 2 leg.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a GPU it exits non-zero and
 prints no result.
 """
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -254,12 +262,14 @@ CLI_RESTART_STEPS = 20
 # phase 17: a user's OPLS-AA ligand with dihedrals and restraints, under
 # sd, through grompp -r -> mdrun -fep gpu -> bar
 ETH_BOX = 5.0            # nm: ~4,100 waters + ethanol, PME 42^3
-ETH_EQ_STEPS = 1000      # 1 ps at dt 1 fs
+ETH_EQ_STEPS = 500       # 1 ps at dt 2 fs
 ETH_EQ_TAU_T = 0.1       # ps: the equilibration's inverse friction
 ETH_WINDOW_STEPS = 400
 ETH_WINDOWS = (1, 2)
 ETH_RESTART_STEPS = 20
 ETH_T_MEAN_BAND = (285.0, 315.0)    # K, each window's mean temperature
+LINCS_DEV = 1e-4         # max |r - d| / d over the LINCS rows after a run
+ETH_OHO_LEN_B = 0.1      # nm: the O-HO row's B length in the LINCS check
 
 # ethanol on the force field's bond lengths and angles (below): C1-C2-O-HO
 # trans, both CH groups staggered
@@ -415,11 +425,11 @@ ETH 1
 SOL {nsol}
 """
 
-# sd at tau-t 1 ps, flexible ethanol at dt 1 fs (no LINCS in the port
-# yet), the ligand decoupled over a 5-state ladder of the coul, vdw,
+# sd at tau-t 1 ps, ethanol's six C-H and O-H bonds constrained (LINCS)
+# at dt 2 fs, the ligand decoupled over a 5-state ladder of the coul, vdw,
 # bonded and restraint columns
 ETH_MDP = """integrator = sd
-dt = 0.001
+dt = 0.002
 nsteps = {nsteps}
 nstlist = 10
 coulombtype = reaction-field
@@ -434,7 +444,7 @@ gen-vel = yes
 gen-temp = 300
 gen-seed = 11
 define = -DPOSRES
-constraints = none
+constraints = h-bonds
 free-energy = yes
 init-lambda-state = {window}
 coul-lambdas = 0.0 0.5 1.0 1.0 1.0
@@ -2172,9 +2182,13 @@ def _lb_system(n_side, device):
     """The solvation model's system with its sigma/epsilon mixed by
     Lorentz-Berthelot (comb-rule 2, the AMBER/CHARMM rule) and the model's
     zeroed rows for the water H and the dummy type, from the public
-    builders; its state is solvation_system's."""
+    build functions, with the CHARMM setting constraints = h-bonds: the
+    ligand's four C-H bonds (all its bonds) become LINCS rows through
+    make_hbond_constraints(all_bonds=True); its state is
+    solvation_system's."""
     from gromacs_fep_gpu_tpu_torch.core.topology import (
         build_system, lj_table_from_sigma_eps)
+    from gromacs_fep_gpu_tpu_torch.io.topio import make_hbond_constraints
     from gromacs_fep_gpu_tpu_torch.models import solvation, water
     sigma = [water.O_SIGMA, 0.1, solvation.LIG_C_SIGMA,
              solvation.LIG_H_SIGMA, 0.1]
@@ -2183,9 +2197,10 @@ def _lb_system(n_side, device):
     for k in (1, 4):
         nbfp[k, :, :] = 0.0
         nbfp[:, k, :] = 0.0
-    return build_system([(solvation.methane_like_ligand(True), 1),
-                         (water.tip3p_moltype(), n_side ** 3 - 1)], nbfp,
-                        device=device)
+    lig = solvation.methane_like_ligand(True)
+    make_hbond_constraints(lig, all_bonds=True)
+    return build_system([(lig, 1), (water.tip3p_moltype(), n_side ** 3 - 1)],
+                        nbfp, device=device)
 
 
 def _charmm_params(**kw):
@@ -2523,18 +2538,30 @@ def phase_charmm(device, timer, smi, start):
         nstpcouple=10), RunnerConfig(nnbr=prod.config.nnbr,
                                      fep_max_nbr=prod.config.fep_max_nbr))
     prod_state = state
+    v0 = float(torch.prod(torch.diagonal(state.box)))
     state, lg, sec, counts = _drive(npt, state.replace(step=0),
                                     CHARMM_NPT_STEPS, "CHARMM C-rescale")
     p_on = lg.pres[torch.isfinite(lg.pres)]
+    v1 = float(torch.prod(torch.diagonal(state.box)))
+    rho = float(system.mass_a.sum()) / v1 * AMU_PER_NM3_IN_G_PER_CM3
+    dev = _constraint_deviation(system, state)
     _say(f"CHARMM C-rescale on the table route: {CHARMM_NPT_STEPS} steps, "
          f"{sec / CHARMM_NPT_STEPS * 1e3:.3f} ms/step, launches "
          f"{ {k: v for k, v in counts.items() if k.startswith('nb_') and v} }"
          f"; mean P {float(p_on.mean()):.1f} bar over {p_on.numel()} "
-         f"pressure steps")
+         f"pressure steps (the SETTLE and LINCS virial in each); density "
+         f"{rho:.4f} g/cm^3 (band {DENSITY_BAND}), |dV|/V "
+         f"{abs(v1 - v0) / v0:.2e} (< {MAX_DV}); the "
+         f"{system.lincs.atoms.shape[0]} LINCS rows' max |r - d| / d "
+         f"{dev:.2e}")
     if counts["nb_table_VFV"] != CHARMM_NPT_STEPS // 10 \
             or not bool(torch.isfinite(p_on).all()):
         raise AssertionError("CHARMM C-rescale: virial flavour launches or "
                              "pressure")
+    if not (DENSITY_BAND[0] <= rho <= DENSITY_BAND[1]
+            and abs(v1 - v0) / v0 < MAX_DV):
+        raise AssertionError(f"CHARMM C-rescale: density {rho}, volume "
+                             f"{v0} -> {v1}")
     rows[2]["launches"] = counts["nb_table_VFV"]
     return rows, prod_state, prod.config.nnbr
 
@@ -3495,8 +3522,12 @@ def phase_ethanol(device, smi, ms_main, box=ETH_BOX, eq_steps=ETH_EQ_STEPS,
     sweep against the difference of two single e_lambda calls (1e-4 of
     max(|Delta H|, 1e-3 kJ/mol)); (f) the 20 + 20 restart under sd
     (_cli_restart); (g) BAR (the CLI) and MBAR over the 1 -> 2 leg,
-    finite and within their errors of each other.  counted=False (a CPU
-    rehearsal) skips the launch checks and the profile."""
+    finite and within their errors of each other; (h) the LINCS rows'
+    largest |r - d| / d after the equilibration and each window at most
+    LINCS_DEV, and on the equilibrated frame SETTLE + LINCS with the
+    O-HO row's B length set to ETH_OHO_LEN_B on the card against the CPU
+    (_ethanol_lincs_check).  counted=False (a CPU rehearsal) skips the
+    launch checks, the profile and the constraint layer's timing."""
     t_start = time.perf_counter()
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3557,6 +3588,79 @@ def _ethanol_term_checks(runner, state):
     return rows
 
 
+def _constraint_deviation(system, state):
+    """max |r - d| / d over the LINCS rows of `state`, d the lengths at the
+    state's lambda_bonded; raises above LINCS_DEV."""
+    lc = system.lincs
+    lam_b = state.lam[4]
+    d = (1.0 - lam_b) * lc.length_a + lam_b * lc.length_b
+    r = torch.linalg.norm(state.x[lc.atoms[:, 0]] - state.x[lc.atoms[:, 1]],
+                          dim=-1)
+    dev = float(((r - d).abs() / d).max())
+    if not dev <= LINCS_DEV:
+        raise AssertionError(f"LINCS rows: max |r - d| / d {dev:.2e}")
+    return dev
+
+
+def _ethanol_lincs_check(runner, state, counted):
+    """(h): SETTLE + LINCS (md/constraints.constrain with_dhdl, the
+    runner's lincs-order and lincs-iter) of x + dt v on the card against
+    the CPU, for a copy of the system whose O-HO row has the B length
+    ETH_OHO_LEN_B, at the state's lambda_bonded: positions within 5e-6
+    nm, the constraint dV/dlambda within rel 1e-4.  With counted, the
+    constraint layer's time per call (CUDA events around the call, as the
+    layers of phase_profile) and its kernels per call (torch.profiler).
+    Returns the printed line."""
+    from gromacs_fep_gpu_tpu_torch.core.types import (LincsConstraints,
+                                                       SettleGroups)
+    from gromacs_fep_gpu_tpu_torch.md import constraints as constr
+    from gromacs_fep_gpu_tpu_torch.md.simulator import masses_at_lambda
+    p, lc, st = runner.params, runner.system.lincs, runner.system.settle
+    oho = [k for k, (i, j) in enumerate(lc.atoms.tolist()) if (i, j) == (7, 8)]
+    if len(oho) != 1:
+        raise AssertionError(f"(h) no O-HO row in {lc.atoms.tolist()}")
+    len_b = lc.length_b.clone()
+    len_b[oho[0]] = ETH_OHO_LEN_B
+    _, invm0 = masses_at_lambda(runner.system, state.lam[1])
+    out = {}
+    for dev in (state.x.device, torch.device("cpu")):
+        sysd = types.SimpleNamespace(
+            settle=SettleGroups(st.atoms.to(dev), st.d_oh.to(dev),
+                                st.d_hh.to(dev), st.mask.to(dev)),
+            lincs=LincsConstraints(lc.atoms.to(dev), lc.length_a.to(dev),
+                                   len_b.to(dev), lc.mask.to(dev)))
+        lam, invm = state.lam.to(dev), invm0.to(dev)
+        x0, box = state.x.to(dev), state.box.to(dev)
+        x1 = x0 + p.dt * state.v.to(dev)
+
+        call = functools.partial(constr.constrain, x0, x1, box, sysd, invm,
+                                 lam[4], p.lincs_order, p.lincs_iter,
+                                 with_dhdl=True)
+        xc, dhdl_dt2 = call()
+        out[dev.type] = (xc.cpu(), float(dhdl_dt2) / p.dt ** 2, call,
+                         (x0, x1, box, sysd.lincs, invm, lam[4]))
+    (xg, dg, call, args), (xc, dc, _, _) = out[state.x.device.type], \
+        out["cpu"]
+    dx = float((xg - xc).abs().max())
+    d_rel = abs(dg - dc) / max(abs(dc), 1e-30)
+    line = (f"(h) SETTLE + LINCS on the card against the CPU, O-HO lenB "
+            f"{ETH_OHO_LEN_B} nm at lambda_bonded {float(state.lam[4])}: "
+            f"max |dx| {dx:.2e} nm (gate 5e-6), dV/dl_constr {dg:.5f} "
+            f"against {dc:.5f} kJ/mol, rel {d_rel:.1e} (gate 1e-4)")
+    if dx > 5e-6 or d_rel > 1e-4 or not abs(dc) > 0.0:
+        raise AssertionError(line)
+    if counted:
+        lincs_only = functools.partial(constr.lincs_positions, *args,
+                                       p.lincs_order, p.lincs_iter)
+        ms_all, ms_lincs = _median_ms(call), _median_ms(lincs_only)
+        k_lincs, _, _ = _device_ops(lincs_only, 1)
+        k_dhdl, _, _ = _device_ops(call, 1)
+        line += (f"; constraint layer at {state.x.shape[0]} atoms: LINCS "
+                 f"{ms_lincs:.3f} ms in {k_lincs} kernels per call, SETTLE "
+                 f"+ LINCS with dV/dl {ms_all:.3f} ms in {k_dhdl} kernels")
+    return line
+
+
 def _ethanol_sweep_check(runner, state):
     """(b): each Delta H column of the sweep on the card against the
     difference of two single e_lambda calls on the card; returns the
@@ -3615,12 +3719,21 @@ def _ethanol_body(device, smi, ms_main, box, eq_steps, win_steps, counted):
     if box == ETH_BOX and grid != (42, 42, 42):
         raise AssertionError(f"PME grid {grid} at box {box}")
     terms = {k: v.n for k, v in runner.system.bonded.items()}
+    n_lincs = runner.system.lincs.atoms.shape[0]
+    dt_fs = runner.params.dt * 1e3
+    if n_lincs != 6 or dt_fs != 2.0:
+        raise AssertionError(f"ethanol: {n_lincs} LINCS rows at dt "
+                             f"{dt_fs} fs (h-bonds: six at 2 fs)")
+    dev = _constraint_deviation(runner.system, eq_state)
     _say(f"ethanol: ETH + {nsol} SOL = {runner.system.n_atoms} atoms, box "
          f"{box} nm, PME {grid}, layout {runner.layout}, listed terms "
-         f"{terms}; equilibration (sd, tau-t {ETH_EQ_TAU_T} ps, dt 1 fs, "
-         f"MTS2) {eq_steps} steps: T every 200 steps "
-         f"{[round(float(t), 1) for t in eq_ener[::200, 3]]} K, "
-         f"{_cli_perf(out)[1]:.3f} ms/step, launches {nb}; {smi}")
+         f"{terms}, {n_lincs} LINCS rows (h-bonds, lincs-order "
+         f"{runner.params.lincs_order}, lincs-iter "
+         f"{runner.params.lincs_iter}); equilibration (sd, tau-t "
+         f"{ETH_EQ_TAU_T} ps, dt {dt_fs:g} fs, MTS2) {eq_steps} steps: T "
+         f"every 100 steps {[round(float(t), 1) for t in eq_ener[::100, 3]]}"
+         f" K, {_cli_perf(out)[1]:.3f} ms/step, launches {nb}; (h) LINCS "
+         f"rows' max |r - d| / d {dev:.2e} (gate {LINCS_DEV:g}); {smi}")
 
     xvgs = []
     for w in ETH_WINDOWS:
@@ -3634,13 +3747,15 @@ def _ethanol_body(device, smi, ms_main, box, eq_steps, win_steps, counted):
         ener = _cli_outputs(f"win{w}", runner, eq_steps, win_steps)
         t_mean = float(ener[:, 3].mean())
         ns_day, ms = _cli_perf(out)
-        _say(f"ethanol window {w} (sd, tau-t 1 ps, dt 1 fs, MTS2, "
-             f"{win_steps} steps from eq.cpt): (e) {ms:.3f} ms/step, "
+        dev = _constraint_deviation(runner.system, state)
+        _say(f"ethanol window {w} (sd, tau-t 1 ps, dt {dt_fs:g} fs, h-bonds, "
+             f"MTS2, {win_steps} steps from eq.cpt): (e) {ms:.3f} ms/step, "
              f"{ns_day:.3f} ns/day by the CLI's performance line against "
              f"MdRunner's {ms_main:.3f} ms/step on the main path (phase 5) "
              f"in this call; (c) mean T {t_mean:.1f} K (band "
              f"{ETH_T_MEAN_BAND}), range {ener[:, 3].min():.1f}.."
-             f"{ener[:, 3].max():.1f}; (d) launches {nb}; {smi}")
+             f"{ener[:, 3].max():.1f}; (d) launches {nb}; (h) LINCS rows' "
+             f"max |r - d| / d {dev:.2e}; {smi}")
         if not ETH_T_MEAN_BAND[0] <= t_mean <= ETH_T_MEAN_BAND[1]:
             raise AssertionError(f"ethanol window {w}: mean T {t_mean:.1f}")
         xvgs.append(f"win{w}.dhdl.xvg")
@@ -3654,6 +3769,8 @@ def _ethanol_body(device, smi, ms_main, box, eq_steps, win_steps, counted):
                  f"{[round(float(v), 4) for v in dh]} kJ/mol against "
                  f"single e_lambda calls: max gap {gap:.1e} of max |Delta "
                  f"H| (gate 1e-4)")
+            _say(f"ethanol {_ethanol_lincs_check(runner, st1, counted)}; "
+                 f"{smi}")
     if counted:
         # (e) kernels per step in a fresh 40-step window of the last runner
         idle, kps = _profile_window(runner, state, 2 * runner.params.nstlist,

@@ -480,6 +480,7 @@ def cmd_check(args):
     print(f"types: {system.nbfp.shape[0]}")
     print(f"perturbed atoms: {int(system.perturbed.sum())}")
     print(f"settle waters: {system.settle.atoms.shape[0]}")
+    print(f"constraints: {system.lincs.atoms.shape[0]}")
     for name, il in system.bonded.items():
         print(f"{name}: {il.n}")
     print(f"pairs14: {0 if system.pairs14 is None else system.pairs14.n}")

@@ -5,9 +5,10 @@ lj_table_from_types, lj_table_from_sigma_eps).
 Ported: per-atom A/B data, every listed term of ops/bonded.py (bonds,
 angles, Urey-Bradley, proper, Ryckaert-Bellemans and improper dihedrals,
 position, flat-bottomed position, dihedral, angle, bond and distance
-restraints), 1-4 pairs, SETTLE groups and exclusions from the bond graph.
-MoleculeType has no field for constraints, virtual sites, CMAP,
-orientation restraints or shells yet.
+restraints), 1-4 pairs, SETTLE groups, LINCS constraints (funct 1 and 2,
+with B-state lengths) and exclusions from the bond graph.  MoleculeType
+has no field for virtual sites, CMAP, orientation restraints or shells
+yet.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .types import InteractionList, SettleGroups, System
+from .types import InteractionList, LincsConstraints, SettleGroups, System
 from .units import ONE_4PI_EPS0
 
 # term -> (atoms per row, parameters per state)
@@ -61,9 +62,14 @@ class MoleculeType:
     # topology reader's grompp transforms bake the charges in
     pairs_raw: List[Tuple] = dataclasses.field(default_factory=list)
     settle: Optional[Tuple[int, int, int, float, float]] = None
+    # LINCS constraints (i, j, lenA[, lenB[, 2]]): lenB missing => = A; a
+    # fifth entry marks funct 2, which generates no exclusions
+    constraints: List[Tuple] = dataclasses.field(default_factory=list)
     extra_exclusions: List[Tuple[int, int]] = dataclasses.field(
         default_factory=list)
     nrexcl: int = 3
+    # per-atom names (the h-bonds conversion finds hydrogens by name)
+    atom_names: Optional[List[str]] = None
 
     @property
     def n_atoms(self) -> int:
@@ -71,6 +77,11 @@ class MoleculeType:
 
     def bond_graph_edges(self) -> List[Tuple[int, int]]:
         edges = [(int(b[0][0]), int(b[0][1])) for b in self.bonds]
+        # constraints of funct 1 are bonds of the exclusion graph, funct 2
+        # (the 5-tuple) are not (reference: toppush.cpp push_bond
+        # bGenerateExclusions for F_CONSTRNC)
+        edges += [(int(c[0]), int(c[1])) for c in self.constraints
+                  if len(c) <= 4]
         if self.settle is not None:
             o, h1, h2 = self.settle[:3]
             edges += [(o, h1), (o, h2), (h1, h2)]
@@ -158,6 +169,7 @@ def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
     excl_sets: List[set] = []
     term_rows = {k: [] for k in _TERM_SHAPES}
     settle_rows = []
+    lincs_rows = []
     offset = 0
     disre_label_base = 0
     for mol, count in molecules:
@@ -202,6 +214,11 @@ def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
                 o, h1, h2, doh, dhh = mol.settle
                 settle_rows.append(((o + offset, h1 + offset, h2 + offset),
                                     doh, dhh))
+            for con in mol.constraints:
+                la = con[2]
+                lb = con[3] if len(con) > 3 else la
+                lincs_rows.append(((con[0] + offset, con[1] + offset), la,
+                                   lb))
             offset += nm
 
     n = offset
@@ -224,6 +241,15 @@ def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
         d_hh=torch.as_tensor(np.array([r[2] for r in settle_rows],
                                       np.float32), device=dev),
         mask=torch.ones((ns,), device=dev))
+    nl = len(lincs_rows)
+    lincs = LincsConstraints(
+        atoms=torch.as_tensor(np.array([r[0] for r in lincs_rows],
+                                       np.int64).reshape(nl, 2), device=dev),
+        length_a=torch.as_tensor(np.array([r[1] for r in lincs_rows],
+                                          np.float32), device=dev),
+        length_b=torch.as_tensor(np.array([r[2] for r in lincs_rows],
+                                          np.float32), device=dev),
+        mask=torch.ones((nl,), device=dev))
     qa = np.asarray(qa, np.float32)
     qb = np.asarray(qb, np.float32)
     ta_ = np.asarray(ta, np.int64)
@@ -238,6 +264,6 @@ def build_system(molecules: Sequence[Tuple[MoleculeType, int]],
                   type_b=t(tb_), mass_a=t(ma_), mass_b=t(mb_),
                   perturbed=t(perturbed),
                   nbfp=t(np.asarray(nbfp, np.float32)), exclusions=t(excl),
-                  bonded=bonded, settle=settle, n_atoms=n,
+                  bonded=bonded, settle=settle, lincs=lincs, n_atoms=n,
                   pairs14=(_pad_rows(pair14_rows, 2, 3, dev)
                            if pair14_rows else None))

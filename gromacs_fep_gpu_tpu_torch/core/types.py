@@ -1,6 +1,7 @@
 """Core data model: System, State, MdParams — PyTorch counterpart of
 gromacs_fep_gpu_tpu/core/types.py (MdParams, FepParams, the enums, System,
-State, InteractionList, SettleGroups, EnergyTerms, make_state).
+State, InteractionList, SettleGroups, LincsConstraints, EnergyTerms,
+make_state).
 
 The flax pytrees become plain dataclasses of tensors.  Only the fields the
 port's paths read are kept; settings outside them that MdParams does carry
@@ -136,6 +137,10 @@ class MdParams:
     nstxout_compressed: int = 0
     nstcalcenergy: int = 1
     nstlog: int = 1000                 # md.log energy-block interval
+    # LINCS expansion order and length-correction rounds (mdp lincs-order,
+    # lincs-iter)
+    lincs_order: int = 4
+    lincs_iter: int = 2
     mts: bool = False
     mts_factor: int = 2
     mts_forces: str = "longrange-nonbonded"
@@ -177,11 +182,29 @@ class SettleGroups:
 
 
 @dataclasses.dataclass
+class LincsConstraints:
+    """Pairwise holonomic constraints solved with LINCS: atoms (n, 2),
+    length_a, length_b (n,) (FEP-perturbed lengths), mask (n,)."""
+    atoms: torch.Tensor
+    length_a: torch.Tensor
+    length_b: torch.Tensor
+    mask: torch.Tensor
+
+    @staticmethod
+    def empty(device="cpu") -> "LincsConstraints":
+        z = torch.zeros((0,), device=device)
+        return LincsConstraints(
+            atoms=torch.zeros((0, 2), dtype=torch.int64, device=device),
+            length_a=z, length_b=z, mask=z)
+
+
+@dataclasses.dataclass
 class System:
     """Static topology + parameters on one device.  exclusions: (N, K)
     partner ids padded with -1; bonded: name -> InteractionList; pairs14:
     1-4 pairs, k=2, p=3 (qq with epsfac and fudgeQQ applied, c6, c12), None
-    when the topology has none."""
+    when the topology has none; lincs: the constraints other than the
+    SETTLE waters."""
     charge_a: torch.Tensor
     charge_b: torch.Tensor
     type_a: torch.Tensor
@@ -193,6 +216,7 @@ class System:
     exclusions: torch.Tensor       # (N, K) int64, -1 padded
     bonded: Dict[str, InteractionList]
     settle: SettleGroups
+    lincs: LincsConstraints
     n_atoms: int = 0
     pairs14: Optional[InteractionList] = None
 
@@ -309,7 +333,9 @@ def from_numpy(system_arrays: dict, state_arrays: dict, device
 
     system_arrays keys: charge_a, charge_b, type_a, type_b, mass_a, mass_b,
     perturbed, nbfp, exclusions, settle_atoms, settle_d_oh, settle_d_hh,
-    settle_mask, and for each bonded term `name`: bonded_<name>_atoms,
+    settle_mask, optionally lincs_atoms, lincs_length_a, lincs_length_b,
+    lincs_mask (absent = no LINCS rows), and for each bonded term `name`:
+    bonded_<name>_atoms,
     bonded_<name>_params_a, bonded_<name>_params_b, bonded_<name>_mask;
     optionally pairs14_atoms, pairs14_params_a, pairs14_params_b,
     pairs14_mask.  state_arrays keys: x, v, box, lam and optionally
@@ -335,6 +361,12 @@ def from_numpy(system_arrays: dict, state_arrays: dict, device
         if key.startswith("bonded_") and key.endswith("_atoms"):
             name = key[len("bonded_"):-len("_atoms")]
             bonded[name] = ilist(f"bonded_{name}")
+    lincs = LincsConstraints.empty(dev)
+    if "lincs_atoms" in s:
+        lincs = LincsConstraints(
+            atoms=i(np.asarray(s["lincs_atoms"]).reshape(-1, 2)),
+            length_a=f(s["lincs_length_a"]),
+            length_b=f(s["lincs_length_b"]), mask=f(s["lincs_mask"]))
     pairs14 = None
     if "pairs14_atoms" in s and np.asarray(s["pairs14_atoms"]).shape[0] > 0:
         pairs14 = ilist("pairs14")
@@ -349,7 +381,8 @@ def from_numpy(system_arrays: dict, state_arrays: dict, device
                             d_oh=f(s["settle_d_oh"]),
                             d_hh=f(s["settle_d_hh"]),
                             mask=f(s["settle_mask"])),
-        n_atoms=int(np.asarray(s["charge_a"]).shape[0]), pairs14=pairs14)
+        lincs=lincs, n_atoms=int(np.asarray(s["charge_a"]).shape[0]),
+        pairs14=pairs14)
     st = state_arrays
     state = make_state(st["x"], st["v"], st["box"], st.get("lam"),
                        device=dev, fep_state=int(st.get("fep_state", 0)))
@@ -366,7 +399,11 @@ def to_numpy(system: System) -> dict:
     out.update(settle_atoms=n(system.settle.atoms),
                settle_d_oh=n(system.settle.d_oh),
                settle_d_hh=n(system.settle.d_hh),
-               settle_mask=n(system.settle.mask))
+               settle_mask=n(system.settle.mask),
+               lincs_atoms=n(system.lincs.atoms),
+               lincs_length_a=n(system.lincs.length_a),
+               lincs_length_b=n(system.lincs.length_b),
+               lincs_mask=n(system.lincs.mask))
     lists = {f"bonded_{name}": il for name, il in system.bonded.items()}
     if system.pairs14 is not None:
         lists["pairs14"] = system.pairs14

@@ -4,9 +4,10 @@ PyTorch-port counterpart of gromacs_fep_gpu_tpu/io/grompp.py
 preprocess_arrays; reference: src/gromacs/gmxpreprocess/grompp.cpp:1869
 gmx_grompp).
 
-The transforms run in the reference order: couple-moltype conversion, the
-PME grid (fft/calcgrid.cpp), gen-vel start velocities and the initial
-lambda vector (mdlib/freeenergyparameters.cpp).  gen-vel draws from numpy's
+The transforms run in the reference order: couple-moltype conversion,
+constraints = h-bonds | all-bonds (bonds -> LINCS rows), the PME grid
+(fft/calcgrid.cpp), gen-vel start velocities and the initial lambda
+vector (mdlib/freeenergyparameters.cpp).  gen-vel draws from numpy's
 default_rng exactly as the JAX package does, so the same seed gives the
 same velocities.  The position restraints' reference positions are those
 of grompp -r (posres_x), else the input conformation, as in the JAX
@@ -169,6 +170,7 @@ def preprocess_arrays(mdp_text: str, top_text: str, names, resnames,
         couple_lam0=extras["couple_lam0"],
         couple_lam1=extras["couple_lam1"],
         couple_intramol=extras["couple_intramol"],
+        constraints=extras["constraints"],
         defines=extras["defines"], epsilon_r=params.epsilon_r,
         device=device)
     if system.n_atoms != x.shape[0]:

@@ -14,6 +14,11 @@ Under integrator = sd, tau-t is the inverse friction and ref-t the bath:
 the reader sets tcoupl = no with a warning, as grompp does (readir.cpp:
 sd handles temperature coupling itself), where the JAX reader keeps the
 tcoupl and its step then thermostats twice.
+
+constraints = h-bonds | all-bonds make LINCS rows of the bonds (io/topio.py
+make_hbond_constraints) solved with lincs-order and lincs-iter; h-angles,
+all-angles and constraint-algorithm = shake raise, where the JAX reader
+treats the angle settings as none.
 """
 from __future__ import annotations
 
@@ -71,8 +76,12 @@ _UNSUPPORTED = (
      "ROADMAP item 5 (one coupling group)"),
     ("pcoupl", lambda v: _first(v) not in _PC, "ROADMAP item 6"),
     ("pcoupltype", lambda v: _first(v) != "isotropic", "ROADMAP item 6"),
-    ("constraints", lambda v: _first(v) not in ("none", ""),
-     "ROADMAP item 6 (LINCS)"),
+    ("constraints", lambda v: _first(v) not in ("none", "h-bonds",
+                                                "all-bonds", ""),
+     "angle constraints; the JAX reader drops h-angles and all-angles "
+     "silently"),
+    ("constraint-algorithm", lambda v: _first(v) not in ("lincs", ""),
+     "LINCS only"),
     ("sc-function", lambda v: _first(v) not in _SC,
      "ROADMAP slice 6 (Gapsys soft-core)"),
     ("vdwtype", lambda v: _first(v) not in ("cut-off", "cutoff", "shift",
@@ -314,6 +323,8 @@ def mdp_to_params(text: str) -> Tuple[MdParams, Optional[np.ndarray]]:
         mts_factor=get("mts-level2-factor", 2, int),
         mts_forces=get("mts-level2-forces", "longrange-nonbonded", str),
         disre_fc=get("disre-fc", 1000.0),
+        lincs_order=get("lincs-order", 4, int),
+        lincs_iter=get("lincs-iter", 2, int),
         fep=fep,
     )
     if (params.integrator == IntegratorType.SD

@@ -1,17 +1,19 @@
 """GROMACS .top parser — PyTorch-port counterpart of
 gromacs_fep_gpu_tpu/io/topio.py (parse_top, _resolve_molecule,
-convert_moltype_couple, decouple_moltype, system_from_top; reference:
-src/gromacs/gmxpreprocess/topio.cpp + toppush.cpp, couple-moltype from
-toppush.cpp:2726 convert_moltype_couple).
+convert_moltype_couple, decouple_moltype, make_hbond_constraints,
+system_from_top; reference: src/gromacs/gmxpreprocess/topio.cpp +
+toppush.cpp, couple-moltype from toppush.cpp:2726 convert_moltype_couple,
+constraints = h-bonds | all-bonds from topshake.cpp make_shake).
 
 The numpy code is a copy, cut to what the port's MoleculeType
 (core/topology.py) can hold: the cpp subset (#include, #define,
 #ifdef/#ifndef/#else/#endif), [ defaults ] with combination rules 1-3,
 gen-pairs, fudgeLJ and fudgeQQ, [ atomtypes ] (ptype A), [ nonbond_params ],
 [ bondtypes ], [ angletypes ], [ dihedraltypes ] (funct 1/2/3/4/9,
-wildcards, the 2- and 4-atom forms), [ pairtypes ], [ moleculetype ],
-[ atoms ] with B-state columns, [ bonds ] (funct 1, 10), [ angles ] (funct
-1, 5), [ dihedrals ] (funct 1/2/3/4/9), [ pairs ] (funct 1), [ settles ],
+wildcards, the 2- and 4-atom forms), [ pairtypes ], [ constrainttypes ],
+[ moleculetype ], [ atoms ] with B-state columns, [ bonds ] (funct 1, 10),
+[ angles ] (funct 1, 5), [ dihedrals ] (funct 1/2/3/4/9), [ pairs ] (funct
+1), [ constraints ] (funct 1, 2, with B lengths), [ settles ],
 [ exclusions ], [ position_restraints ] (funct 1 with A/B force constants,
 funct 2 flat-bottomed), [ dihedral_restraints ], [ angle_restraints ],
 [ system ] and [ molecules ].  Rows without parameters resolve against the
@@ -21,12 +23,12 @@ in file order), the B state through the B atom types with a fall-back to
 A and a warning for perturbed atoms.
 
 Every other directive that carries interactions, and every other function
-type, raises NotImplementedError naming it (constraints, distance and
-orientation restraints, CMAP, virtual sites, ...): the port never drops
-an interaction silently, where the JAX parser drops a directive it does
-not know ([ pairs_nb ], [ intermolecular_interactions ]).  Type-database
-directives whose entries only such rows could use ([ constrainttypes ],
-[ cmaptypes ], [ implicit_genborn_params ]) are read past.
+type, raises NotImplementedError naming it (distance and orientation
+restraints, CMAP, virtual sites, ...): the port never drops an
+interaction silently, where the JAX parser drops a directive it does not
+know ([ pairs_nb ], [ intermolecular_interactions ]).  Type-database
+directives whose entries only such rows could use ([ cmaptypes ],
+[ implicit_genborn_params ]) are read past.
 """
 from __future__ import annotations
 
@@ -68,13 +70,16 @@ _NPARAM = {
     ("dihedrals", 2): 2,
     ("dihedrals", 3): 6,
     ("pairs", 1): 2,
+    ("constraints", 1): 1,
+    ("constraints", 2): 1,
     ("dihedral_restraints", 1): 3,
     ("angle_restraints", 1): 3,
 }
 
 # atoms per row of each interaction directive the port reads
 _ARITY = {"bonds": 2, "pairs": 2, "angles": 3, "dihedrals": 4,
-          "dihedral_restraints": 4, "angle_restraints": 4}
+          "constraints": 2, "dihedral_restraints": 4,
+          "angle_restraints": 4}
 
 # dihedral funct -> type-database group (F_PDIHS covers funct 1 and 9)
 _DIH_GROUP = {1: "pdihs", 9: "pdihs", 2: "idihs", 3: "rbdihs", 4: "pidihs"}
@@ -85,7 +90,6 @@ _NO_JAX = ("the JAX package has no counterpart: its parser drops the "
 # directives whose rows the port's MoleculeType has no field for, with
 # what lifts each
 _UNPORTED = {
-    "constraints": "ROADMAP item 6 (LINCS)",
     "angle_restraints_z": _NO_JAX,
     "distance_restraints": "ROADMAP slice 15",
     "orientation_restraints": "ROADMAP slice 15",
@@ -100,10 +104,11 @@ _UNPORTED = {
 
 # type databases of interactions the port cannot hold: read past (any
 # molecule row that would use them raises)
-_SKIPPED_DB = ("constrainttypes", "cmaptypes", "implicit_genborn_params")
+_SKIPPED_DB = ("cmaptypes", "implicit_genborn_params")
 
 _SECTIONS = ("defaults", "atomtypes", "nonbond_params", "bondtypes",
-             "angletypes", "dihedraltypes", "pairtypes", "moleculetype",
+             "angletypes", "dihedraltypes", "pairtypes", "constrainttypes",
+             "moleculetype",
              "atoms", "settles", "exclusions", "position_restraints",
              "system", "molecules") + tuple(_ARITY) + _SKIPPED_DB
 
@@ -116,6 +121,7 @@ class BondedDB:
         self.bonds: Dict[Tuple[int, int], Tuple] = {}
         self.angles: Dict[Tuple[int, int, int], Tuple] = {}
         self.pairs: Dict[Tuple[int, int], Tuple] = {}
+        self.constraints: Dict[Tuple[int, int], Tuple] = {}
         # group -> [(4 type ids, -1 = wildcard X, params)] in file order
         self.dihedrals: Dict[str, List[Tuple]] = {
             g: [] for g in ("pdihs", "idihs", "rbdihs", "pidihs")}
@@ -148,6 +154,8 @@ class BondedDB:
             self.angles[self.canon3(ids)] = params
         elif section == "pairtypes":
             self.pairs[self.canon2(ids)] = params
+        elif section == "constrainttypes":
+            self.constraints[self.canon2(ids)] = params
         elif section == "dihedraltypes":
             if len(names) == 2:   # two-atom form: X-a-b-X on the inner pair
                 ids = (-1, ids[0], ids[1], -1)
@@ -389,8 +397,10 @@ def parse_top(text: str, include_dirs: Optional[List[str]] = None,
                 raise NotImplementedError(
                     f"top: [ nonbond_params ] funct {t[2]} is not ported yet")
             nb_override[(t[0], t[1])] = (float(t[3]), float(t[4]))
-        elif section in ("bondtypes", "angletypes", "pairtypes"):
-            na = {"bondtypes": 2, "angletypes": 3, "pairtypes": 2}[section]
+        elif section in ("bondtypes", "angletypes", "pairtypes",
+                         "constrainttypes"):
+            na = {"bondtypes": 2, "angletypes": 3, "pairtypes": 2,
+                  "constrainttypes": 2}[section]
             db.add(section, t[:na], int(t[na]),
                    tuple(float(v) for v in t[na + 1:]))
         elif section == "dihedraltypes":
@@ -423,7 +433,7 @@ def parse_top(text: str, include_dirs: Optional[List[str]] = None,
                         f"top: atom type {nm} of ptype "
                         f"{atomtypes[nm].ptype} (shell or virtual site) is "
                         "not ported yet (ROADMAP item 6)")
-            cur.atoms.append((tname, charge, mass, tb, qb, mb))
+            cur.atoms.append((tname, charge, mass, tb, qb, mb, t[4]))
         elif section in _ARITY:
             k = _ARITY[section]
             idx = tuple(int(v) - 1 for v in t[:k])
@@ -489,9 +499,10 @@ def _resolve_molecule(raw: _RawMol, atomtypes: Dict[str, AtomType],
                       gen_pairs: bool) -> MoleculeType:
     mol = MoleculeType(name=raw.name, types_a=[], charges_a=[], masses_a=[],
                        types_b=[], charges_b=[], masses_b=[],
-                       nrexcl=raw.nrexcl)
+                       nrexcl=raw.nrexcl,
+                       atom_names=[a[6] for a in raw.atoms])
     bt_a, bt_b = [], []            # per-atom bonded-type ids
-    for (tname, q, m_, tb, qb, mb) in raw.atoms:
+    for (tname, q, m_, tb, qb, mb, _) in raw.atoms:
         mol.types_a.append(atomtypes[tname].index)
         mol.types_b.append(atomtypes[tb].index)
         mol.charges_a.append(q)
@@ -544,7 +555,7 @@ def _resolve_molecule(raw: _RawMol, atomtypes: Dict[str, AtomType],
                 pb = tuple(vals[npA:2 * npA])
             else:
                 pb = pa
-                if pert(idx):
+                if pert(idx) and section != "constraints":
                     warnings.warn(
                         f"{raw.name}: {section} {idx} explicit A-state "
                         "parameters copied to B for perturbed atoms")
@@ -579,6 +590,8 @@ def _db_lookup(db: BondedDB, section: str, funct: int, idx, bt_a, bt_b,
         elif section == "angles":
             hit = db.angles.get(db.canon3((bt[idx[0]], bt[idx[1]],
                                            bt[idx[2]])))
+        elif section == "constraints":
+            hit = db.constraints.get(db.canon2((bt[idx[0]], bt[idx[1]])))
         elif section == "dihedrals":
             terms = db.lookup_dihedral_terms(_DIH_GROUP[funct],
                                              tuple(bt[i] for i in idx))
@@ -621,7 +634,13 @@ _FIELD = {("bonds", 1): "bonds", ("bonds", 10): "restrbonds",
 def _store_interaction(mol: MoleculeType, section: str, funct: int, idx,
                        pa: Tuple, pb: Tuple):
     """Append one resolved row to its MoleculeType field, each state's
-    parameters padded with zeros to the term's count."""
+    parameters padded with zeros to the term's count.  A constraint row
+    is (i, j, lenA, lenB), with a fifth entry 2 for funct 2 (no
+    exclusions)."""
+    if section == "constraints":
+        row = (idx[0], idx[1], pa[0], pb[0])
+        mol.constraints.append(row if funct == 1 else row + (2,))
+        return
     n = _NPARAM[(section, funct)]
 
     def pad(p):
@@ -630,7 +649,8 @@ def _store_interaction(mol: MoleculeType, section: str, funct: int, idx,
 
 
 # ---------------------------------------------------------------------------
-# grompp transforms: 1-4 pair resolution, couple-moltype
+# grompp transforms: 1-4 pair resolution, couple-moltype, h-bond
+# constraints
 # ---------------------------------------------------------------------------
 
 def _finalize_pairs(mol: MoleculeType, fudge_qq: float):
@@ -699,6 +719,28 @@ def convert_moltype_couple(mol: MoleculeType, decoupled_type: int,
     return mol
 
 
+def make_hbond_constraints(mol: MoleculeType, all_bonds: bool = False):
+    """constraints = h-bonds | all-bonds: move the (hydrogen) bonds into
+    the constraint list with their A/B equilibrium lengths (reference:
+    gmxpreprocess/topshake.cpp make_shake; a hydrogen is an atom whose name
+    starts with H, topshake.cpp:55).  Mutates mol.bonds and
+    mol.constraints."""
+    names = mol.atom_names
+    keep = []
+    for row in mol.bonds:
+        idx, pa = row[0], row[1]
+        pb = row[2] if len(row) > 2 and row[2] is not None else pa
+        i, j = idx
+        is_h = all_bonds or (names is not None and (
+            names[i].upper().startswith("H")
+            or names[j].upper().startswith("H")))
+        if is_h:
+            mol.constraints.append((i, j, pa[0], pb[0]))
+        else:
+            keep.append(row)
+    mol.bonds = keep
+
+
 def decouple_moltype(mol: MoleculeType, nbfp: np.ndarray, vdw: bool = True,
                      coul: bool = True) -> Tuple[MoleculeType, np.ndarray]:
     """Full decoupling (A = on, B = off); returns the molecule and the LJ
@@ -715,13 +757,20 @@ def system_from_top(text: str, include_dirs: Optional[List[str]] = None,
                     couple_moltype: Optional[str] = None,
                     couple_lam0: str = "vdw-q", couple_lam1: str = "none",
                     couple_intramol: bool = True,
+                    constraints: str = "none",
                     defines: Optional[Dict[str, str]] = None,
                     epsilon_r: float = 1.0, device="cuda") -> System:
     """Parse + grompp transforms -> flat System on `device`.
 
     `couple_moltype=name` alone decouples the molecule fully in the B
     state (lambda0 = coupled).  A couple_moltype that names no molecule of
-    [ molecules ] raises."""
+    [ molecules ] raises.  constraints: the mdp value; h-bonds and
+    all-bonds turn bonds into LINCS rows (make_hbond_constraints), after
+    the couple-moltype conversion as in JAX; any other value but none
+    raises."""
+    if constraints not in ("none", "h-bonds", "all-bonds"):
+        raise NotImplementedError(f"constraints = {constraints} is not "
+                                  "ported (none, h-bonds, all-bonds)")
     parsed = parse_top(text, include_dirs, defines)
     nbfp = parsed.nbfp
     decoupled_type = None
@@ -744,6 +793,10 @@ def system_from_top(text: str, include_dirs: Optional[List[str]] = None,
             mol = dataclasses.replace(mol, pairs14=list(mol.pairs14),
                                       pairs_raw=list(mol.pairs_raw))
             _finalize_pairs(mol, parsed.fudge_qq)
+        if constraints != "none":
+            mol = dataclasses.replace(mol, bonds=list(mol.bonds),
+                                      constraints=list(mol.constraints))
+            make_hbond_constraints(mol, all_bonds=constraints == "all-bonds")
         mols.append((mol, count))
     return build_system(mols, nbfp, device=device, fudge_qq=1.0,
                         epsilon_r=epsilon_r)

@@ -1,19 +1,25 @@
-"""Rigid-water constraints — PyTorch counterpart of
+"""Holonomic constraints — PyTorch counterpart of
 gromacs_fep_gpu_tpu/md/constraints.py (_solve3x3, settle_positions,
-n_constraints) and of the velocity constraint of md/simulator.py
-(constrain_velocities).
+lincs_positions, constrain, n_constraints) and of the velocity constraint
+of md/simulator.py (constrain_velocities).
 
 SETTLE-class constraints by a fixed number of batched Newton iterations on
 the three Lagrange multipliers per water (the JAX formulation, scalarized
-per component, closed-form 3x3 solve).  LINCS is not ported: a system with
-general constraints raises in the simulator.
+per component, closed-form 3x3 solve).  General bond constraints by
+matrix-free LINCS (reference: mdlib/lincs.cpp:1023 do_lincs): a truncated
+series for the coupling matrix's inverse applied with gathers and
+index_add, then lincs_iter rounds of length correction; with perturbed
+lengths the accumulated multipliers give the constraint dH/dlambda.  Both
+are stock PyTorch, as the JAX package leaves them to XLA.  JAX's
+_cluster_shake (direct M-SHAKE on small clusters) has no caller there and
+is not ported.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import pbc as pbc_mod
-from ..core.types import SettleGroups
+from ..core.types import LincsConstraints, SettleGroups
 
 
 def _solve3x3(a, b):
@@ -106,13 +112,97 @@ def settle_positions(x0, x1, box, settle: SettleGroups, invmass,
                         torch.cat([d_o, d_h1, d_h2]))
 
 
+def lincs_positions(x0, x1, box, lincs: LincsConstraints, invmass,
+                    lam_bonded=None, order: int = 4, n_rounds: int = 2,
+                    with_dhdl: bool = False):
+    """Matrix-free LINCS (reference: mdlib/lincs.cpp:1023 do_lincs).
+
+    x' = x1 - invm B^T S (I + A + A^2 + ...) S (B x1 - d) with
+    A = I - S B invm B^T S, B the unit bond directions at x0 and S =
+    diag(1/sqrt(w_i + w_j)); then n_rounds of length correction against
+    the rotation error.  The target lengths are mixed at lam_bonded.
+
+    with_dhdl=True also returns dH/dlambda * dt^2 from the accumulated
+    multipliers, -sum_b mlambda_b (lenB_b - lenA_b) (lincs.cpp:1257; the
+    caller divides by dt^2, constr.cpp:2678)."""
+    nc = lincs.atoms.shape[0]
+    if nc == 0:
+        return (x1, x1.new_zeros(())) if with_dhdl else x1
+    ai, aj = lincs.atoms[:, 0], lincs.atoms[:, 1]
+    lam = 0.0 if lam_bonded is None else lam_bonded
+    d = (1.0 - lam) * lincs.length_a + lam * lincs.length_b
+    mask = lincs.mask
+
+    r0 = pbc_mod.pbc_dx(x0[ai] - x0[aj], box)
+    u = r0 * torch.rsqrt(torch.sum(r0 * r0, -1, keepdim=True) + 1e-32)
+    wi, wj = invmass[ai], invmass[aj]
+    sdiag = torch.rsqrt(wi + wj + 1e-32)
+
+    def apply_BinvmBt(v):
+        """S B invm B^T S v (v over the constraints)."""
+        sv = (sdiag * v * mask)[:, None] * u
+        f = torch.zeros_like(x1).index_add(0, ai, sv).index_add(0, aj, -sv)
+        f = f * invmass[:, None]
+        return torch.sum((f[ai] - f[aj]) * u, -1) * sdiag * mask
+
+    def project(xp, rhs, mlam):
+        # (I - A)^-1 rhs ~ sum_{k <= order} A^k rhs
+        acc = term = rhs
+        for _ in range(order):
+            term = term - apply_BinvmBt(term)
+            acc = acc + term
+        ml = sdiag * acc * mask
+        g = ml[:, None] * u
+        xp = xp.index_add(0, ai, -wi[:, None] * g).index_add(
+            0, aj, wj[:, None] * g)
+        return xp, mlam + ml
+
+    # the projection removes the component of x1 - x0 along the bonds
+    r1 = pbc_mod.pbc_dx(x1[ai] - x1[aj], box)
+    rhs = sdiag * (torch.sum(u * r1, -1) - d) * mask
+    xp, mlam = project(x1, rhs, torch.zeros_like(d))
+    for _ in range(n_rounds):
+        rc = pbc_mod.pbc_dx(xp[ai] - xp[aj], box)
+        len2 = torch.sum(rc * rc, -1)
+        # p = sqrt(2 d^2 - len^2), the reference's correction step
+        p = torch.sqrt(torch.clamp(2.0 * d * d - len2, min=0.0))
+        xp, mlam = project(xp, sdiag * (d - p) * mask, mlam)
+    if with_dhdl:
+        return xp, -torch.sum(mlam * (lincs.length_b - lincs.length_a)
+                              * mask)
+    return xp
+
+
+def constrain(x0, x1, box, system, invmass, lam_bonded=None,
+              order: int = 4, n_rounds: int = 2, with_dhdl: bool = False):
+    """Every holonomic constraint of `system` on the updated positions x1:
+    SETTLE, then LINCS.  with_dhdl=True also returns dH/dlambda * dt^2 of
+    the perturbed constraint lengths (SETTLE waters are never
+    perturbed)."""
+    xc = settle_positions(x0, x1, box, system.settle, invmass)
+    return lincs_positions(x0, xc, box, system.lincs, invmass, lam_bonded,
+                           order, n_rounds, with_dhdl)
+
+
 def n_constraints(system) -> int:
-    return 3 * int(system.settle.atoms.shape[0])
+    return (3 * int(system.settle.atoms.shape[0])
+            + int(system.lincs.atoms.shape[0]))
 
 
-def constrain_velocities(x_ref, v, box, settle: SettleGroups, invmass,
-                         dt: float):
+def has_perturbed_lengths(system) -> bool:
+    """Host-side: whether any LINCS row has lenB != lenA (reads the
+    lengths back once)."""
+    lc = system.lincs
+    return lc.atoms.shape[0] > 0 and bool(
+        (lc.length_a != lc.length_b).any())
+
+
+def constrain_velocities(x_ref, v, box, system, invmass, dt: float,
+                         lam_bonded=None, order: int = 4,
+                         n_rounds: int = 2):
     """Project velocities onto the constraint manifold by constraining
-    x + dt v (reference: constr.cpp ConstraintVariable::Velocities)."""
-    xv = settle_positions(x_ref, x_ref + dt * v, box, settle, invmass)
+    x + dt v (reference: constr.cpp ConstraintVariable::Velocities; the
+    JAX simulator's constrain_velocities)."""
+    xv = constrain(x_ref, x_ref + dt * v, box, system, invmass, lam_bonded,
+                   order, n_rounds)
     return (xv - x_ref) / dt

@@ -29,8 +29,9 @@ dd_grid), the non-bonded force runs per domain on its halo-extended plane
 the JAX runner demotes them) and the PME reciprocal part is sharded
 (parallel/spatial.py).  A pair beyond the +-1 halo (a domain thinner than
 the list cut-off) fails hard at the rebuild: no growth can cure it.  The
-FEP list, the bonded terms, SETTLE, the update and the Delta H sweep stay
-on the home device (the system's).  Pressure coupling under DD raises.
+FEP list, the bonded terms, the constraints (SETTLE and LINCS, on the
+global arrays), the update and the Delta H sweep stay on the home device
+(the system's).  Pressure coupling under DD raises.
 """
 from __future__ import annotations
 
@@ -429,7 +430,8 @@ class MdRunner:
             self.system, self.params, bound, self.generator,
             foreign_delta_fn=(self._foreign(feplist) if self._foreign
                               else None),
-            n_foreign=self._n_foreign, energy_epot_fn=epot_fn)
+            n_foreign=self._n_foreign, energy_epot_fn=epot_fn,
+            all_lambda=self.all_lambda)
 
     def lists(self, state: State):
         """(nlist, feplist, prep, flags) of a rebuild at `state` that no

@@ -1,8 +1,9 @@
 """The MD step — PyTorch counterpart of gromacs_fep_gpu_tpu/md/simulator.py
 (StepLog, degrees_of_freedom, masses_at_lambda, make_pressure_fn,
 make_step_fn) for the leapfrog / leapfrog-Langevin (sd) / v-rescale /
-SETTLE / COM-removal / dhdl / foreign-lambda / MTS branches and isotropic
-Berendsen and C-rescale pressure coupling.
+constraint (SETTLE + LINCS, with the perturbed lengths' dV/dlambda and
+Delta H term) / COM-removal / dhdl / foreign-lambda / MTS branches and
+isotropic Berendsen and C-rescale pressure coupling.
 
 The force flavour of each step is chosen by the caller (the runner knows
 it on the host, as in the JAX runner's statically-flavoured segments):
@@ -15,9 +16,9 @@ on the host without reading the device.
 The sd integrator is its own thermostat: the step raises on sd with a
 tcoupl, where the JAX step applies both (v-rescale's scale, then SD's
 friction and noise); grompp sets tcoupl = no under sd
-(readir.cpp), and so does the port's mdp reader.  SETTLE acts once, after
-the whole SD update, as in the JAX step (GROMACS constrains after the
-force update and again after the friction and noise).
+(readir.cpp), and so does the port's mdp reader.  The constraints act
+once, after the whole SD update, as in the JAX step (GROMACS constrains
+after the force update and again after the friction and noise).
 
 Pressure coupling differs from the JAX step where the JAX step differs
 from the reference: C-rescale scales the velocities by 1/mu
@@ -122,7 +123,8 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
                  generator: Optional[torch.Generator] = None,
                  foreign_delta_fn: Optional[Callable] = None,
                  n_foreign: int = 0,
-                 energy_epot_fn: Optional[Callable] = None):
+                 energy_epot_fn: Optional[Callable] = None,
+                 all_lambda: Optional[torch.Tensor] = None):
     """step(state, flavor) -> (state, StepLog).
 
     force_fn(x, box, lam, flavor) -> (f, EnergyTerms); generator drives
@@ -134,17 +136,20 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
     With pressure coupling the pressure of a step % nstpcouple == 0 comes
     from the force pass's terms.vir_diag (flavours 'R' / 'S'), or, when
     energy_epot_fn(x, box, lam) is given (the dense oracle route), from
-    make_pressure_fn's strain gradient of it at x(t); plus the SETTLE
+    make_pressure_fn's strain gradient of it at x(t); plus the constraint
     virial and the dispersion tail.  Box and x are then scaled by mu
     (and, with C-rescale, v by 1/mu).  The JAX dense route takes that
     gradient at x(t+dt) on every step; here both routes read the virial
     of x(t) on the pressure steps only.
 
-    The JAX step also takes the lambda matrix, for the constraint term
-    delta_h += dlambda_bonded * dvdl_constr of LINCS with lambda-dependent
-    lengths.  The port's System holds SETTLE waters only, whose lengths
-    have no B state, so that term is identically zero and neither it nor
-    the matrix is here."""
+    Constraint lengths with a B state (LINCS rows with lenB != lenA, under
+    free-energy = yes) add their multipliers' dH/dlambda to dV/dlambda's
+    bonded column on energy steps, and on the sweep's steps the linear
+    term (all_lambda[:, BONDED] - lambda_bonded) * dvdl_constr to each
+    Delta H (reference: lincs.cpp:1257, enerdata_utils.cpp:338-347; JAX
+    simulator.py:852-861).  all_lambda: the (L, 7) ladder of the sweep.
+    Whether a length is perturbed is read from the system here (a host
+    read of the LINCS lengths, once per call)."""
     is_sd = params.integrator == IntegratorType.SD
     if params.integrator not in (IntegratorType.MD, IntegratorType.SD):
         raise NotImplementedError(f"integrator {params.integrator.value} is "
@@ -172,7 +177,15 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
         raise ValueError("v-rescale needs a torch.Generator")
     ndf = degrees_of_freedom(system, params)
     dt = params.dt
-    has_settle = constr_mod.n_constraints(system) > 0
+    has_constraints = constr_mod.n_constraints(system) > 0
+    has_pert_constr = (params.fep.enabled
+                       and constr_mod.has_perturbed_lengths(system))
+    if has_pert_constr and n_foreign > 0 and all_lambda is None:
+        raise ValueError("perturbed constraint lengths with a Delta H "
+                         "sweep need all_lambda for its constraint term")
+    dlam_bonded = (None if all_lambda is None else
+                   torch.as_tensor(all_lambda, device=system.device)[
+                       :, int(FepCoupling.BONDED)])
     nan_terms = torch.full((len(_ENERGY_FIELDS),), float("nan"),
                            device=system.device)
     p_tail_fn = (make_dispersion_correction(system, params)[1]
@@ -225,9 +238,24 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
                                               dt, v_scale)
         constr_rmsd = torch.zeros((), dtype=x_new.dtype, device=x_new.device)
         constr_vir = None
-        if has_settle:
-            x_c = constr_mod.settle_positions(state.x, x_new, state.box,
-                                              system.settle, invmass)
+        dvdl = terms.dvdl
+        if has_constraints:
+            lam_b = lam[FepCoupling.BONDED]
+            if has_pert_constr and do_ener:
+                x_c, dhdl_dt2 = constr_mod.constrain(
+                    state.x, x_new, state.box, system, invmass, lam_b,
+                    params.lincs_order, params.lincs_iter, with_dhdl=True)
+                dvdl_constr = dhdl_dt2 / (dt * dt)
+                dvdl = dvdl.clone()
+                dvdl[FepCoupling.BONDED] += dvdl_constr
+                if flavor in ("D", "S") and n_foreign > 0:
+                    # constraints cannot be evaluated at foreign lambdas:
+                    # the linear term, as the reference
+                    delta_h = delta_h + (dlam_bonded - lam_b) * dvdl_constr
+            else:
+                x_c = constr_mod.constrain(
+                    state.x, x_new, state.box, system, invmass, lam_b,
+                    params.lincs_order, params.lincs_iter)
             v_new = v_new + (x_c - x_new) / dt
             if flavor != "F":
                 constr_rmsd = torch.sqrt(torch.mean(torch.sum(
@@ -273,7 +301,7 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
             box_new = state.box * mu
             x_new = x_new * mu
         log = StepLog(epot=terms.epot if do_ener else nan, ekin=ekin,
-                      temp=temp, lam=lam, dvdl=terms.dvdl,
+                      temp=temp, lam=lam, dvdl=dvdl,
                       constr_rmsd=constr_rmsd, delta_h=delta_h, pres=pres,
                       terms=(torch.stack([getattr(terms, k)
                                           for k in _ENERGY_FIELDS])

@@ -61,6 +61,14 @@ def _atom_kinetic_types(system: System):
             con_mass[a] = m_other
             con_len[a] = length
 
+    lc = system.lincs
+    l_atoms, l_len, l_mask = _np(lc.atoms), _np(lc.length_a), _np(lc.mask)
+    for k in range(int(l_mask.shape[0])):
+        if float(l_mask[k]) == 0.0:
+            continue
+        a1, a2 = (int(v) for v in l_atoms[k])
+        note(a1, mass[a2], float(l_len[k]))
+        note(a2, mass[a1], float(l_len[k]))
     st = system.settle
     for k in range(int(_np(st.mask).shape[0])):
         if float(_np(st.mask)[k]) == 0.0:

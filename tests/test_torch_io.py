@@ -268,8 +268,13 @@ UNSUPPORTED = [
     ("tcoupl = andersen-massive", "tcoupl"),
     ("pcoupl = parrinello-rahman", "pcoupl"), ("pcoupl = mttk", "pcoupl"),
     ("pcoupl = c-rescale\npcoupltype = semiisotropic", "pcoupltype"),
-    ("constraints = h-bonds", "constraints"),
-    ("constraints = all-bonds", "constraints"),
+    # bond constraints run on LINCS only; angle constraints not at all
+    ("constraint-algorithm = shake\nconstraints = h-bonds",
+     "constraint-algorithm"),
+    ("constraint-algorithm = shake\nconstraints = all-bonds",
+     "constraint-algorithm"),
+    ("constraints = h-angles", "constraints"),
+    ("constraints = all-angles", "constraints"),
     ("free-energy = yes\nsc-function = gapsys", "sc-function"),
     ("vdwtype = pme", "vdwtype"),
     ("free-energy = expanded\nfep-lambdas = 0 1\nnstexpanded = 10",
@@ -461,7 +466,8 @@ def test_decouple_moltype_matches_jax(vdw, coul):
 
 
 UNPORTED_TOP = [
-    ("[ constraints ]\n1 2 1 0.1\n", "constraints"),
+    # funct 1 and 2 are ported (LINCS); funct 3 is no constraint type
+    ("[ constraints ]\n1 2 3 0.1\n", "constraints"),
     ("[ virtual_sites3 ]\n5 1 2 3 1 0.1 0.1\n", "virtual_sites3"),
     ("[ cmap ]\n1 2 3 4 5 1\n", "cmap"),
     ("[ bonds ]\n1 2 2 0.1 1000.0\n", "bonds"),

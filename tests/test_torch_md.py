@@ -66,8 +66,8 @@ def test_velocity_constraint_matches_jax():
     v_j = np.asarray((xv - jst.x) / dt)
     ts, tst = to_port(js, jst)
     _, tinvm = masses_at_lambda(ts, torch.tensor(0.0))
-    v_t = tconstr.constrain_velocities(tst.x, tst.v, tst.box, ts.settle,
-                                       tinvm, dt)
+    v_t = tconstr.constrain_velocities(tst.x, tst.v, tst.box, ts, tinvm,
+                                       dt)
     np.testing.assert_allclose(v_t.numpy(), v_j, rtol=0, atol=1e-3)
     # a step along the constrained velocities keeps the O-H bond lengths
     o, h1 = ts.settle.atoms[:, 0], ts.settle.atoms[:, 1]

@@ -22,7 +22,11 @@ def system_arrays(js) -> dict:
     d.update(settle_atoms=np.asarray(js.settle.atoms),
              settle_d_oh=np.asarray(js.settle.d_oh),
              settle_d_hh=np.asarray(js.settle.d_hh),
-             settle_mask=np.asarray(js.settle.mask))
+             settle_mask=np.asarray(js.settle.mask),
+             lincs_atoms=np.asarray(js.lincs.atoms),
+             lincs_length_a=np.asarray(js.lincs.length_a),
+             lincs_length_b=np.asarray(js.lincs.length_b),
+             lincs_mask=np.asarray(js.lincs.mask))
     lists = {f"bonded_{name}": il for name, il in js.bonded.items()}
     if js.pairs14.n > 0:
         lists["pairs14"] = js.pairs14

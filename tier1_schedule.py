@@ -5,12 +5,18 @@ workers, from measured per-test times, and print the predicted wall.
     python -m pytest tests/ ... --junitxml=times.xml       # any full run
     python3 tier1_schedule.py times.xml [--workers 6] [--extra 0,10,20]
         [--drop tests/test_torch_io.py,tests/test_torch_cli.py]
+        [--limit 1470 --scale 0.9,1.0,1.2]
 
 The collection order is taken from `pytest --collect-only` on this tree
 (the Tier-1 command's `-m 'not slow'`); a test without a time in the junit
 file counts 0.05 s.  `--extra` lists counts of 0.05 s items to insert
 before tests/test_torch_md.py, and `--drop` node-id prefixes to leave
 out, to see how the wall moves with the number of collected items.
+With `--limit`, each line also gives the passes finished by that many
+seconds (the Tier-1 command's timeout; a cut run counts as far as it got)
+with every time multiplied by each `--scale` (a slower or faster
+machine): a test passes if it passed in the junit file, an extra item
+always.
 
 The model is xdist 3.8's LoadScheduling: the first N // workers // 4
 items go to each worker in consecutive chunks; when a worker's queue
@@ -27,11 +33,14 @@ import xml.etree.ElementTree as ET
 
 
 def junit_times(path):
-    out = {}
+    """({node: seconds}, {node: passed})."""
+    out, ok = {}, {}
     for tc in ET.parse(path).getroot().iter("testcase"):
         node = tc.get("classname").replace(".", "/") + ".py::" + tc.get("name")
         out[node] = float(tc.get("time") or 0.0)
-    return out
+        ok[node] = not any(ch.tag in ("failure", "error", "skipped")
+                           for ch in tc)
+    return out, ok
 
 
 def collection():
@@ -43,7 +52,8 @@ def collection():
 
 
 def simulate(order, seconds, workers=6):
-    """(wall, per-worker finish times) of `order` under --dist load."""
+    """(wall, per-worker finish times, {item index: its end time}) of
+    `order` under --dist load."""
     pending = list(range(len(order)))
     queue = [[] for _ in range(workers)]
 
@@ -59,9 +69,11 @@ def simulate(order, seconds, workers=6):
               if queue[w]]
     heapq.heapify(events)
     finish = [0.0] * workers
+    ends = {}
     while events:
         t, w = heapq.heappop(events)
         done = queue[w].pop(0)
+        ends[done] = t
         if pending:
             lo = max(2, len(pending) // workers // 4)
             hi = max(2, len(pending) // workers // 2)
@@ -72,7 +84,7 @@ def simulate(order, seconds, workers=6):
             heapq.heappush(events, (t + seconds(order[queue[w][0]]), w))
         else:
             finish[w] = t
-    return max(finish), finish
+    return max(finish), finish, ends
 
 
 def main():
@@ -81,8 +93,10 @@ def main():
     ap.add_argument("--workers", type=int, default=6)
     ap.add_argument("--extra", default="0")
     ap.add_argument("--drop", default="")
+    ap.add_argument("--limit", type=float, default=None)
+    ap.add_argument("--scale", default="1.0")
     args = ap.parse_args()
-    times = junit_times(args.junit)
+    times, passed = junit_times(args.junit)
     drop = tuple(p for p in args.drop.split(",") if p)
     order = [n for n in collection() if not (drop and n.startswith(drop))]
 
@@ -92,9 +106,20 @@ def main():
                if n.startswith("tests/test_torch_md.py")), len(order))
     for k in (int(v) for v in args.extra.split(",")):
         o = order[:at] + [f"extra{i}" for i in range(k)] + order[at:]
-        wall, finish = simulate(o, seconds, args.workers)
-        print(f"{len(o)} items (+{k}): wall {wall:.0f} s, workers "
-              f"{[round(f) for f in finish]}")
+        wall, finish, _ = simulate(o, seconds, args.workers)
+        line = (f"{len(o)} items (+{k}): wall {wall:.0f} s, workers "
+                f"{[round(f) for f in finish]}")
+        if args.limit is not None:
+            counts = []
+            for sc in (float(v) for v in args.scale.split(",")):
+                _, _, ends = simulate(o, lambda n, sc=sc: sc * seconds(n),
+                                      args.workers)
+                counts.append(sum(1 for i, n in enumerate(o)
+                                  if ends[i] <= args.limit
+                                  and passed.get(n, True)))
+            line += f"; passes by {args.limit:.0f} s at scales " \
+                    f"{args.scale}: {counts}"
+        print(line)
 
 
 if __name__ == "__main__":
