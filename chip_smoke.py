@@ -70,14 +70,21 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    an 'E' step.  K1 VF+virial is held against its
    plain version at both paths' shapes (phases 4 and 9), and the small
    reference (phase 2) holds the cluster route's in-force virial on the
-   card against the dense float64 oracle's strain gradient;
+   card against the dense float64 oracle's strain gradient.  Then
+   Parrinello-Rahman from the state the windows end in: one window of 200
+   steps at window 11's lambda (isotropic, tau_p 2 ps, with the sweep;
+   launches exact, density in its band, |dV|/V < 3 %, the ratios of the
+   box edges constant to 1e-5, its ms/step beside the C-rescale windows'),
+   then 100 steps of semiisotropic PR (L_x = L_y to two ulp, the box
+   velocity finite);
 10. per-cluster kernels at the main path's shapes (phase 4's frame,
    geometric LJ, potential shift, rc 0.9): K7a ("super", union lists of 8
    clusters), K7b ("cluster"), K7c ("v2", baked shifts) and the table
-   route's kernel, each in its flavours against its plain version (E rel
-   1e-4, F rel 5e-4 of max |F|), each launch counted exactly once, with
-   time, bound and plain time; then all five NB routes (K1, K7a, K7b, K7c,
-   the table kernel in geometric mode) against each other at one state;
+   route's kernel, each in its flavours (K7a/b/c: F, VF and VF+virial)
+   against its plain version (E and virial rel 1e-4, F rel 5e-4 of max
+   |F|), each launch counted exactly once, with time, bound and plain
+   time; then all five NB routes (K1, K7a, K7b, K7c, the table kernel in
+   geometric mode) against each other at one state;
 11. small CHARMM-style reference: a 650-atom box with the Lorentz-Berthelot
    table (force-switch, then potential-switch; rc 0.75 nm, rvdw-switch
    0.6 nm) on the default RunnerConfig, which demotes to the table route:
@@ -108,13 +115,17 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    Coulomb type in both LJ modes at 650 atoms;
 13. each of the layouts "super", "cluster" and "v2" drives 100 steps of
    the main path from its production state, launches checked; then
-   K7a/b/c's edge cases (phase_k7_edges) against k7_plain in F and VF,
-   each launch twice and bit-identical, NaN exactly where the plain
-   version has it: the main path's frame (tiles kept, warps), a pair on
-   its tile's boundary in one image and across the periodic boundary
-   (K7c: across a baked shift), a NaN atom, skewed and empty rows, for
-   K7a a union row holding a j cluster in range of only one of its 8
-   i-clusters, and cut-off, reaction field and PME at 1,538 atoms;
+   K7a/b/c's edge cases (phase_k7_edges) against k7_plain, each launch
+   twice and bit-identical, NaN exactly where the plain version has it:
+   the main path's frame (tiles kept, warps) and a NaN atom in F, VF and
+   VF+virial, a pair on its tile's boundary in one image and across the
+   periodic boundary (K7c: across a baked shift), skewed and empty rows in
+   F and VF, for K7a a union row holding a j cluster in range of only one
+   of its 8 i-clusters, and cut-off, reaction field and PME at 1,538
+   atoms; each layout's virial against the table kernel's on the main
+   path's frame (rel 1e-4 of max |Xi_aa|); then 20 C-rescale steps of the
+   main path per layout (its VF+virial kernel on the 2 pressure steps,
+   launches exact);
 14. domain decomposition (DD) on a (2, 2, 2) grid of eight domains, all
    on the first card (the placement is printed; with more than one card
    the force check is repeated with the domains spread round-robin over
@@ -190,6 +201,9 @@ WINDOW_STEPS = 200
 NPT_EQ_STEPS = 500
 DENSITY_BAND = (0.90, 1.10)     # g/cm^3
 MAX_DV = 0.03                   # |V - V0| / V0 over the NPT windows
+PR_TAU_P = 2.0                  # ps, Parrinello-Rahman's (production) tau_p
+PR_SHAPE_TOL = 1e-5             # drift of the box edges' ratios, PR window
+PR_SEMI_STEPS = 100
 AMU_PER_NM3_IN_G_PER_CM3 = 1.66053906660e-3
 # the equilibrations of the main path, the lambda window and the CLI: 1 ps
 # at dt 1 fs (1,000 steps, where 2,000 at 0.5 fs took twice the time):
@@ -228,6 +242,7 @@ CHARMM_RC, CHARMM_RSW = 1.2, 1.0
 CHARMM_EQ_STEPS = 250
 CHARMM_NPT_STEPS = 100
 LAYOUT_STEPS = 100
+K7_NPT_STEPS = 20       # C-rescale steps per K7 layout (2 pressure steps)
 # domain decomposition: the grid and block of mdrun -dd 2x2x2, the steps
 # of each DD run, and the 81,002-atom system (26,999 waters + the ligand)
 DD_GRID = (2, 2, 2)
@@ -1911,12 +1926,13 @@ def _profile_window(runner, state, nsteps, ms_step, top=10):
 
 
 def _run_windows(runner_for, start, params, ladder, smi, what,
-                 volumes=None):
+                 volumes=None, ms_steps=None):
     """Windows WINDOWS, each WINDOW_STEPS from `start` (set to the window)
     through _drive, with their checks: Delta H finite on exactly the sweep
     steps, own window ~0, temperature in its band; dhdl.xvg of each window
     written and read back; BAR of the leg printed.  Returns (launches
-    summed over the windows, the last window's final state, its log)."""
+    summed over the windows, the last window's final state, its log); each
+    window's ms/step is appended to the list `ms_steps` if one is given."""
     from gromacs_fep_gpu_tpu_torch.analysis.bar import bar_profile
     from gromacs_fep_gpu_tpu_torch.core.units import BOLTZ
     from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg, write_dhdl_xvg
@@ -1940,6 +1956,8 @@ def _run_windows(runner_for, start, params, ladder, smi, what,
             own = float(dh[swept][:, w].abs().max())
             t_lo, t_hi = float(lg.temp.min()), float(lg.temp.max())
             ms_step = sec / WINDOW_STEPS * 1e3
+            if ms_steps is not None:
+                ms_steps.append(ms_step)
             ns_day = WINDOW_STEPS * params.dt / 1000.0 / sec * 86400.0
             flavours = {c: pat.count(c) for c in sorted(set(pat))}
             _say(f"{what} {w} (MTS2, dt 2 fs, {int(swept.sum())} sweeps of "
@@ -2123,9 +2141,9 @@ def phase_npt(timer, smi, system, eq_state, caps):
                 "S": n // 100, "R": n // 10 - n // 100,
                 "F": n // 2 - n // 10, "f": n // 2}:
             raise AssertionError(f"NPT window {w} flavours {pat!r}")
-    wvols = []
+    wvols, cr_ms = [], []
     total, state_w, lg_w = _run_windows(runner_for, state, params, ladder,
-                                        smi, "NPT window", wvols)
+                                        smi, "NPT window", wvols, cr_ms)
     n_win = len(WINDOWS)
     if total["nb_v2u_VFV"] != n_win * (n // 10) \
             or total["nb_v2u_F"] != n_win * (n - n // 10) \
@@ -2150,6 +2168,8 @@ def phase_npt(timer, smi, system, eq_state, caps):
         raise AssertionError(f"NPT density left {DENSITY_BAND} g/cm^3")
     if dv >= MAX_DV:
         raise AssertionError(f"NPT volume moved by {dv:.4f} of V_eq")
+    pr_total = _pr_windows(system, params, ladder, caps, state_w, density,
+                           cr_ms, smi)
 
     # the cost of a pressure step: step and force of each flavour alone
     runner = runner_for(seed=0)
@@ -2174,7 +2194,95 @@ def phase_npt(timer, smi, system, eq_state, caps):
     # K1 VF+virial at this path's shapes, on the NPT-equilibrated frame
     rows = _k1_kernel_rows(runner_for(seed=0), state, timer, ("VFV",))
     rows[0]["launches"] = total["nb_v2u_VFV"]
-    return rows, total
+    return rows, total, pr_total
+
+
+def _box_edges(state):
+    return [float(b) for b in torch.diagonal(state.box)]
+
+
+def _pr_windows(system, params, ladder, caps, start, density, cr_ms, smi):
+    """Parrinello-Rahman after the C-rescale windows, from the state they
+    end in: one window of WINDOW_STEPS at window WINDOWS[-1]'s lambda
+    (isotropic, tau_p PR_TAU_P, with the sweep), then PR_SEMI_STEPS of
+    semiisotropic coupling (ref-p and compressibility the same for z, no
+    sweep), each through _drive (exact launches, finite values).  Gates:
+    the density in DENSITY_BAND at every 100 steps; the window's |V - V0| /
+    V0 below MAX_DV (V0: its start); the window keeps the ratios of the box
+    edges to 1e-5 (isotropic PR moves every edge by the same relative
+    amount); the semiisotropic run keeps L_x = L_y to fp32 rounding (two
+    ulp) and its box velocity finite.  Prints the window's ms/step beside
+    the C-rescale windows'.  Returns the launches of both runs."""
+    from gromacs_fep_gpu_tpu_torch.core.types import PcouplType
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    w = WINDOWS[-1]
+    pr = params.replace(pcoupl=PcouplType.PARRINELLO_RAHMAN, tau_p=PR_TAU_P)
+
+    def runner(p, all_lambda, seed):
+        return MdRunner(system, p, RunnerConfig(
+            super_nnbr=caps[0], fep_max_nbr=caps[1], seed=seed),
+            all_lambda=all_lambda)
+    state = start.replace(lam=torch.tensor(ladder[w], device=start.x.device),
+                          fep_state=w, step=0)
+    v0 = float(torch.prod(torch.diagonal(state.box)))
+    e0 = _box_edges(state)
+    vols = []
+    state, lg, sec, counts = _drive(runner(pr, ladder, 200 + w), state,
+                                    WINDOW_STEPS, f"PR window {w}", vols)
+    e1 = _box_edges(state)
+    shape = max(abs(e1[a] / e1[0] - e0[a] / e0[0]) for a in (1, 2))
+    dv = max(abs(v - v0) for v in vols) / v0
+    bv = torch.diagonal(state.coupling.boxv)
+    p_on = lg.pres[torch.isfinite(lg.pres)]
+    n_p = WINDOW_STEPS // pr.nstpcouple
+    ms = sec / WINDOW_STEPS * 1e3
+    _say(f"PR window {w} (Parrinello-Rahman isotropic, tau_p {PR_TAU_P} "
+         f"ps, nstpcouple {pr.nstpcouple}): {WINDOW_STEPS} steps, "
+         f"{ms:.3f} ms/step against the C-rescale windows' "
+         f"{[round(m, 3) for m in cr_ms]} ms/step in this call on {smi}; "
+         f"launches {counts}; volume every 100 steps "
+         f"{[round(v, 4) for v in vols]} nm^3 (start {v0:.4f}), max |V - V0|"
+         f" / V0 {dv:.4f}; density {density(vols[-1]):.4f} g/cm^3; box "
+         f"edges {[round(b, 6) for b in e1]} nm, edge-ratio drift "
+         f"{shape:.2e}; boxv {[float(b) for b in bv]} nm/ps; mean P "
+         f"{float(p_on.mean()):.1f} bar over {p_on.numel()} pressure steps")
+    if p_on.numel() != n_p or not bool(torch.isfinite(bv).all()):
+        raise AssertionError("PR window: pressure not finite on exactly the "
+                             f"{n_p} pressure steps, or boxv not finite")
+    if not all(DENSITY_BAND[0] <= density(v) <= DENSITY_BAND[1]
+               for v in vols):
+        raise AssertionError(f"PR window: density left {DENSITY_BAND}")
+    if dv >= MAX_DV:
+        raise AssertionError(f"PR window: volume moved by {dv:.4f} of V0")
+    if not shape <= PR_SHAPE_TOL:
+        raise AssertionError(f"PR window: the box edges' ratios moved by "
+                             f"{shape:.2e}")
+
+    semi = pr.replace(pcoupltype="semiisotropic")
+    vols2 = []
+    state2, lg2, sec2, counts2 = _drive(runner(semi, None, 300 + w), state,
+                                        PR_SEMI_STEPS, "semiisotropic PR",
+                                        vols2)
+    e2 = _box_edges(state2)
+    lx, ly = state2.box[0, 0], state2.box[1, 1]
+    ulp = float(torch.nextafter(lx, lx + 1.0) - lx)
+    bv2 = torch.diagonal(state2.coupling.boxv)
+    _say(f"semiisotropic PR ({PR_SEMI_STEPS} steps from the PR window): "
+         f"{sec2 / PR_SEMI_STEPS * 1e3:.3f} ms/step, launches {counts2}; box "
+         f"edges {[round(b, 6) for b in e2]} nm, |L_x - L_y| "
+         f"{abs(float(lx - ly)):.3e} nm (ulp {ulp:.3e}), L_z / L_x "
+         f"{e2[2] / e2[0]:.6f} (start {e1[2] / e1[0]:.6f}); boxv "
+         f"{[float(b) for b in bv2]} nm/ps; density "
+         f"{density(vols2[-1]):.4f} g/cm^3")
+    if abs(float(lx - ly)) > 2.0 * ulp or not bool(
+            torch.isfinite(bv2).all()):
+        raise AssertionError("semiisotropic PR: L_x != L_y or boxv not "
+                             "finite")
+    if not all(DENSITY_BAND[0] <= density(v) <= DENSITY_BAND[1]
+               for v in vols2):
+        raise AssertionError(f"semiisotropic PR: density left "
+                             f"{DENSITY_BAND}")
+    return {k: counts.get(k, 0) + counts2.get(k, 0) for k in counts}
 
 
 
@@ -2362,8 +2470,10 @@ def phase_cluster_kernels(system, params, state, timer, caps):
     rows, n_pairs, routes = [], None, {}
     for layout in K7_LAYOUTS + ("table",):
         r = runner(layout)
-        out, n_pairs = _cluster_kernel_rows(r, state, timer, ("F", "VF"),
-                                            n_pairs)
+        out, n_pairs = _cluster_kernel_rows(
+            r, state, timer,
+            ("F", "VF") if layout == "table" else ("F", "VF", "VFV"),
+            n_pairs)
         # the table kernel's rows come from the CHARMM path, which runs it
         rows += out if layout != "table" else []
         routes[layout] = r
@@ -2631,7 +2741,8 @@ def _table_kept(planes, box, prep, consts):
     return float(keep[live].float().mean()), bad
 
 
-def _edge_cases(frame, planes, box, prep, consts, n_clusters):
+def _edge_cases(frame, planes, box, prep, consts, n_clusters,
+                flavours=None):
     """The edge cases every per-cluster layout shares, each held by
     _table_check: the frame itself (with the tiles the cull keeps and the
     warps per i-cluster); a pair placed on its tile's boundary at r^2 =
@@ -2640,7 +2751,10 @@ def _edge_cases(frame, planes, box, prep, consts, n_clusters):
     minus outside) must match the plain version's to a quarter of itself;
     a NaN coordinate (an atom of a cluster that other rows list); one row
     at W entries and every other row at 1, at the wrapper's warps and at 1
-    and 16 warps per i-cluster; every third row empty."""
+    and 16 warps per i-cluster; every third row empty.  The frame and the
+    NaN atom run every flavour of the layout; the boundary pair, the skewed
+    and the empty rows (the ring, the cull and the deal of entries, which
+    no flavour changes) run `flavours` (None: every flavour)."""
     from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
     layout = prep.layout
     kept, bad = _table_kept(planes, box, prep, consts)
@@ -2666,7 +2780,7 @@ def _edge_cases(frame, planes, box, prep, consts, n_clusters):
                  f"{cl} entry {e} half {h}, rows {a} and {b}; tile kept by "
                  f"the cull: {bool(keep[cl, e, h])}")
             res[where] = _table_check(f"boundary {where}", moved, box, prep,
-                                      consts)
+                                      consts, flavours)
         for flavour in res["inside"]:
             fk, fp = ((res["inside"][flavour][i][a] -
                        res["outside"][flavour][i][a]) for i in (0, 1))
@@ -2691,13 +2805,14 @@ def _edge_cases(frame, planes, box, prep, consts, n_clusters):
     skew = dataclasses.replace(prep, nbr=nbr, cnt=cnt, cnt_max=W)
     for w in sorted({prep.warps, 1, nb_cluster.MAX_WARPS}):
         _table_check(f"skew ({w} warps)", planes, box,
-                     dataclasses.replace(skew, warps=w), consts)
+                     dataclasses.replace(skew, warps=w), consts, flavours)
     nbr = prep.nbr.clone()
     nbr[::3] = C
     cnt = prep.cnt.clone()
     cnt[::3] = 0
     _table_check("empty rows", planes, box,
-                 dataclasses.replace(prep, nbr=nbr, cnt=cnt), consts)
+                 dataclasses.replace(prep, nbr=nbr, cnt=cnt), consts,
+                 flavours)
 
 
 def phase_table_edges(device, state, nnbr):
@@ -2862,19 +2977,30 @@ def _lone_union_entry(planes, box, prep, consts, n_clusters):
 
 
 def phase_k7_edges(system, params, state, caps):
-    """K7a/b/c's edge cases against k7_plain in F and VF (each launch
-    twice and bit-identical, NaN in exactly the plain version's rows):
+    """K7a/b/c's edge cases against k7_plain (each launch twice and
+    bit-identical, NaN in exactly the plain version's rows):
     - _edge_cases on each layout's pack of the main path's frame: the
-      frame (tiles kept, warps), the boundary pair in one image and across
-      the periodic boundary (K7c: across a baked shift), a NaN atom, the
-      skewed rows at 1, 16 and the wrapper's warps, empty rows;
+      frame (tiles kept, warps) and a NaN atom in F, VF and VF+virial, the
+      boundary pair in one image and across the periodic boundary (K7c:
+      across a baked shift), the skewed rows at 1, 16 and the wrapper's
+      warps and empty rows in F and VF;
+    - each layout's virial (VF+virial kernel, Xi_aa = -1/4 sum of its
+      partials) against the table route's kernel on the same frame, rel
+      1e-4 of max |Xi_aa|: K7a's union rows and K7c's baked shifts count
+      each pair of the cut-off as the table route does;
     - K7a: a union row holding only a j cluster in range of one of its 8
-      i-clusters (_lone_union_entry);
+      i-clusters (_lone_union_entry), every flavour;
     - cut-off, reaction field and PME on every layout at 1,538 atoms
       (n_side 8, rc 0.5, rlist 0.55: the smallest lattice box on which
       K7c's per-entry shifts hold; at 650 atoms the v2 layout raises, as
-      the JAX runner does)."""
-    from gromacs_fep_gpu_tpu_torch.core.types import CoulombType, VdwModifier
+      the JAX runner does), every flavour;
+    - K7_NPT_STEPS C-rescale steps of the main path on each layout
+      (nstpcouple 10: its VF+virial kernel on the pressure steps) through
+      _drive, pressure finite on exactly those steps.
+    Returns the VF+virial launches of the C-rescale steps."""
+    from gromacs_fep_gpu_tpu_torch.core.types import (CoulombType,
+                                                      PcouplType,
+                                                      VdwModifier)
     from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
     from gromacs_fep_gpu_tpu_torch.models.solvation import solvation_system
     from gromacs_fep_gpu_tpu_torch.ops import nb_cluster
@@ -2885,15 +3011,30 @@ def phase_k7_edges(system, params, state, caps):
     t0 = time.perf_counter()
     box = state.box
     consts = NbConstants.from_params(params, get_beta(params))
-    for layout in K7_LAYOUTS:
+
+    def lists(layout):
         runner = MdRunner(system, params, RunnerConfig(
             layout=layout, super_nnbr=caps[0], fep_max_nbr=caps[1]))
-        nlist, _, prep, _ = runner.lists(state)
+        return runner.lists(state)[:3:2]
+    vir_ref = nb_cluster.cluster_forces(state.x, box, *lists("table"),
+                                        consts, True, True)[3].double()
+    for layout in K7_LAYOUTS:
+        nlist, prep = lists(layout)
         planes = nb_cluster.gather_planes(state.x, box, nlist, prep)
         _edge_cases(f"{state.x.shape[0]:,}-atom main-path frame", planes,
-                    box, prep, consts, nlist.n_clusters)
+                    box, prep, consts, nlist.n_clusters, ("F", "VF"))
         if layout == "super":
             _lone_union_entry(planes, box, prep, consts, nlist.n_clusters)
+        vir = nb_cluster.cluster_forces(state.x, box, nlist, prep, consts,
+                                        True, True)[3].double()
+        v_rel, _ = _rel(vir, vir_ref)
+        _say(f"{layout} virial against the table route's on the main-path "
+             f"frame: {[round(float(v), 3) for v in vir]} against "
+             f"{[round(float(v), 3) for v in vir_ref]} kJ/mol, rel "
+             f"{v_rel:.2e} -> {'ok' if v_rel <= E_REL else 'FAIL'}")
+        if not v_rel <= E_REL:
+            raise AssertionError(f"the {layout} virial disagrees with the "
+                                 "table route's")
 
     n_side, rlist = 8, 0.55
     small, sst = solvation_system(n_side=n_side, seed=0,
@@ -2925,6 +3066,28 @@ def phase_k7_edges(system, params, state, caps):
                          nb_cluster.gather_planes(sst.x, sst.box, sl, sprep),
                          sst.box, sprep, sconsts)
     _say(f"K7 edge phase took {time.perf_counter() - t0:.1f} s")
+
+    npt = params.replace(pcoupl=PcouplType.C_RESCALE, tau_p=1.0,
+                         compressibility=4.5e-5, nstpcouple=10)
+    counts_vfv = {}
+    for layout in K7_LAYOUTS:
+        runner = MdRunner(system, npt, RunnerConfig(
+            layout=layout, super_nnbr=caps[0], fep_max_nbr=caps[1], seed=4))
+        st, lg, sec, counts = _drive(runner, state.replace(step=0),
+                                     K7_NPT_STEPS, f"layout {layout} NPT")
+        p_on = lg.pres[torch.isfinite(lg.pres)]
+        key = f"nb_{layout}_VFV"
+        _say(f"layout {layout} C-rescale: {K7_NPT_STEPS} steps, "
+             f"{sec / K7_NPT_STEPS * 1e3:.3f} ms/step, {key} "
+             f"{counts[key]}, P {[round(float(v), 1) for v in p_on]} bar, "
+             f"box {float(st.box[0, 0]):.6f} nm (from "
+             f"{float(state.box[0, 0]):.6f})")
+        if p_on.numel() != K7_NPT_STEPS // npt.nstpcouple \
+                or counts[key] != p_on.numel():
+            raise AssertionError(f"layout {layout} C-rescale: pressure not "
+                                 "finite on exactly its pressure steps")
+        counts_vfv[key] = counts[key]
+    return counts_vfv
 
 
 def _dd_mesh(spread=False):
@@ -3878,10 +4041,11 @@ def run(device="cuda", smi=None):
 
     caps = (prod.config.super_nnbr, prod.config.fep_max_nbr)
     layout_counts = phase_layouts(system, params, state, caps)
+    done("K7 layouts")
+    # the VF+virial launches come from the K7 C-rescale steps
+    layout_counts.update(phase_k7_edges(system, params, state, caps))
     for r in cluster_rows:
         r["launches"] = layout_counts.get(r["name"], 0)
-    done("K7 layouts")
-    phase_k7_edges(system, params, state, caps)
     done("K7 edge cases")
     dd_rows = phase_dd(system, params, state, caps, timer, smi, ms_step)
     done("main path under DD")
@@ -3899,7 +4063,7 @@ def run(device="cuda", smi=None):
 
     window_rows, window_counts, npt_start = phase_window(device, timer, smi)
     done("lambda windows")
-    npt_rows, npt_counts = phase_npt(timer, smi, *npt_start)
+    npt_rows, npt_counts, pr_counts = phase_npt(timer, smi, *npt_start)
     done("NPT windows")
     phase_cli(device, smi, ms_step)
     done("the CLI (phase 16)")
@@ -3909,6 +4073,7 @@ def run(device="cuda", smi=None):
         if r["name"].startswith("nb_v2u"):    # K1 runs on every path
             r["launches_window"] = window_counts[r["name"]]
             r["launches_npt"] = npt_counts[r["name"]]
+            r["launches_pr"] = pr_counts[r["name"]]
     rows += (cluster_rows + table_rows + dd_rows + big_rows + window_rows
              + npt_rows)
     for r in rows:

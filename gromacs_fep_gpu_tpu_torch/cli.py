@@ -36,6 +36,7 @@ reader raises on their integrators).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import signal
 import sys
@@ -127,7 +128,8 @@ def _load_tpz(path, device):
 
 def _restore(args, state, runner, params, device):
     """State from -cpi: the GROMACS-format checkpoint (x, v, box, step,
-    lambda, fep_state, the v-rescale integral) or the port's own (every
+    lambda, fep_state, the v-rescale integral, the Parrinello-Rahman box
+    velocity) or the port's own (every
     field and the generator of the v-rescale and sd draws).  When the run
     input names another lambda state than the checkpoint (a new window
     started from an equilibrated frame), the run input's lambda vector and
@@ -153,9 +155,13 @@ def _restore(args, state, runner, params, device):
         if cp.get("fep_state") is not None:
             upd["fep_state"] = int(cp.state["fep_state"][0])
         if cp.get("therm_integral") is not None:
-            upd["coupling"] = type(state.coupling)(
-                therm_integral=t(cp.state["therm_integral"][0]),
-                ekinh_prev=state.coupling.ekinh_prev)
+            upd["coupling"] = dataclasses.replace(
+                state.coupling,
+                therm_integral=t(cp.state["therm_integral"][0]))
+        if cp.get("boxv") is not None:
+            upd["coupling"] = dataclasses.replace(
+                upd.get("coupling", state.coupling),
+                boxv=t(np.asarray(cp.state["boxv"]).reshape(3, 3)))
         state = state.replace(**upd)
         print(f"restarted from GROMACS checkpoint {args.cpi} "
               f"(written by {cp.version_string}, step {cp.step})")
@@ -310,7 +316,7 @@ def cmd_mdrun(args):
         t=float(state.step) * params.dt,
         therm_integral=(float(state.coupling.therm_integral)
                         if params.tcoupl == TcouplType.V_RESCALE else None),
-        boxv=(np.zeros((3, 3), np.float32)
+        boxv=(state.coupling.boxv.cpu().numpy()
               if params.pcoupl != PcouplType.NO else None),
         # GROMACS's IntegrationAlgorithm: md 0, sd (SD1) 9
         integrator=9 if params.integrator == IntegratorType.SD else 0)

@@ -6,7 +6,7 @@ make_state).
 The flax pytrees become plain dataclasses of tensors.  Only the fields the
 port's paths read are kept; settings outside them that MdParams does carry
 (the md-vv and bd integrators, thermostats other than v-rescale, the
-Parrinello-Rahman and MTTK barostats, non-isotropic pressure coupling, slow
+MTTK barostat, anisotropic and surface-tension pressure coupling, slow
 growth) raise NotImplementedError where they are consumed.
 
 `from_numpy` is the parameter bridge: it builds the port's System and State
@@ -122,12 +122,15 @@ class MdParams:
     tau_t: float = 1.0
     nsttcouple: int = 10
     pcoupl: PcouplType = PcouplType.NO
-    # isotropic only in the port; semiisotropic / anisotropic raise where
-    # the step consumes them
+    # isotropic | semiisotropic (x and y jointly, z on its own);
+    # anisotropic and surface-tension raise where the step consumes them
     pcoupltype: str = "isotropic"
     ref_p: float = 1.0                 # bar
+    ref_p_z: Optional[float] = None    # semiisotropic z target; None: ref_p
     tau_p: float = 5.0                 # ps
     compressibility: float = 4.5e-5    # bar^-1
+    # semiisotropic z compressibility; None: compressibility
+    compressibility_z: Optional[float] = None
     nstpcouple: int = 10
     ld_seed: int = 1993                # seeds the thermostat's generator
     nstcomm: int = 100
@@ -232,9 +235,12 @@ class System:
 @dataclasses.dataclass
 class CouplingState:
     """v-rescale bookkeeping: therm_integral and ekinh_prev (-1 = not yet
-    initialized; first step uses the current KE twice)."""
+    initialized; first step uses the current KE twice); boxv: the (3, 3)
+    Parrinello-Rahman box velocity (nm/ps, diagonal in the port), zero at
+    the start."""
     therm_integral: torch.Tensor
     ekinh_prev: torch.Tensor
+    boxv: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -272,7 +278,8 @@ def make_state(x, v, box, lam=None, device="cuda", fep_state=0) -> State:
         box=t(box), lam=t(lam),
         coupling=CouplingState(
             therm_integral=torch.zeros((), device=dev),
-            ekinh_prev=torch.full((), -1.0, device=dev)),
+            ekinh_prev=torch.full((), -1.0, device=dev),
+            boxv=torch.zeros((3, 3), device=dev)),
         step=0, fep_state=int(fep_state))
 
 

@@ -27,10 +27,15 @@
 //   pair is valid for i atom a; bit 8 + a: it is not excluded) in place of
 //   the pv, self-pair and exclusion-id tests.
 // K7a/b/c are geometric-LJ, potential-shift kernels in F and VF, as the TPU
-// kernels are.  The full list holds each pair twice, so only i forces are
-// written (no atomics); the energy partials (one row per i-cluster) are
-// halved and the virial partials scaled by -1/4 on the host, summed there
-// in float64.
+// kernels are, and in VF+virial, which the TPU kernels lack (the JAX
+// package takes an autograd pressure on those layouts): the virial adds
+// fscal d_a^2 of exactly the pairs whose force it adds, fscal being zero
+// outside the in_v/in_c masks, so K7a's union entries out of an i-cluster's
+// cut-off add nothing and K7c's d is the baked-shift vector.  The full list
+// holds each pair twice, so only i forces are written (no atomics); the
+// energy partials (one row per i-cluster) are halved and the virial
+// partials scaled by -1/4 on the host, summed there in float64, each pair
+// counted as the table route counts it.
 //
 // What bounds it.  The operations: at 12,290 atoms the lists hold 0.27 M
 // (K7b/c, rc 0.9) to 0.46 M (the CHARMM path, rlist ~1.3 nm) live entries
@@ -123,7 +128,7 @@
 //
 // Instantiations, each with the physics fixed at compile time: the table
 // route's 3 flavours x 2 LJ modes x 3 Coulomb types x 4 vdW modifiers = 72,
-// and K7a/b/c's 3 layouts x 2 flavours x 3 Coulomb types = 18.
+// and K7a/b/c's 3 layouts x 3 flavours x 3 Coulomb types = 27.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -626,7 +631,8 @@ nb_table_kernel(const TableArgs a) {
 
 using TableKernel = void (*)(const TableArgs);
 
-// K7a/b/c: potential shift only, no LJ table, F and VF (18 kernels)
+// K7a/b/c: potential shift only, no LJ table, F, VF and VF+virial (27
+// kernels)
 template <int kLayout, int kFlav, bool kTableLj, int kCoul>
 TableKernel pick_modifier(int modifier) {
   if constexpr (kLayout != kTable) {
@@ -675,11 +681,7 @@ TableKernel pick_flavour(int flavour, int lj_table, int coul, int modifier) {
   switch (flavour) {
     case kF: return pick_lj<kLayout, kF>(lj_table, coul, modifier);
     case kVF: return pick_lj<kLayout, kVF>(lj_table, coul, modifier);
-    case kVFV:
-      if constexpr (kLayout != kTable)
-        return nullptr;
-      else
-        return pick_lj<kLayout, kVFV>(lj_table, coul, modifier);
+    case kVFV: return pick_lj<kLayout, kVFV>(lj_table, coul, modifier);
     default: return nullptr;
   }
 }
@@ -711,7 +713,7 @@ bool aligned16(const void* p) {
 // outputs fx/fy/fz (n_icl * 8), e (n_icl, 2 or 5) count from i-cluster i0
 // of the planes (K7a/b/c: i0 0); K7c's shift (R, W, 4) and jmask (R, W, 8),
 // 16-byte aligned, else null; warps: warps per i-cluster (1-16); flavour
-// 0 F, 1 VF, 2 VF+virial (the table route's).
+// 0 F, 1 VF, 2 VF+virial (every layout).
 extern "C" int nb_table_launch(
     const float* x, const float* y, const float* z, const float* q,
     const float* pv, const float* s6, const float* s12, const int* types,

@@ -24,7 +24,9 @@ import torch
 from ..core.types import CouplingState, State
 
 FORMAT = "gromacs_fep_gpu_tpu_torch state"
-FORMAT_VERSION = 1
+# 2: CouplingState.boxv (the Parrinello-Rahman box velocity) joined; a
+# version-1 file lacks it and is refused
+FORMAT_VERSION = 2
 _INT_FIELDS = ("step", "fep_state")
 
 

@@ -15,6 +15,11 @@ the reader sets tcoupl = no with a warning, as grompp does (readir.cpp:
 sd handles temperature coupling itself), where the JAX reader keeps the
 tcoupl and its step then thermostats twice.
 
+pcoupl = berendsen | c-rescale | parrinello-rahman with pcoupltype =
+isotropic, and berendsen | parrinello-rahman with semiisotropic (ref-p and
+compressibility then take two values, xy and z); mttk, anisotropic,
+surface-tension and semiisotropic c-rescale raise.
+
 constraints = h-bonds | all-bonds make LINCS rows of the bonds (io/topio.py
 make_hbond_constraints) solved with lincs-order and lincs-iter; h-angles,
 all-angles and constraint-algorithm = shake raise, where the JAX reader
@@ -41,7 +46,9 @@ _VMOD = {"none": VdwModifier.NONE,
 _INTEG = {"md": IntegratorType.MD, "sd": IntegratorType.SD}
 _TC = {"no": TcouplType.NO, "v-rescale": TcouplType.V_RESCALE}
 _PC = {"no": PcouplType.NO, "berendsen": PcouplType.BERENDSEN,
-       "c-rescale": PcouplType.C_RESCALE}
+       "c-rescale": PcouplType.C_RESCALE,
+       "parrinello-rahman": PcouplType.PARRINELLO_RAHMAN}
+_PCT = ("isotropic", "semiisotropic")
 _SC = {"beutler": SoftcoreType.BEUTLER}
 
 _LAMBDA_KEYS = {
@@ -74,8 +81,8 @@ _UNSUPPORTED = (
     ("tcoupl", lambda v: _first(v) not in _TC, "ROADMAP item 5"),
     ("tc-grps", lambda v: len(v.split()) > 1,
      "ROADMAP item 5 (one coupling group)"),
-    ("pcoupl", lambda v: _first(v) not in _PC, "ROADMAP item 6"),
-    ("pcoupltype", lambda v: _first(v) != "isotropic", "ROADMAP item 6"),
+    ("pcoupl", lambda v: _first(v) not in _PC,
+     "ROADMAP item 5: GROMACS runs MTTK with md-vv"),
     ("constraints", lambda v: _first(v) not in ("none", "h-bonds",
                                                 "all-bonds", ""),
      "angle constraints; the JAX reader drops h-angles and all-angles "
@@ -168,6 +175,16 @@ def unsupported_options(kv: Dict[str, str]):
         if v is not None and v.strip() and rejects(v):
             raise NotImplementedError(
                 f"mdp: {key} = {v} is not ported yet ({lifted_by})")
+    pc = _first(_lookup(kv, "pcoupl") or "no")
+    pct = _first(_lookup(kv, "pcoupltype") or "isotropic")
+    if pc != "no" and pct not in _PCT:
+        raise NotImplementedError(
+            f"mdp: pcoupltype = {pct} is not ported yet (ROADMAP item 5: "
+            "its box turns triclinic)")
+    if pc == "c-rescale" and pct != "isotropic":
+        raise NotImplementedError(
+            f"mdp: pcoupltype = {pct} with pcoupl = c-rescale is not ported "
+            "yet (ROADMAP item 6; the JAX step runs it as isotropic)")
 
 
 def _lambda_vector(kv: Dict[str, str]):
@@ -232,6 +249,13 @@ def mdp_extras(text: str) -> Dict[str, object]:
         "gen_temp": float(kv.get("gen-temp", "300")),
         "gen_seed": int(kv.get("gen-seed", "-1")),
     }
+
+
+def _pair(kv: Dict[str, str], key: str, default: str):
+    """(first, last or None) of a key that semiisotropic coupling gives
+    two values (xy, z): ref-p, compressibility."""
+    vals = [float(t) for t in kv.get(key, default).split()]
+    return vals[0], (vals[-1] if len(vals) > 1 else None)
 
 
 def mdp_to_params(text: str) -> Tuple[MdParams, Optional[np.ndarray]]:
@@ -308,9 +332,11 @@ def mdp_to_params(text: str) -> Tuple[MdParams, Optional[np.ndarray]]:
         nsttcouple=get("nsttcouple", 10, int),
         pcoupl=gete("pcoupl", _PC, PcouplType.NO),
         pcoupltype=kv.get("pcoupltype", "isotropic").lower(),
-        ref_p=float(kv.get("ref-p", "1.0").split()[0]),
+        ref_p=_pair(kv, "ref-p", "1.0")[0],
+        ref_p_z=_pair(kv, "ref-p", "1.0")[1],
         tau_p=get("tau-p", 5.0),
-        compressibility=float(kv.get("compressibility", "4.5e-5").split()[0]),
+        compressibility=_pair(kv, "compressibility", "4.5e-5")[0],
+        compressibility_z=_pair(kv, "compressibility", "4.5e-5")[1],
         nstpcouple=get("nstpcouple", 10, int),
         ld_seed=get("ld-seed", 1993, int),
         nstcomm=get("nstcomm", 100, int),

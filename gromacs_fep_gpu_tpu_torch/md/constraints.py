@@ -13,6 +13,15 @@ lengths the accumulated multipliers give the constraint dH/dlambda.  Both
 are stock PyTorch, as the JAX package leaves them to XLA.  JAX's
 _cluster_shake (direct M-SHAKE on small clusters) has no caller there and
 is not ported.
+
+The constraint virial (with_virial=True) is taken over the constraint
+pairs: each SETTLE bond and LINCS row pulls its two atoms with equal and
+opposite forces along its direction at x0, so Xi_aa = -1/2 sum_i x_i,a
+f_i,a = -1/2 sum over the pairs of r_a F_a with r the pair's pbc_dx
+vector at the constrained positions.  It is the same for a molecule whose
+atoms lie in different periodic images as for the molecule made whole, and
+it reads no difference of ~1 nm positions.  The functions return it times
+dt^2 (they do not know dt): the caller divides.
 """
 from __future__ import annotations
 
@@ -46,14 +55,19 @@ def _solve3x3(a, b):
 
 
 def settle_positions(x0, x1, box, settle: SettleGroups, invmass,
-                     n_iter: int = 5):
+                     n_iter: int = 5, with_virial: bool = False):
     """Constrain updated positions x1 so each water keeps its geometry.
 
     x0: positions before the update (on the constraint manifold); x1:
     unconstrained update.  Newton on the multipliers of
-    c_k = |r'_k|^2 - d_k^2 with x' = x1 - sum_k l_k invm grad c_k(x0)."""
+    c_k = |r'_k|^2 - d_k^2 with x' = x1 - sum_k l_k invm grad c_k(x0).
+
+    with_virial=True also returns the (3,) diagonal constraint virial
+    times dt^2: bond k moves its atoms by -+2 l_k invm a_k (a_k its vector
+    at x0), so Xi_aa dt^2 = sum_k l_k r_k,a a_k,a with r_k the bond's
+    vector after the solve."""
     if settle.atoms.shape[0] == 0:
-        return x1
+        return (x1, x1.new_zeros(3)) if with_virial else x1
     o, h1, h2 = settle.atoms[:, 0], settle.atoms[:, 1], settle.atoms[:, 2]
     mask = settle.mask
     w_o = invmass[o] * mask
@@ -108,13 +122,20 @@ def settle_positions(x0, x1, box, settle: SettleGroups, invmass,
                         for d in range(3)], -1)
     # each atom belongs to at most one water: an index_add is a scatter of
     # disjoint rows
-    return x1.index_add(0, torch.cat([o, h1, h2]),
-                        torch.cat([d_o, d_h1, d_h2]))
+    xc = x1.index_add(0, torch.cat([o, h1, h2]),
+                      torch.cat([d_o, d_h1, d_h2]))
+    if not with_virial:
+        return xc
+    r1, r2, r3 = bond_vectors(l1, l2, l3)
+    vir = torch.stack([torch.sum((l1 * r1[d] * a1[d] + l2 * r2[d] * a2[d]
+                                  + l3 * r3[d] * a3[d]) * mask)
+                       for d in range(3)])
+    return xc, vir
 
 
 def lincs_positions(x0, x1, box, lincs: LincsConstraints, invmass,
                     lam_bonded=None, order: int = 4, n_rounds: int = 2,
-                    with_dhdl: bool = False):
+                    with_dhdl: bool = False, with_virial: bool = False):
     """Matrix-free LINCS (reference: mdlib/lincs.cpp:1023 do_lincs).
 
     x' = x1 - invm B^T S (I + A + A^2 + ...) S (B x1 - d) with
@@ -124,10 +145,14 @@ def lincs_positions(x0, x1, box, lincs: LincsConstraints, invmass,
 
     with_dhdl=True also returns dH/dlambda * dt^2 from the accumulated
     multipliers, -sum_b mlambda_b (lenB_b - lenA_b) (lincs.cpp:1257; the
-    caller divides by dt^2, constr.cpp:2678)."""
+    caller divides by dt^2, constr.cpp:2678).  with_virial=True also
+    returns (last) the (3,) diagonal constraint virial times dt^2: row b
+    moves its atoms by -+invm mlambda_b u_b, so Xi_aa dt^2 = 1/2 sum_b
+    mlambda_b r_b,a u_b,a with r_b the row's vector after the solve."""
     nc = lincs.atoms.shape[0]
     if nc == 0:
-        return (x1, x1.new_zeros(())) if with_dhdl else x1
+        return _lincs_out(x1, x1.new_zeros(()) if with_dhdl else None,
+                          x1.new_zeros(3) if with_virial else None)
     ai, aj = lincs.atoms[:, 0], lincs.atoms[:, 1]
     lam = 0.0 if lam_bonded is None else lam_bonded
     d = (1.0 - lam) * lincs.length_a + lam * lincs.length_b
@@ -167,21 +192,39 @@ def lincs_positions(x0, x1, box, lincs: LincsConstraints, invmass,
         # p = sqrt(2 d^2 - len^2), the reference's correction step
         p = torch.sqrt(torch.clamp(2.0 * d * d - len2, min=0.0))
         xp, mlam = project(xp, sdiag * (d - p) * mask, mlam)
+    dhdl = vir = None
     if with_dhdl:
-        return xp, -torch.sum(mlam * (lincs.length_b - lincs.length_a)
-                              * mask)
-    return xp
+        dhdl = -torch.sum(mlam * (lincs.length_b - lincs.length_a) * mask)
+    if with_virial:
+        rf = pbc_mod.pbc_dx(xp[ai] - xp[aj], box)
+        vir = 0.5 * torch.sum((mlam * mask)[:, None] * rf * u, 0)
+    return _lincs_out(xp, dhdl, vir)
+
+
+def _lincs_out(xp, dhdl, vir):
+    """xp, followed by whichever of dhdl and vir was asked for."""
+    extra = tuple(v for v in (dhdl, vir) if v is not None)
+    return (xp,) + extra if extra else xp
 
 
 def constrain(x0, x1, box, system, invmass, lam_bonded=None,
-              order: int = 4, n_rounds: int = 2, with_dhdl: bool = False):
+              order: int = 4, n_rounds: int = 2, with_dhdl: bool = False,
+              with_virial: bool = False):
     """Every holonomic constraint of `system` on the updated positions x1:
     SETTLE, then LINCS.  with_dhdl=True also returns dH/dlambda * dt^2 of
-    the perturbed constraint lengths (SETTLE waters are never
-    perturbed)."""
-    xc = settle_positions(x0, x1, box, system.settle, invmass)
-    return lincs_positions(x0, xc, box, system.lincs, invmass, lam_bonded,
-                           order, n_rounds, with_dhdl)
+    the perturbed constraint lengths (SETTLE waters are never perturbed);
+    with_virial=True also returns (last) the (3,) diagonal constraint
+    virial of both times dt^2, over the constraint pairs (independent of
+    the periodic images the atoms lie in)."""
+    if not with_virial:
+        xc = settle_positions(x0, x1, box, system.settle, invmass)
+        return lincs_positions(x0, xc, box, system.lincs, invmass,
+                               lam_bonded, order, n_rounds, with_dhdl)
+    xc, vir_s = settle_positions(x0, x1, box, system.settle, invmass,
+                                 with_virial=True)
+    out = lincs_positions(x0, xc, box, system.lincs, invmass, lam_bonded,
+                          order, n_rounds, with_dhdl, with_virial=True)
+    return out[:-1] + (out[-1] + vir_s,)
 
 
 def n_constraints(system) -> int:

@@ -1,6 +1,7 @@
-"""Stochastic velocity rescaling and the isotropic barostats — PyTorch
-counterpart of gromacs_fep_gpu_tpu/md/coupling.py (vrescale_lambda,
-virial_pressure, berendsen_pscale, crescale_pscale).
+"""Stochastic velocity rescaling and the barostats — PyTorch counterpart
+of gromacs_fep_gpu_tpu/md/coupling.py (vrescale_lambda, virial_pressure,
+berendsen_pscale, crescale_pscale, parrinello_rahman_step) and of the
+semiisotropic Berendsen branch of its md/simulator.py.
 
 The JAX functions draw their random numbers from a jax PRNG key inside.
 Here the arithmetic takes the draws as arguments (`vrescale_scale`, the
@@ -11,6 +12,17 @@ device.
 C-rescale follows the reference (coupling.cpp crescale_pscale) where the
 JAX function does not: its noise amplitude uses the reference temperature
 ref_t, not the instantaneous one.
+
+Parrinello-Rahman follows the reference (coupling.cpp
+parrinellorahman_pcoupl) where the JAX function does not: the inverse
+barostat mass W^-1 = 4 pi^2 kappa / (3 tau_p^2 L_max) takes no PRESFAC
+(kappa P is dimensionless in bar^-1 bar; the reference notes that the
+pressure unit drops out), so the box oscillates with period tau_p; the JAX
+function divides by PRESFAC, a 16.6 times heavier barostat whose period
+is ~4 tau_p.  parrinello_rahman_step is the JAX function's diagonal
+arithmetic without that PRESFAC; pr_boxv_step is the per-coupling-type
+update the step runs (isotropic: equal relative box accelerations from
+the whole pressure tensor; semiisotropic: x and y jointly, z on its own).
 """
 from __future__ import annotations
 
@@ -87,3 +99,77 @@ def crescale_pscale(p_cur, ref_p, dt_coupl, tau_p, compressibility,
                  2.0 * kt * compressibility * dt_coupl * PRESFAC
                  / (volume * tau_p))) * xi)
     return torch.clamp(torch.exp(dln_v / 3.0), 0.98, 1.02)
+
+
+def berendsen_pscale_semiiso(p_diag, ref_p, ref_p_z, dt_coupl, tau_p,
+                             compressibility, compressibility_z):
+    """Semiisotropic Berendsen scale factors (mu_x, mu_y, mu_z): x and y
+    jointly from (P_xx + P_yy) / 2 against ref_p and compressibility, z
+    from P_zz against ref_p_z and compressibility_z (None: the xy values),
+    each as berendsen_pscale (reference: coupling.cpp berendsen_pcoupl,
+    epctSEMIISOTROPIC; the JAX step's semiisotropic branch)."""
+    mu_xy = berendsen_pscale(0.5 * (p_diag[0] + p_diag[1]), ref_p,
+                             dt_coupl, tau_p, compressibility)
+    mu_z = berendsen_pscale(
+        p_diag[2], ref_p if ref_p_z is None else ref_p_z, dt_coupl, tau_p,
+        compressibility if compressibility_z is None else compressibility_z)
+    return torch.stack([mu_xy, mu_xy, mu_z])
+
+
+def parrinello_rahman_step(boxv, box, p_tensor, ref_p, dt, tau_p,
+                           compressibility, volume):
+    """Parrinello-Rahman box velocity update on a diagonal box, the JAX
+    function's arithmetic (coupling.py parrinello_rahman_step) without its
+    PRESFAC: boxv' = diag(boxv + dt V W^-1 / L_max (P - ref_p I)) with W^-1
+    = 4 pi^2 kappa / (3 tau_p^2 L_max).  Equal to the JAX function called
+    with compressibility * PRESFAC."""
+    maxl = torch.max(torch.diagonal(box))
+    winv = (4.0 * math.pi ** 2 * compressibility) / (3.0 * tau_p ** 2
+                                                     * maxl)
+    eye = torch.eye(3, dtype=box.dtype, device=box.device)
+    boxv_new = boxv + dt * volume * winv / maxl * (p_tensor - ref_p * eye)
+    return torch.diag(torch.diagonal(boxv_new))
+
+
+def pr_boxv_step(boxv, box, p_diag, ref_p, ref_p_z, dt, tau_p,
+                 compressibility, compressibility_z, volume,
+                 pcoupltype: str):
+    """The (3, 3) diagonal box velocity after one Parrinello-Rahman
+    coupling step of length dt (reference: coupling.cpp
+    parrinellorahman_pcoupl on a rectangular box).  With t_a = (P_aa -
+    ref_aa) / b_a and W_a^-1 = 4 pi^2 kappa_a / (3 tau_p^2 L_max):
+    - isotropic: every axis the same relative acceleration from the whole
+      tensor, d boxv_a = dt W^-1 V b_a (sum_c t_c / b_c) / 3;
+    - semiisotropic: x and y the same relative acceleration,
+      d boxv_a = dt W_xy^-1 V b_a (t_x / b_x + t_y / b_y) / 2, and z its
+      own, d boxv_z = dt W_z^-1 V t_z, with ref_p_z and compressibility_z
+      (None: the xy values).
+    On a cubic box the isotropic step is parrinello_rahman_step fed the
+    scalar pressure times I."""
+    b = torch.diagonal(box)
+    maxl = torch.max(b)
+    ref_z = ref_p if ref_p_z is None else ref_p_z
+    t = torch.stack([p_diag[0] - ref_p, p_diag[1] - ref_p,
+                     p_diag[2] - ref_z]) / b
+    scale = (4.0 * math.pi ** 2) / (3.0 * tau_p ** 2 * maxl) * volume
+    if pcoupltype == "isotropic":
+        acc = scale * compressibility * b * torch.sum(t / b) / 3.0
+    elif pcoupltype == "semiisotropic":
+        kz = compressibility if compressibility_z is None \
+            else compressibility_z
+        arel = 0.5 * (t[0] / b[0] + t[1] / b[1])
+        acc = torch.stack([scale * compressibility * arel * b[0],
+                           scale * compressibility * arel * b[1],
+                           scale * kz * t[2]])
+    else:
+        raise NotImplementedError(f"Parrinello-Rahman pcoupltype "
+                                  f"{pcoupltype}")
+    return torch.diag(torch.diagonal(boxv) + dt * acc)
+
+
+def pr_box_scale(box, boxv, dt):
+    """Per-axis scale of box and coordinates after a coupling step: the
+    box moved by dt boxv, relative to the box, clipped to [0.99, 1.01] as
+    in the JAX step."""
+    b = torch.diagonal(box)
+    return torch.clamp((b + dt * torch.diagonal(boxv)) / b, 0.99, 1.01)

@@ -75,8 +75,8 @@ class RunnerConfig:
     vdW modifier other than potential-shift, as the JAX runner drops
     use_pallas (ops/cluster_nb.py effective_layout); LJ-PME raises.
     MdRunner.layout is the layout the force runs on; the config keeps
-    the one asked for.  Pressure coupling runs on "v2u" and "table" (their kernels have a
-    virial flavour) and raises on the K7 layouts."""
+    the one asked for.  Pressure coupling runs on every layout (each
+    kernel has a virial flavour)."""
     layout: str = "v2u"
     super_nnbr: int = 384           # union-list capacity per i-block
     nnbr: int = 64                  # per-cluster list capacity
@@ -248,10 +248,11 @@ class MdRunner:
         MTS off-step (host-computable: every trigger is step % N == 0)."""
         p = self.params
         noener_active = not self.config.use_dense and p.nstcalcenergy > 1
-        # the virial flavour: K1 and the table route (JAX: the XLA kernel
-        # and the v2u Pallas kernel, runner.py:307-312)
-        vir_active = (p.pcoupl != PcouplType.NO
-                      and self.layout in ("v2u", "table"))
+        # the virial flavour: every layout's kernel has one (JAX: the XLA
+        # kernel and the v2u Pallas kernel, runner.py:307-312; its K7
+        # layouts take an autograd pressure); the dense route takes the
+        # strain gradient of its energy instead
+        vir_active = p.pcoupl != PcouplType.NO and self.layout is not None
         out = []
         for o in range(seg_len):
             s = start_step + o

@@ -3,7 +3,9 @@
 make_step_fn) for the leapfrog / leapfrog-Langevin (sd) / v-rescale /
 constraint (SETTLE + LINCS, with the perturbed lengths' dV/dlambda and
 Delta H term) / COM-removal / dhdl / foreign-lambda / MTS branches and
-isotropic Berendsen and C-rescale pressure coupling.
+pressure coupling: Berendsen (isotropic, semiisotropic), C-rescale
+(isotropic) and Parrinello-Rahman (isotropic, semiisotropic) on
+rectangular boxes.
 
 The force flavour of each step is chosen by the caller (the runner knows
 it on the host, as in the JAX runner's statically-flavoured segments):
@@ -25,7 +27,28 @@ from the reference: C-rescale scales the velocities by 1/mu
 (coupling.cpp crescale_pscale) and draws its noise at kT = BOLTZ ref_t,
 and the dispersion tail pressure is taken at the current lambda_vdw.  The
 pressure's kinetic term is 1/2 m v(t+dt/2)^2 after COM removal, as in the
-JAX step.
+JAX step.  The constraint virial is summed over the constraint pairs'
+pbc_dx vectors (md/constraints.py), so a molecule split over periodic
+images gives the pressure of the molecule made whole; the JAX step takes
+-1/2 sum x_c f_c over the raw positions, which changes with the images.
+
+Parrinello-Rahman (coupling.py pr_boxv_step) integrates the diagonal box
+velocity CouplingState.boxv on the pressure-coupling steps (step %
+nstpcouple == 0) with the time step nstpcouple dt, scales box and x per
+axis by (b + nstpcouple dt boxv) / b (clipped to [0.99, 1.01], as the JAX
+step) and applies the velocity term of its equations of motion, dv/dt =
+F/m - M v with M = b^-1 boxv (M_aa = boxv_aa / b_aa on the port's
+rectangular boxes), on the same steps with the same time step, to
+v(t+dt/2) after the constraints and the COM removal: v *= 1 - nstpcouple
+dt boxv_aa / b_aa, from the new box velocity and the box before its
+scaling.  v is the peculiar velocity (the box's flow is in the scaling of
+x), so this is C-rescale's 1/mu to first order, and an ideal gas keeps v
+L constant as it does under C-rescale.  GROMACS applies the term in the
+leapfrog of the step after its pressure step, with the same nstpcouple dt
+(update.cpp, doParrinelloRahman); the JAX step leaves it out.  The
+isotropic step drives the three edges with equal relative accelerations
+(the reference), where the JAX step integrates each edge from its own P_aa
+and lets a cubic box drift out of shape.
 """
 from __future__ import annotations
 
@@ -137,10 +160,11 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
     from the force pass's terms.vir_diag (flavours 'R' / 'S'), or, when
     energy_epot_fn(x, box, lam) is given (the dense oracle route), from
     make_pressure_fn's strain gradient of it at x(t); plus the constraint
-    virial and the dispersion tail.  Box and x are then scaled by mu
-    (and, with C-rescale, v by 1/mu).  The JAX dense route takes that
-    gradient at x(t+dt) on every step; here both routes read the virial
-    of x(t) on the pressure steps only.
+    virial and the dispersion tail.  Box and x are then scaled by mu, a
+    scalar or per axis (with C-rescale v by 1/mu, with Parrinello-Rahman
+    v by 1 - nstpcouple dt boxv_aa / b_aa).  The JAX dense route takes
+    that gradient at x(t+dt) on every step; here both routes read the
+    virial of x(t) on the pressure steps only.
 
     Constraint lengths with a B state (LINCS rows with lenB != lenA, under
     free-energy = yes) add their multipliers' dH/dlambda to dV/dlambda's
@@ -162,13 +186,20 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
     if params.tcoupl not in (TcouplType.NO, TcouplType.V_RESCALE):
         raise NotImplementedError(f"tcoupl {params.tcoupl.value} is not "
                                   "ported yet")
-    if params.pcoupl in (PcouplType.PARRINELLO_RAHMAN, PcouplType.MTTK):
-        raise NotImplementedError(f"pcoupl {params.pcoupl.value} is not "
-                                  "ported yet (Berendsen, C-rescale)")
+    if params.pcoupl == PcouplType.MTTK:
+        raise NotImplementedError("pcoupl mttk is not ported yet (ROADMAP "
+                                  "item 5: GROMACS runs MTTK with md-vv)")
     has_pcoupl = params.pcoupl != PcouplType.NO
-    if has_pcoupl and params.pcoupltype != "isotropic":
-        raise NotImplementedError(f"pcoupltype {params.pcoupltype} is not "
-                                  "ported yet (isotropic only)")
+    if has_pcoupl and params.pcoupltype not in ("isotropic",
+                                                "semiisotropic"):
+        raise NotImplementedError(
+            f"pcoupltype {params.pcoupltype} is not ported yet (ROADMAP "
+            "item 5: its box turns triclinic)")
+    semiiso = has_pcoupl and params.pcoupltype == "semiisotropic"
+    if semiiso and params.pcoupl == PcouplType.C_RESCALE:
+        raise NotImplementedError(
+            "pcoupl c-rescale with pcoupltype semiisotropic is not ported "
+            "yet (ROADMAP item 6; the JAX step treats it as isotropic)")
     if params.pcoupl == PcouplType.C_RESCALE and generator is None:
         raise ValueError("c-rescale needs a torch.Generator")
     if params.fep.delta_lambda != 0.0:
@@ -241,29 +272,28 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
         dvdl = terms.dvdl
         if has_constraints:
             lam_b = lam[FepCoupling.BONDED]
-            if has_pert_constr and do_ener:
-                x_c, dhdl_dt2 = constr_mod.constrain(
-                    state.x, x_new, state.box, system, invmass, lam_b,
-                    params.lincs_order, params.lincs_iter, with_dhdl=True)
-                dvdl_constr = dhdl_dt2 / (dt * dt)
+            with_dhdl = has_pert_constr and do_ener
+            out = constr_mod.constrain(
+                state.x, x_new, state.box, system, invmass, lam_b,
+                params.lincs_order, params.lincs_iter, with_dhdl=with_dhdl,
+                with_virial=do_p)
+            x_c = out if not (with_dhdl or do_p) else out[0]
+            if do_p:
+                # over the constraint pairs: the same for a molecule split
+                # over periodic images as for it made whole
+                constr_vir = out[-1] / (dt * dt)
+            if with_dhdl:
+                dvdl_constr = out[1] / (dt * dt)
                 dvdl = dvdl.clone()
                 dvdl[FepCoupling.BONDED] += dvdl_constr
                 if flavor in ("D", "S") and n_foreign > 0:
                     # constraints cannot be evaluated at foreign lambdas:
                     # the linear term, as the reference
                     delta_h = delta_h + (dlam_bonded - lam_b) * dvdl_constr
-            else:
-                x_c = constr_mod.constrain(
-                    state.x, x_new, state.box, system, invmass, lam_b,
-                    params.lincs_order, params.lincs_iter)
             v_new = v_new + (x_c - x_new) / dt
             if flavor != "F":
                 constr_rmsd = torch.sqrt(torch.mean(torch.sum(
                     (x_c - x_new) ** 2, -1)))
-            if do_p:
-                # constraint force m dx / dt^2; Xi_aa = -1/2 sum x_a f_c,a
-                f_c = mass[:, None] * (x_c - x_new) / (dt * dt)
-                constr_vir = -0.5 * torch.sum(x_c * f_c, 0)
             x_new = x_c
 
         ekin = integ_mod.kinetic_energy_halfstep_avg(state.v, v_new, mass)
@@ -278,16 +308,33 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
         if do_p:
             vol = pbc_mod.box_volume(state.box)
             if pressure_fn is not None:
-                pres = pressure_fn(state.x, state.box, lam, v_new, mass,
-                                   constr_vir)[0]
+                pres, p_diag = pressure_fn(state.x, state.box, lam, v_new,
+                                           mass, constr_vir)[:2]
             else:
                 vir = terms.vir_diag
                 if constr_vir is not None:
                     vir = vir + constr_vir
-                pres = diag_pressure(vir, v_new, mass, state.box, lam,
-                                     p_tail_fn)[0]
+                pres, p_diag = diag_pressure(vir, v_new, mass, state.box,
+                                             lam, p_tail_fn)
             dt_p = params.nstpcouple * dt
-            if params.pcoupl == PcouplType.BERENDSEN:
+            if params.pcoupl == PcouplType.PARRINELLO_RAHMAN:
+                boxv = coupling_mod.pr_boxv_step(
+                    coupl.boxv, state.box, p_diag, params.ref_p,
+                    params.ref_p_z, dt_p, params.tau_p,
+                    params.compressibility, params.compressibility_z, vol,
+                    params.pcoupltype)
+                coupl = dataclasses.replace(coupl, boxv=boxv)
+                mu = coupling_mod.pr_box_scale(state.box, boxv, dt_p)
+                # the equations of motion's velocity term -M v, M_aa =
+                # boxv_aa / b_aa, over the coupling interval
+                v_new = v_new * (1.0 - dt_p * torch.diagonal(boxv)
+                                 / torch.diagonal(state.box))
+            elif semiiso:
+                mu = coupling_mod.berendsen_pscale_semiiso(
+                    p_diag, params.ref_p, params.ref_p_z, dt_p,
+                    params.tau_p, params.compressibility,
+                    params.compressibility_z)
+            elif params.pcoupl == PcouplType.BERENDSEN:
                 mu = coupling_mod.berendsen_pscale(
                     pres, params.ref_p, dt_p, params.tau_p,
                     params.compressibility)
@@ -298,6 +345,7 @@ def make_step_fn(system: System, params: MdParams, force_fn: Callable,
                     pres, params.ref_p, dt_p, params.tau_p,
                     params.compressibility, vol, params.ref_t, xi)
                 v_new = v_new / mu
+            # mu: a scalar, or (3,) per axis (the box's columns)
             box_new = state.box * mu
             x_new = x_new * mu
         log = StepLog(epot=terms.epot if do_ener else nan, ekin=ekin,

@@ -18,11 +18,11 @@ The dispersion correction (DispCorr = EnerPres) adds its energy and its
 dV/dlambda_vdw; its pressure is the step's (ops/dispcorr.py p_tail).
 
 need_virial=True (the pressure steps of an NPT run) fills terms.vir_diag
-with the diagonal potential virial from the same force pass: the K1 (or
-table-route) kernel's pair sums, the strain gradient of the cheap energy (taken in the
-same backward pass as its forces: the energy is evaluated at x s, box s
-with s = 1 + eps, eps = 0) and the reciprocal term's strain derivative on
-the force pass's grids.
+with the diagonal potential virial from the same force pass: the NB
+kernel's pair sums (any layout), the strain gradient of the cheap energy
+(taken in the same backward pass as its forces: the energy is evaluated
+at x s, box s with s = 1 + eps, eps = 0) and the reciprocal term's strain
+derivative on the force pass's grids.
 """
 from __future__ import annotations
 
@@ -127,8 +127,9 @@ def make_cluster_force_fn(system: System, params: MdParams,
 
     need_energy=False runs the force-only kernel flavour and skips the
     dV/dlambda backward pass.  need_virial=True (energies included) runs
-    the kernel's virial flavour (K1 or the table route; K7a/b/c have none
-    and raise) and fills terms.vir_diag.  recip_scale / skip_recip are
+    the kernel's virial flavour (every layout's; the JAX package has it
+    for K1 and its XLA kernel and takes an autograd pressure on its K7
+    layouts) and fills terms.vir_diag.  recip_scale / skip_recip are
     multiple time stepping of the PME reciprocal force: on-steps apply the
     recip force scaled by the MTS factor, off-steps skip it; energies, dvdl
     and the virial stay unscaled.
@@ -146,11 +147,6 @@ def make_cluster_force_fn(system: System, params: MdParams,
         raise NotImplementedError(
             "pressure coupling under domain decomposition is not ported "
             "(the JAX runner keeps its decomposed virial off under DD)")
-    if params.pcoupl != PcouplType.NO and layout not in ("v2u", "table"):
-        raise NotImplementedError(
-            f"pressure coupling on the {layout} layout: its kernel has no "
-            "virial flavour (the JAX package takes an autograd pressure "
-            "there); use layout v2u or table")
     disp_e_fn = (make_dispersion_correction(system, params)[0]
                  if params.dispcorr else None)
     has_pairs14 = system.pairs14 is not None and system.pairs14.n > 0
@@ -198,12 +194,6 @@ def make_cluster_force_fn(system: System, params: MdParams,
                                      compute_energy=need_energy,
                                      compute_virial=need_virial)
         else:
-            if need_virial and layout != "table":
-                raise NotImplementedError(
-                    f"the {layout} layout has no virial flavour (the JAX "
-                    "package takes an autograd pressure there): run "
-                    "pressure coupling on the v2u layout or the table "
-                    "route")
             if prep.layout != layout:
                 raise ValueError(f"a {prep.layout} pack on the {layout} "
                                  "force")

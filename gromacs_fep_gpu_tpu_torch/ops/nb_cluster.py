@@ -18,8 +18,14 @@ counter:
   ids, LJ from the (T, T, 2) table or per-atom sqrt(c6)/sqrt(c12), every
   vdW modifier, exact erfc, and the diagonal virial flavour.
 K7a/b/c are geometric-LJ, potential-shift kernels with the erfc
-polynomial (energy flavour) and the pmecorrF fit (force flavour), as the
-TPU kernels are; the table route is the XLA kernel's arithmetic.
+polynomial (energy flavours) and the pmecorrF fit (force flavour), as the
+TPU kernels are; the table route is the XLA kernel's arithmetic.  Every
+layout has the diagonal virial flavour (energies and sum fscal d_a^2 per
+i-cluster), which the TPU kernels of K7a/b/c lack: it is summed over the
+pairs that pass the same cut-off, validity and exclusion masks as the
+forces (for K7a's union rows, only the pairs of the i-cluster's own
+cut-off; for K7c, over the baked-shift vectors), so every pair of the
+cut-off is counted as often as the table route counts it, twice.
 
 Unlike the TPU kernels, which stream pre-gathered j data, the Hopper
 kernel (csrc/nb_cluster.cu nb_table_kernel, one body for every layout, the
@@ -69,9 +75,8 @@ _MOD_CODE = {VdwModifier.NONE: 0, VdwModifier.POTENTIAL_SHIFT: 1,
 # launches of the CUDA kernel, by layout and flavour (F = force only, VF =
 # energies, VFV = energies and virial); table_dd: the table route on a
 # domain's i-cluster range (PrepCluster.halo), one per domain launch
-launches = {"super": {"F": 0, "VF": 0}, "cluster": {"F": 0, "VF": 0},
-            "v2": {"F": 0, "VF": 0}, "table": {"F": 0, "VF": 0, "VFV": 0},
-            "table_dd": {"F": 0, "VF": 0, "VFV": 0}}
+launches = {layout: {"F": 0, "VF": 0, "VFV": 0}
+            for layout in LAYOUTS + ("table_dd",)}
 
 
 @dataclasses.dataclass
@@ -294,16 +299,21 @@ def _icluster_blocks(n_icl: int, block: int):
 
 
 def k7_plain(planes, box, prep: PrepCluster, consts: NbConstants,
-             compute_energy: bool, block: int = 64):
+             compute_energy: bool, compute_virial: bool = False,
+             block: int = 64):
     """Plain PyTorch version of K7a/b/c: (fx, fy, fz (n_icl * 8,), e
-    (n_icl, 2)) with e = per-i-cluster (coulomb, lj) sums over the full
-    list (not yet halved; zeros in the force flavour).  The TPU kernels'
+    (n_icl, ne)) with e = per-i-cluster (coulomb, lj[, vir_xx, vir_yy,
+    vir_zz]) sums over the full list (not yet halved or scaled; zeros in
+    the force flavour; ne = 5 in the virial flavour, which rides the energy
+    flavour: sum fscal d_a^2 over the pairs the forces take).  The TPU kernels'
     arithmetic: geometric LJ with potential shift; PME real space with the
     erfc polynomial (energies) or the pmecorrF fit (forces only);
     rectangular minimum image floor(d / L + 0.5) per pair (super,
     cluster) or build-time shifts (v2)."""
     if prep.layout not in ("super", "cluster", "v2"):
         raise ValueError(prep.layout)
+    if compute_virial and not compute_energy:
+        raise ValueError("the virial rides the energy flavour")
     xs, ys, zs = planes
     dev = xs.device
     c = consts
@@ -312,7 +322,8 @@ def k7_plain(planes, box, prep: PrepCluster, consts: NbConstants,
                          device=dev).reshape(1, CLUSTER, 1)
     fxyz = torch.zeros((3, prep.n_icl * CLUSTER), dtype=xs.dtype,
                        device=dev)
-    e = torch.zeros((prep.n_icl, 2), dtype=xs.dtype, device=dev)
+    e = torch.zeros((prep.n_icl, 5 if compute_virial else 2),
+                    dtype=xs.dtype, device=dev)
     for c0, B in _icluster_blocks(prep.n_icl, block):
         ci = torch.arange(c0, c0 + B, device=dev)
         row = ci // SB if prep.layout == "super" else ci
@@ -384,6 +395,9 @@ def k7_plain(planes, box, prep: PrepCluster, consts: NbConstants,
                 e_c = qq * inclb * (rinv - c.inv_rc) * in_c
             e[c0:c0 + B, 0] = torch.sum(e_c, dim=(1, 2))
             e[c0:c0 + B, 1] = torch.sum(e_lj, dim=(1, 2))
+        if compute_virial:
+            for a, da in enumerate((dx, dy, dz)):
+                e[c0:c0 + B, 2 + a] = torch.sum(fscal * da * da, dim=(1, 2))
     return fxyz[0], fxyz[1], fxyz[2], e
 
 
@@ -565,7 +579,7 @@ def table_plain(planes, box, prep: PrepCluster, consts: NbConstants,
                 compute_energy: bool, compute_virial: bool = False):
     """The table route's plain version on the kernel's inputs:
     cluster_nb_kernel_core over the pack's planes; same outputs as
-    k7_plain, with ne = 5 in the virial flavour."""
+    k7_plain."""
     f, e = cluster_nb_kernel_core(
         torch.stack(planes, dim=-1), prep.q, prep.pv, prep.excl, prep.nbr,
         box, consts, s6_pad=prep.s6, s12_pad=prep.s12, ts_pad=prep.types,
@@ -582,9 +596,8 @@ def nb_cluster_cuda(planes, box, prep: PrepCluster, consts: NbConstants,
     prep.i0 + n_icl); its ring copies 16-byte rows, so the planes (and
     K7c's shifts and masks) must be 16-byte aligned."""
     layout = prep.layout
-    if compute_virial and (layout != "table" or not compute_energy):
-        raise ValueError("the virial flavour is the table route's, with "
-                         "energies")
+    if compute_virial and not compute_energy:
+        raise ValueError("the virial rides the energy flavour")
     if layout != "table" and consts.modifier != VdwModifier.POTENTIAL_SHIFT:
         raise ValueError(f"the {layout} layout is a potential-shift kernel")
     f32, i32 = torch.float32, torch.int32
@@ -672,9 +685,8 @@ def nb_cluster_plain(planes, box, prep: PrepCluster, consts: NbConstants,
     if prep.layout == "table":
         return table_plain(planes, box, prep, consts, compute_energy,
                            compute_virial)
-    if compute_virial:
-        raise ValueError("the virial flavour is the table route's")
-    return k7_plain(planes, box, prep, consts, compute_energy)
+    return k7_plain(planes, box, prep, consts, compute_energy,
+                    compute_virial)
 
 
 def nb_cluster_forces(planes, box, prep: PrepCluster, consts: NbConstants,
@@ -691,9 +703,9 @@ def cluster_forces(x, box, nlist: ClusterPairlist, prep: PrepCluster,
                    compute_virial: bool = False):
     """(f_sorted (n_pad, 3), e_coul, e_lj) over the pack's list — the
     counterpart of pallas_cluster_forces{,_cl,_v2} and of the XLA
-    cluster_nb_kernel; with compute_virial (table route) also the (3,)
-    diagonal pair virial Xi_aa = -1/4 sum fscal d_a^2 (each pair counted
-    twice).  Per-i-cluster partials are summed in float64."""
+    cluster_nb_kernel; with compute_virial also the (3,) diagonal pair
+    virial Xi_aa = -1/4 sum fscal d_a^2 (each pair counted twice).
+    Per-i-cluster partials are summed in float64."""
     planes = gather_planes(x, box, nlist, prep)
     fx, fy, fz, e = nb_cluster_forces(planes, box, prep, consts,
                                       compute_energy, compute_virial)

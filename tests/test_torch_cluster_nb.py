@@ -201,6 +201,40 @@ def test_k7_plain_matches_jax(lists, geometric_reference, layout, energy,
         np.testing.assert_allclose(float(el_t), el_j, rtol=1e-5)
 
 
+@pytest.mark.parametrize("layout", ["super", "cluster", "v2"])
+def test_k7_plain_virial_matches_table_route(lists, layout):
+    """K7a/b/c's virial flavour (plain versions) against the table route's
+    on the same frame (PME, geometric LJ, potential shift): the diagonal
+    pair virial to 2e-5 of its largest component, forces and energies as
+    test_k7_plain_matches_jax.  K7a's union rows hold entries out of an
+    i-cluster's cut-off and K7c's pairs take the baked shifts; neither may
+    change which pairs the virial counts, nor how often."""
+    _, _, ts, tst, _, tl, _, tl8 = lists
+    nbfp = t(jsolv.solvation_system(n_side=3)[0].nbfp)
+    consts = NbConstants.from_params(
+        md_params(ttypes, coulomb="pme", **CUT), 5.0)
+    ref = nb_cluster.cluster_forces(
+        tst.x, tst.box, tl, nb_cluster.prepare_table(tl, nbfp, "geometric"),
+        consts, compute_energy=True, compute_virial=True)
+    nlist = tl8 if layout == "super" else tl
+    out = nb_cluster.cluster_forces(
+        tst.x, tst.box, nlist, nb_cluster.PREPARE[layout](nlist, nbfp),
+        consts, compute_energy=True, compute_virial=True)
+    v_ref = ref[3].numpy()
+    np.testing.assert_allclose(out[3].numpy(), v_ref, rtol=0,
+                               atol=2e-5 * np.abs(v_ref).max())
+    f_ref = ref[0][tl.inv_perm].numpy()
+    np.testing.assert_allclose(out[0][nlist.inv_perm].numpy(), f_ref,
+                               rtol=0, atol=2e-5 * np.abs(f_ref).max())
+    for k in (1, 2):
+        np.testing.assert_allclose(float(out[k]), float(ref[k]), rtol=1e-5)
+    with pytest.raises(ValueError, match="energy flavour"):
+        nb_cluster.cluster_forces(tst.x, tst.box, nlist,
+                                  nb_cluster.PREPARE[layout](nlist, nbfp),
+                                  consts, compute_energy=False,
+                                  compute_virial=True)
+
+
 def test_cuda_tensor_never_takes_plain_path(lists, monkeypatch):
     """A non-CPU tensor reaches the kernel wrapper (which builds and
     launches, or raises), never a plain version: a K7 pack and a table
@@ -217,8 +251,6 @@ def test_cuda_tensor_never_takes_plain_path(lists, monkeypatch):
     for prep in (nb_cluster.prepare_cluster(tl, ts.nbfp),
                  nb_cluster.prepare_table(tl, ts.nbfp, "table")):
         for energy, virial in ((False, False), (True, False), (True, True)):
-            if virial and prep.layout != "table":
-                continue
             with pytest.raises(RuntimeError, match="cuda path"):
                 nb_cluster.nb_cluster_forces([fake] * 3, None, prep, None,
                                              energy, virial)
@@ -387,12 +419,10 @@ def test_layout_demotion_matches_jax_rule():
         assert runner.config.layout == layout
     npt = _port_params(pme_grid=grid, rcoulomb=0.5, rvdw=0.5, rlist=0.5,
                        pcoupl="c-rescale")
-    for layout in ("super", "cluster", "v2"):
-        with pytest.raises(NotImplementedError):
-            MdRunner(ts, npt, RunnerConfig(layout=layout))
-    # the table route and v2u carry the virial flavour: 'R' steps
-    for layout in ("v2u", "table"):
+    # every layout's kernel carries the virial flavour: 'R' steps
+    for layout in ("v2u", "super", "cluster", "v2", "table"):
         runner = MdRunner(ts, npt, RunnerConfig(layout=layout))
+        assert runner.layout == layout
         assert runner._flavor_pattern(0, 10).count("R") == 1
 
 

@@ -15,8 +15,10 @@ dV/dlambda (the constraint term in the bonded column) and the Delta H
 columns 1e-5 of the largest energy term (the soft-core sums of ~1e4
 pair terms round in another order), the bonded column on the first two
 steps 1e-5 of its own largest value; one C-rescale step's pressure with the
-constraint virial 1e-4 of 2/V max |Xi_aa| PRESFAC (the constraint virial
-is built from x_c - x_new, a float32 difference of ~1 nm positions);
+constraint virial 1e-4 of 2/V max |Xi_aa| PRESFAC against JAX's step in
+float64 (JAX's constraint virial is built from x_c - x_new, a float32
+difference of ~1 nm positions, which moves its own float32 pressure past
+that gate);
 System arrays and the Verlet-buffer rlist exactly; the DD runner against
 the single-domain one x 2e-3 nm (tests/test_torch_dd.py's gate) and the
 constraint rmsd rel 1e-2, the LINCS lengths rel 1e-4; the CLI window
@@ -305,20 +307,32 @@ def test_crescale_pressure_with_lincs_virial_matches_jax():
     ethanol with all-bonds: the dense forces with a fixed potential
     virial, so the pressure's difference from that virial's is the kinetic
     and the constraint virial (SETTLE + LINCS) of each step; the port's
-    against JAX's pressure_from_terms."""
+    (float32) against JAX's pressure_from_terms in float64.  On whole
+    molecules JAX's constraint virial over raw positions equals the port's
+    over the constraint pairs; in float32 JAX's x_c - x_new rounding moves
+    its pressure by 0.245 bar from its float64 value here (above the
+    gate), the port's by 0.111 bar."""
     js, jst = _jax_system("all-bonds", True)
     kw = dict(dt=0.002, coulomb="reaction-field", rcoulomb=0.6, rvdw=0.6,
               rlist=0.6, nstcomm=1, pcoupl="c-rescale", tau_p=1.0,
               nstpcouple=1)
     jp, tp = md_params(jtypes, **kw), md_params(ttypes, **kw)
     vir = np.array([150.0, -40.0, 90.0], np.float32)
-    jforce = j_dense(js, jp)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        jforce = j_dense(js, jp)
+        f64 = {k: getattr(jst, k).astype(jnp.float64)
+               for k in ("x", "v", "box", "lam")}
 
-    def jfvir(x, box, lam):
-        f, terms = jforce(x, box, lam)
-        return f, terms.replace(vir_diag=jnp.asarray(vir))
-    _, jlog = jax.jit(j_step_fn(js, jp, jforce, compute_pressure=True,
-                                force_vir_fn=jfvir, static_flavor="R"))(jst)
+        def jfvir(x, box, lam):
+            f, terms = jforce(x, box, lam)
+            return f, terms.replace(vir_diag=jnp.asarray(vir, jnp.float64))
+        _, jlog = jax.jit(j_step_fn(js, jp, jforce, compute_pressure=True,
+                                    force_vir_fn=jfvir,
+                                    static_flavor="R"))(jst.replace(**f64))
+        assert jlog.pres.dtype == jnp.float64
+    finally:
+        jax.config.update("jax_enable_x64", False)
     ts, tst = to_port(js, jst)
     dense = t_dense(ts, tp)
 

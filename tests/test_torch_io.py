@@ -266,7 +266,9 @@ UNSUPPORTED = [
     ("integrator = tpi", "integrator"),
     ("tcoupl = berendsen", "tcoupl"), ("tcoupl = nose-hoover", "tcoupl"),
     ("tcoupl = andersen-massive", "tcoupl"),
-    ("pcoupl = parrinello-rahman", "pcoupl"), ("pcoupl = mttk", "pcoupl"),
+    ("pcoupl = parrinello-rahman\npcoupltype = anisotropic", "pcoupltype"),
+    ("pcoupl = berendsen\npcoupltype = surface-tension", "pcoupltype"),
+    ("pcoupl = mttk", "pcoupl"),
     ("pcoupl = c-rescale\npcoupltype = semiisotropic", "pcoupltype"),
     # bond constraints run on LINCS only; angle constraints not at all
     ("constraint-algorithm = shake\nconstraints = h-bonds",

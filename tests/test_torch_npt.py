@@ -29,6 +29,9 @@ Tolerances:
   dt = 1 fs, some 10-30 bar summed over the box (the box, which
   integrates P, still agrees to 1e-5).
 """
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,6 +71,9 @@ from gromacs_fep_gpu_tpu_torch.parallel.ensemble import lambda_schedule
 
 from torch_bridge import (jax_cluster_list, jax_prepare_v2u, md_params,
                           port_cluster_list, t, to_port)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 LAM_HALF = np.array([0, 0, 0.5, 0.5, 0.5, 0, 0], np.float32)
 RLIST = 0.6
@@ -509,3 +515,310 @@ def test_berendsen_npt_matches_jax_runner():
         np.asarray(jlog.terms.vir_diag)[on]).max()
     np.testing.assert_allclose(p_t[on], p_j[on], rtol=0,
                                atol=4e-3 * vir_scale)
+
+
+# ---------------------------------------------------------------------------
+# Parrinello-Rahman, semiisotropic coupling and the constraint virial
+# ---------------------------------------------------------------------------
+
+def _pr_inputs(seed):
+    """A cubic box, a pressure tensor and a box velocity from a seed."""
+    rng = np.random.RandomState(seed)
+    box = np.eye(3, dtype=np.float32) * np.float32(rng.uniform(1.5, 3.0))
+    p = rng.normal(0.0, 400.0, (3, 3)).astype(np.float32)
+    boxv = np.diag(rng.normal(0.0, 1e-3, 3)).astype(np.float32)
+    vol = float(np.prod(np.diag(box)))
+    return box, p, boxv, vol
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_parrinello_rahman_step_matches_jax(seed):
+    """The port's parrinello_rahman_step against JAX's on seeded inputs,
+    rel 1e-6: the JAX function divides W^-1 by PRESFAC, which the reference
+    does not (coupling.cpp: the pressure unit drops out of kappa P), so it
+    is called with compressibility * PRESFAC.  pr_boxv_step on the cubic
+    box: isotropic is JAX's function fed the scalar pressure times I;
+    semiisotropic takes x and y from (P_xx + P_yy) / 2 and z from P_zz with
+    its own ref_p_z and compressibility_z."""
+    box, p, boxv, vol = _pr_inputs(seed)
+    kw = dict(dt=0.02, tau_p=2.0, volume=vol)
+    kappa, kappa_z, ref, ref_z = 4.5e-5, 3.0e-5, 1.0, 250.0
+
+    def jax_pr(p_t, ref_p, k):
+        return np.asarray(jcoupling.parrinello_rahman_step(
+            jnp.asarray(boxv), jnp.asarray(box), jnp.asarray(p_t), ref_p,
+            compressibility=k * PRESFAC, **kw))
+    got = tcoupling.parrinello_rahman_step(t(boxv), t(box), t(p), ref,
+                                           compressibility=kappa, **kw)
+    np.testing.assert_allclose(got.numpy(), jax_pr(p, ref, kappa),
+                               rtol=1e-6, atol=0)
+    pd = np.diag(p)
+    iso = tcoupling.pr_boxv_step(t(boxv), t(box), t(pd), ref, None,
+                                 kw["dt"], kw["tau_p"], kappa, None, vol,
+                                 "isotropic")
+    np.testing.assert_allclose(
+        iso.numpy(), jax_pr(np.eye(3) * pd.mean(), ref, kappa), rtol=1e-6)
+    semi = tcoupling.pr_boxv_step(t(boxv), t(box), t(pd), ref, ref_z,
+                                  kw["dt"], kw["tau_p"], kappa, kappa_z, vol,
+                                  "semiisotropic")
+    xy = jax_pr(np.eye(3) * 0.5 * (pd[0] + pd[1]), ref, kappa)
+    z = jax_pr(np.diag(pd), ref_z, kappa_z)
+    np.testing.assert_allclose(np.diag(semi.numpy()),
+                               [xy[0, 0], xy[1, 1], z[2, 2]], rtol=1e-6)
+    inc = np.diag(semi.numpy()) - np.diag(boxv)
+    np.testing.assert_allclose(inc[0], inc[1], rtol=1e-6)
+    assert semi[0, 1] == 0.0
+
+
+@pytest.mark.parametrize("p_xx,p_yy,p_zz", [(-350.0, 120.0, 820.0),
+                                            (40.0, 40.0, -600.0)])
+def test_semiiso_berendsen_pscale_matches_jax(p_xx, p_yy, p_zz):
+    """The semiisotropic Berendsen scale factors against JAX's branch
+    (berendsen_pscale of (P_xx + P_yy) / 2 and of P_zz with ref_p_z and
+    compressibility_z), rel 1e-6; z without them takes the xy values."""
+    dt_p, tau = 0.02, 1.0
+    p_diag = np.array([p_xx, p_yy, p_zz], np.float32)
+    for ref_z, k_z in ((250.0, 3.0e-5), (None, None)):
+        mu_xy = jcoupling.berendsen_pscale(
+            jnp.float32(0.5 * (p_xx + p_yy)), 1.0, dt_p, tau, 4.5e-5)
+        mu_z = jcoupling.berendsen_pscale(
+            jnp.float32(p_zz), 1.0 if ref_z is None else ref_z, dt_p, tau,
+            4.5e-5 if k_z is None else k_z)
+        got = tcoupling.berendsen_pscale_semiiso(
+            t(p_diag), 1.0, ref_z, dt_p, tau, 4.5e-5, k_z)
+        np.testing.assert_allclose(
+            got.numpy(), [float(mu_xy), float(mu_xy), float(mu_z)],
+            rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def stub_box():
+    """The 86-atom solvation box of one_step at lambda = 1 and a stub force
+    (zero forces, an anisotropic fixed virial)."""
+    ts, tst = to_port(*solvation_system(n_side=3, spacing=0.4, seed=7,
+                                        temperature=400.0))
+    tst = tst.replace(lam=torch.tensor([0, 0, 1.0, 1.0, 1.0, 0, 0]))
+    vir = torch.tensor([150.0, -40.0, 90.0])
+
+    def force(x, box, lam, flavor):
+        return torch.zeros_like(x), ttypes.EnergyTerms.zeros(
+            x.device).replace(vir_diag=vir.to(x.dtype))
+    return ts, tst, force
+
+
+def test_isotropic_pr_step_on_cubic_box(stub_box):
+    """One isotropic Parrinello-Rahman step (nstpcouple 1) on the cubic box
+    equals JAX's parrinello_rahman_step fed P I (compressibility * PRESFAC,
+    see above) with the box and x scaled by 1 + dt boxv / L and v scaled by
+    1 - dt boxv / L, the equations of motion's M v term with M = b^-1 boxv
+    (computed in numpy): box and x rel 1e-6, v 1e-6 of its largest.  Over
+    five steps with P_xx, P_yy and P_zz thousands of bar apart the box stays
+    cubic (rel 1e-6), where JAX's step integrates each edge from its own
+    P_aa."""
+    ts, tst, force = stub_box
+    kw = dict(dt=0.001, rvdw=0.58, nstcomm=0, tau_p=0.05, ref_t=300.0,
+              nstpcouple=1, compressibility=4.5e-5)
+    s0, _ = make_step_fn(ts, md_params(ttypes, pcoupl="no", **kw), force,
+                         torch.Generator().manual_seed(1))(tst, "R")
+    pr = make_step_fn(ts, md_params(ttypes, pcoupl="parrinello-rahman",
+                                    **kw), force,
+                      torch.Generator().manual_seed(1))
+    s1, lg = pr(tst, "R")
+    L = float(tst.box[0, 0])
+    vol = L ** 3
+    boxv = np.asarray(jcoupling.parrinello_rahman_step(
+        jnp.zeros((3, 3)), jnp.asarray(tst.box.numpy()),
+        jnp.eye(3) * float(lg.pres), 1.0, kw["dt"], kw["tau_p"],
+        kw["compressibility"] * PRESFAC, vol))
+    np.testing.assert_allclose(s1.coupling.boxv.numpy(), boxv, rtol=1e-6,
+                               atol=0)
+    bv = np.diag(boxv)
+    assert abs(bv[0]) > 1e-4 and np.all(bv == bv[0])
+    mu = (L + kw["dt"] * bv) / L
+    np.testing.assert_allclose(s1.box.numpy(), tst.box.numpy() * mu,
+                               rtol=1e-6)
+    np.testing.assert_allclose(s1.x.numpy(), s0.x.numpy() * mu, rtol=1e-6,
+                               atol=1e-6)
+    v_want = s0.v.numpy() * (1.0 - kw["dt"] * bv / L)
+    np.testing.assert_allclose(s1.v.numpy(), v_want, rtol=0,
+                               atol=1e-6 * np.abs(v_want).max())
+    assert np.abs(s1.v.numpy() - s0.v.numpy()).max() \
+        > 10 * 1e-6 * np.abs(v_want).max()
+    s = tst
+    for _ in range(5):
+        s, lg = pr(s, "R")
+    b = torch.diagonal(s.box).numpy()
+    np.testing.assert_allclose(b, b[0], rtol=1e-6)
+    assert abs(b[0] / L - 1.0) > 1e-4
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-5),
+                                        (torch.float32, 1e-4)],
+                         ids=["float64", "float32"])
+def test_split_molecules_give_the_whole_pressure(dtype, rtol):
+    """One C-rescale pressure step (stub force, nstpcouple 1) of the
+    solvation box whose ligand has four LINCS rows (chip_smoke._lb_system):
+    a water's H1 moved one box up in x and a ligand H one box down in y
+    give the pressure of the molecules made whole.  float64 rel 1e-5 (the
+    step in float64: 1.5e-14 measured); float32 rel 1e-4: the split atoms'
+    float32 coordinates round differently near L than near 0, which moves
+    their SETTLE and LINCS corrections by ~1e-7 nm (2.1e-5 measured).  Not
+    held against JAX, whose virial over raw positions changes with the
+    images: that formula, -1/2 sum x_c m (x_c - x_new) / dt^2, moves by
+    more than 100 times the gate between the two frames."""
+    ts = chip_smoke._lb_system(3, "cpu")
+    _, tst = to_port(*solvation_system(n_side=3, spacing=0.4, seed=7,
+                                       temperature=400.0))
+    assert ts.lincs.atoms.shape[0] == 4 and ts.settle.atoms.shape[0] == 26
+    tst = tst.replace(x=tst.x.to(dtype), v=tst.v.to(dtype),
+                      box=tst.box.to(dtype), lam=tst.lam.to(dtype))
+    vir = torch.tensor([150.0, -40.0, 90.0], dtype=dtype)
+
+    def force(x, box, lam, flavor):
+        return torch.zeros_like(x), ttypes.EnergyTerms.zeros(
+            x.device).replace(vir_diag=vir)
+    p = md_params(ttypes, dt=0.002, nstcomm=0, tau_p=1.0, ref_t=300.0,
+                  nstpcouple=1, pcoupl="c-rescale")
+    L = torch.diagonal(tst.box)
+    h_w, h_l = 5 + 3 * 4 + 1, 1
+    split = tst.x.clone()
+    split[h_w, 0] += L[0]
+    split[h_l, 1] -= L[1]
+    out = {}
+    for name, x in (("whole", tst.x), ("split", split)):
+        gen = torch.Generator().manual_seed(3)
+        out[name] = make_step_fn(ts, p, force, gen)(tst.replace(x=x), "R")
+    p_w, p_s = float(out["whole"][1].pres), float(out["split"][1].pres)
+    assert abs(p_s - p_w) <= rtol * abs(p_w)
+    # the raw-position formula on the same step
+    dt = p.dt
+    x_new = {k: (x + dt * tst.v) for k, x in (("whole", tst.x),
+                                              ("split", split))}
+    raw = {}
+    for k in x_new:
+        x_c = out[k][0].x / ((out[k][0].box / tst.box).diagonal())
+        f_c = ts.mass_a.to(dtype)[:, None] * (x_c - x_new[k]) / dt ** 2
+        raw[k] = -0.5 * torch.sum(x_c * f_c, 0)
+    vol = float(torch.prod(L))
+    dp_raw = float((raw["split"] - raw["whole"]).abs().max()) \
+        * 2.0 / (3.0 * vol) * PRESFAC
+    assert dp_raw > 100 * rtol * abs(p_w)
+
+
+def test_semiiso_berendsen_npt_matches_jax_runner():
+    """40 steps of semiisotropic Berendsen (ref_p_z 300 bar,
+    compressibility_z 3e-5 /bar against ref_p 1 bar and 4.5e-5 /bar in
+    xy) through both runners, as test_berendsen_npt_matches_jax_runner:
+    box rel 1e-5, x 1e-4 nm, the pressure on the pressure steps 4e-3 of the
+    virial's pressure scale; x and y scale together, z on its own."""
+    n_side, nsteps = 5, 40
+    js, jst = jwater.water_box(n_side, spacing=0.31, seed=0,
+                               temperature=300.0)
+    grid = tpme.pme_grid_size([n_side * 0.31] * 3, 0.12)
+    kw = dict(dt=0.001, nstlist=5, coulomb="pme", rcoulomb=0.6, rvdw=0.6,
+              rlist=0.6, pme_grid=grid, nstcomm=10, nstcalcenergy=5,
+              dispcorr=True, pcoupl="berendsen", pcoupltype="semiisotropic",
+              ref_p_z=300.0, compressibility_z=3.0e-5, tau_p=0.5,
+              nstpcouple=5)
+    jr = JRunner(js, md_params(jtypes, **kw), JConfig(nnbr=128))
+    j_out, jlogs = jr.run(jst, nsteps)
+    jlog = j_concat(jlogs)
+    ts, tst = to_port(js, jst)
+    tr = TRunner(ts, md_params(ttypes, **kw),
+                 TConfig(super_nnbr=128, baked_shifts=False))
+    t_out, tlogs = tr.run(tst, nsteps)
+    tlog = t_concat(tlogs)
+
+    box_j = np.asarray(j_out.box)
+    b0 = float(jst.box[0, 0])
+    assert abs(box_j[0, 0] / b0 - 1.0) > 1e-4
+    assert abs(box_j[2, 2] / box_j[0, 0] - 1.0) > 1e-4
+    np.testing.assert_allclose(t_out.box.numpy(), box_j, rtol=1e-5, atol=0)
+    assert t_out.box[0, 0] == t_out.box[1, 1]
+    np.testing.assert_allclose(t_out.x.numpy(), np.asarray(j_out.x), rtol=0,
+                               atol=1e-4)
+    p_j, p_t = np.asarray(jlog.pres), tlog.pres.numpy()
+    on = np.arange(nsteps) % 5 == 0
+    assert np.isfinite(p_t[on]).all() and np.isnan(p_t[~on]).all()
+    vol = float(np.prod(np.diag(np.asarray(jst.box))))
+    vir_scale = 2.0 / vol * PRESFAC * np.abs(
+        np.asarray(jlog.terms.vir_diag)[on]).max()
+    np.testing.assert_allclose(p_t[on], p_j[on], rtol=0,
+                               atol=4e-3 * vir_scale)
+
+
+def _pr_cli_inputs(pcoupltype):
+    """grompp inputs of the published example's window 0 (rule 3, ~190
+    atoms at 1.24 nm, reaction field) with Parrinello-Rahman, nstpcouple
+    2, in the current directory."""
+    from gromacs_fep_gpu_tpu_torch import cli as tcli
+    lig, top, mdp, _ = chip_smoke.example_inputs()
+    Path("lig.gro").write_text(lig)
+    tcli.main(["solvate", "-cp", "lig.gro", "-box",
+               str(chip_smoke.EXAMPLE_BOX), "-o", "conf.gro"], device="cpu")
+    n_atoms = int(Path("conf.gro").read_text().splitlines()[1])
+    Path("topol.top").write_text(chip_smoke.geometric_top(top).format(
+        nsol=(n_atoms - 1) // 3))
+    keys = {"tcoupl": "no", "gen-seed": 7, "pcoupl": "parrinello-rahman",
+            "pcoupltype": pcoupltype, "tau-p": 0.5, "nstpcouple": 2,
+            "nstcalcenergy": 2}
+    if pcoupltype == "semiisotropic":
+        keys.update({"ref-p": "1.0 400.0", "compressibility": "4.5e-5 3e-5"})
+    else:
+        keys.update({"ref-p": "1.0", "compressibility": "4.5e-5"})
+    Path("pr.mdp").write_text(chip_smoke.mdp_with(
+        mdp.format(nsteps=10, window=0), keys))
+    tcli.main(["grompp", "-f", "pr.mdp", "-p", "topol.top", "-c", "conf.gro",
+               "-o", "pr.tpz"], device="cpu")
+
+
+@pytest.mark.parametrize("pcoupltype", ["isotropic", "semiisotropic"])
+def test_pr_cli_restart_equals_one_run(tmp_path, monkeypatch, pcoupltype):
+    """grompp -> mdrun with Parrinello-Rahman on the CPU: 20 steps equal 10
+    steps, the port's .cpt, then 10 more (x, v, box, boxv bitwise: the
+    checkpoint carries the box velocity); boxv moved, the .gmx.cpt holds
+    it; semiisotropic keeps L_x = L_y and moves L_z on its own."""
+    from gromacs_fep_gpu_tpu_torch import cli as tcli
+    from gromacs_fep_gpu_tpu_torch.io.cptio import read_gmx_cpt
+    monkeypatch.chdir(tmp_path)
+    _pr_cli_inputs(pcoupltype)
+
+    def mdrun(*argv):
+        return tcli.main(["mdrun", "-s", "pr.tpz", "-fep", "gpu", *argv],
+                         device="cpu")[1]
+    whole = mdrun("-deffnm", "whole", "-nsteps", "20")
+    mdrun("-deffnm", "half")
+    rest = mdrun("-deffnm", "rest", "-cpi", "half.cpt")
+    assert rest.step == whole.step == 20
+    for k in ("x", "v", "box"):
+        assert torch.equal(getattr(rest, k), getattr(whole, k)), k
+    assert torch.equal(rest.coupling.boxv, whole.coupling.boxv)
+    bv = torch.diagonal(whole.coupling.boxv)
+    assert bool((bv != 0).all())
+    np.testing.assert_array_equal(
+        np.asarray(read_gmx_cpt("whole.gmx.cpt").state["boxv"]).reshape(
+            3, 3), whole.coupling.boxv.numpy())
+    b = torch.diagonal(whole.box)
+    if pcoupltype == "semiisotropic":
+        assert b[0] == b[1] and abs(float(b[2] / b[0]) - 1.0) > 1e-5
+    else:
+        np.testing.assert_allclose(b.numpy(), float(b[0]), rtol=1e-6)
+    pres = np.loadtxt("whole.ener.csv")[:, 4]
+    assert np.isfinite(pres[::2]).all() and np.isnan(pres[1::2]).all()
+
+
+@pytest.mark.parametrize("lines,item", [
+    ("pcoupl = mttk", "item 5"),
+    ("pcoupl = parrinello-rahman\npcoupltype = anisotropic", "item 5"),
+    ("pcoupl = berendsen\npcoupltype = surface-tension", "item 5"),
+    ("pcoupl = c-rescale\npcoupltype = semiisotropic", "item 6")])
+def test_pressure_mdp_raises_name_their_item(lines, item):
+    """The pressure settings the port does not run raise, naming the ROADMAP
+    item that lifts them (the JAX reader accepts them, and its step runs
+    semiisotropic C-rescale as isotropic)."""
+    from gromacs_fep_gpu_tpu.io import mdpio as jmdp
+    from gromacs_fep_gpu_tpu_torch.io import mdpio as tmdp
+    text = "integrator = md\n" + lines + "\n"
+    jmdp.mdp_to_params(text)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        tmdp.mdp_to_params(text)
