@@ -272,6 +272,12 @@ CLI_EQ_STEPS = EQ_STEPS
 CLI_WINDOW_STEPS = 200
 CLI_WINDOWS = (1, 2)
 CLI_RESTART_STEPS = 20
+EM_STEPS = 200           # steep steps on the freshly solvated CLI box
+EM_TOL = 1000.0          # kJ/mol/nm
+EM_PROFILE_STEPS = 10    # steep steps under torch.profiler (kernels/step)
+SETTLE_DEV = 1e-4        # max |r - d| / d of the SETTLE waters after EM
+CLI_NSTXOUT = 100        # trr x and v (nstxout = nstvout) in the windows
+CLI_NSTXTC = 20          # xtc x (nstxout-compressed) in the windows
 
 
 # phase 17: a user's OPLS-AA ligand with dihedrals and restraints, under
@@ -3437,7 +3443,7 @@ def _cli_outputs(deffnm, runner, step0, nsteps):
 
 def phase_cli(device, smi, ms_main, box=CLI_BOX, eq_steps=CLI_EQ_STEPS,
               win_steps=CLI_WINDOW_STEPS, ex_steps=EXAMPLE_STEPS,
-              counted=True):
+              counted=True, em_steps=EM_STEPS):
     """Phase 16: the port's CLI (cli.main, in-process, default device) in a
     temporary directory, the inputs written from Python:
     (a) examples/solvation_fep.sh as published (solvate, 5 x grompp +
@@ -3445,10 +3451,11 @@ def phase_cli(device, smi, ms_main, box=CLI_BOX, eq_steps=CLI_EQ_STEPS,
         rule 3 and -fep gpu (K1's in-loop minimum image on the 1.24 nm box,
         launches exact);
     (b) the same topology (rule 3) solvated at `box` with the main path's
-        physics in mdp form (pme_mdp): an equilibration (dt 1 fs, tau-t
-        0.1 ps, gen-vel), then windows 1 and 2 from its .cpt, launches
-        exact, T in TEMP_BAND on every step, no overflow left, outputs read
-        back (_cli_outputs), bar over the 1 -> 2 leg;
+        physics in mdp form (pme_mdp), minimized first (e1): an
+        equilibration from em.gro (dt 1 fs, tau-t 0.1 ps, gen-vel), then
+        windows 1 and 2 from its .cpt, launches exact, T in TEMP_BAND on
+        every step, no overflow left, outputs read back (_cli_outputs),
+        trajectories (e2), bar over the 1 -> 2 leg;
     (c) -fep gpu against -fep cpu from one run input (the equilibrated
         frame), one step each: energies rel 1e-4, the dhdl.xvg row 1e-4 of
         its largest entry;
@@ -3456,20 +3463,27 @@ def phase_cli(device, smi, ms_main, box=CLI_BOX, eq_steps=CLI_EQ_STEPS,
         the step count; 20 + 20 steps against 40 in one run: max |dx|
         printed beside the 1e-5 nm gate and beside two uninterrupted runs'
         spread (the card's runs are not bitwise reproducible), and held to
-        the larger of 1e-5 nm and 3 x that spread.
+        the larger of 1e-5 nm and 3 x that spread;
+    (e) a lambda window's whole chain (_cli_minimize, _cli_frames,
+        _cli_rerun): (e1) steep (em_steps, emtol EM_TOL, -fep gpu) on the
+        freshly solvated box, (e2) trr (x, v every CLI_NSTXOUT) and xtc
+        (every CLI_NSTXTC) frames of windows 1 and 2, (e3) mdrun -rerun of
+        window 1's trr and xtc against its dhdl.xvg.
     counted=False (a CPU rehearsal: plain versions count no launch) skips
-    the launch checks."""
+    the launch checks.  Returns the launches of the minimization."""
     t_start = time.perf_counter()
     lig, top_t, mdp_t, n_win = example_inputs()
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
-                            ex_steps, counted, lig, top_t, mdp_t, n_win)
+            em_counts = _cli_phase_body(device, smi, ms_main, box, eq_steps,
+                                        win_steps, ex_steps, counted, lig,
+                                        top_t, mdp_t, n_win, em_steps)
         finally:
             os.chdir(cwd)
     _say(f"CLI phase: {time.perf_counter() - t_start:.1f} s on {smi}")
+    return em_counts
 
 
 def _cli_mdrun(argv, device, counted, step0, nsteps, what):
@@ -3496,7 +3510,7 @@ def _cli_mdrun(argv, device, counted, step0, nsteps, what):
 
 
 def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
-                    ex_steps, counted, lig, top_t, mdp_t, n_win):
+                    ex_steps, counted, lig, top_t, mdp_t, n_win, em_steps):
     from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg
 
     def write(path, text):
@@ -3553,11 +3567,19 @@ def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
     nsol = int(re.search(r"added (\d+)", out).group(1))
     write("big.top", geometric_top(top_t).format(nsol=nsol))
     w1, w2 = CLI_WINDOWS
+    # (e1) minimize the freshly solvated box; the equilibration starts
+    # from em.gro, as a user's chain does
+    write("em.mdp", mdp_with(pme_mdp(mdp_t.format(nsteps=em_steps,
+                                                  window=w1)),
+                             {"integrator": "steep", "emtol": EM_TOL,
+                              "mts": "no"}))
+    grompp("em.mdp", "big.top", "big.gro", "em.tpz")
+    em_counts, e_seconds = _cli_minimize(device, smi, counted)
     write("eq.mdp", mdp_with(pme_mdp(mdp_t.format(nsteps=eq_steps,
                                                   window=w1)),
                              {"dt": EQ_DT, "tau-t": 0.1, "nsttcouple": 1,
                               "mts": "no"}))
-    grompp("eq.mdp", "big.top", "big.gro", "eq.tpz")
+    grompp("eq.mdp", "big.top", "em.gro", "eq.tpz")
     runner, _, out, nb = _cli_mdrun(["-s", "eq.tpz", "-deffnm", "eq"],
                                     device, counted, 0, eq_steps,
                                     "CLI equilibration")
@@ -3573,10 +3595,12 @@ def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
          f"{_cli_perf(out)[1]:.3f} ms/step, launches {nb}; {smi}")
     xvgs = []
     for w in CLI_WINDOWS:
-        write(f"win{w}.mdp", pme_mdp(mdp_t.format(nsteps=win_steps,
-                                                  window=w)))
+        write(f"win{w}.mdp", mdp_with(
+            pme_mdp(mdp_t.format(nsteps=win_steps, window=w)),
+            {"nstxout": CLI_NSTXOUT, "nstvout": CLI_NSTXOUT,
+             "nstxout-compressed": CLI_NSTXTC}))
         grompp(f"win{w}.mdp", "big.top", "big.gro", f"win{w}.tpz")
-        runner, _, out, nb = _cli_mdrun(
+        runner, state, out, nb = _cli_mdrun(
             ["-s", f"win{w}.tpz", "-cpi", "eq.cpt", "-deffnm", f"win{w}"],
             device, counted, eq_steps, win_steps, f"CLI window {w}")
         ener = _cli_outputs(f"win{w}", runner, eq_steps, win_steps)
@@ -3590,6 +3614,8 @@ def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
              f"performance line against MdRunner's {ms_main:.3f} ms/step "
              f"(phase 5, 12,290 atoms) in this call; T {t_lo:.1f}.."
              f"{t_hi:.1f} K; launches {nb}; layout {runner.layout}; {smi}")
+        e_seconds += _cli_frames(f"win{w}", state, eq_steps, win_steps, out,
+                                 smi)
         xvgs.append(f"win{w}.dhdl.xvg")
     (dg, err), out = _cli(["bar", "-f"] + xvgs, device)
     leg = re.search(rf"\n\s*{w1} -> {w2}\s+(\S+)\s+(\S+)", out)
@@ -3597,6 +3623,9 @@ def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
         raise AssertionError(f"bar over {w1} -> {w2}: {out}")
     _say(f"CLI (b) bar over the {w1} -> {w2} leg: {leg.group(1)} +- "
          f"{leg.group(2)} kJ/mol")
+    e_seconds += _cli_rerun(device, w1)
+    _say(f"CLI (e) a window's chain (minimization, frames written, rerun): "
+         f"{e_seconds:.1f} s on {smi}")
 
     # (c) -fep gpu against -fep cpu from one run input
     write("one.mdp", pme_mdp(mdp_t.format(nsteps=1, window=w1)))
@@ -3623,6 +3652,188 @@ def _cli_phase_body(device, smi, ms_main, box, eq_steps, win_steps,
     # (d) restart: 20 + 20 steps against 40
     _cli_restart(device, counted, f"win{w1}.tpz", "eq.cpt", eq_steps,
                  CLI_RESTART_STEPS, "CLI (d)")
+    return em_counts
+
+
+def _settle_deviation(system, x, box):
+    """max |r - d| / d over every SETTLE water's two O-H and its H-H
+    distance (minimum image)."""
+    from gromacs_fep_gpu_tpu_torch.core.pbc import pbc_dx
+    st = system.settle
+    o, h1, h2 = (x[st.atoms[:, i]] for i in range(3))
+    dev = torch.zeros((), dtype=x.dtype, device=x.device)
+    for a, b, d in ((o, h1, st.d_oh), (o, h2, st.d_oh), (h1, h2, st.d_hh)):
+        r = torch.linalg.norm(pbc_dx(a - b, box), dim=-1)
+        dev = torch.maximum(dev, ((r - d).abs() / d).max())
+    return float(dev)
+
+
+def _cli_minimize(device, smi, counted):
+    """(e1): mdrun of em.tpz (steep, -fep gpu) with the counters zeroed
+    just before and read just after: one K1 VF, one spread and one gather
+    per force call and nothing else; Epot lower at the end than at the
+    start, each accepted step lower than the one before, a rejected one
+    equal; every SETTLE water within SETTLE_DEV of its geometry; the first
+    force call (at the constrained start) against the CPU's plain versions
+    on the same frame, E rel 1e-4, F rel 5e-4; ms per EM step (the CLI's
+    line: host clock, ending in torch.cuda.synchronize()) and kernels per
+    EM step (torch.profiler over EM_PROFILE_STEPS more steps).  Returns
+    (the launches, the seconds of the mdrun call)."""
+    from gromacs_fep_gpu_tpu_torch import cli
+    from gromacs_fep_gpu_tpu_torch.md.minimize import steepest_descent
+    from gromacs_fep_gpu_tpu_torch.md.runner import MdRunner, RunnerConfig
+    if device == "cuda":
+        torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    (runner, res), out = _cli(["mdrun", "-s", "em.tpz", "-deffnm", "em",
+                               "-fep", "gpu"], device)
+    counts = _counts()
+    seconds = time.perf_counter() - t0
+    calls = int(re.search(r"\((\d+) force calls", out).group(1))
+    broken = int(re.search(r"(\d+) trials whose constraints failed",
+                           out).group(1))
+    ms_em = float(re.search(r"([\d.]+) ms per EM step", out).group(1))
+    trace = res.epot_trace.double().cpu().numpy()
+    acc = res.accepted.cpu().numpy()
+    drop = np.diff(trace)
+    if not (trace[-1] < trace[0] and (drop[acc] < 0).all()
+            and (drop[~acc] == 0).all() and calls == res.n_steps + 1):
+        raise AssertionError(f"EM: Epot {trace}, accepted {acc}, {calls} "
+                             f"force calls for {res.n_steps} steps")
+    nb = {k: v for k, v in counts.items() if v}
+    if counted:
+        sfx = _pme_suffix(runner.params.pme_grid)
+        expected = dict.fromkeys(_nb_counts(), 0)
+        expected.update(dict.fromkeys(PME_KEYS, 0))
+        expected.update({"nb_v2u_VF": calls, "pme_spread" + sfx: calls,
+                         "pme_gather" + sfx: calls})
+        if counts != expected:
+            raise AssertionError(f"EM: launches {counts}, expected "
+                                 f"{expected}")
+    pp, _ = cli._load_tpz("em.tpz", device)
+    box, lam = pp.state.box, pp.state.lam
+    dev = _settle_deviation(runner.system, res.x, box)
+    if not dev <= SETTLE_DEV:
+        raise AssertionError(f"EM: SETTLE max |r - d| / d {dev:.2e}")
+    # the first force call on the card against the CPU's plain versions
+    force, cons, _, _ = cli.em_functions(runner, pp.state)
+    x0 = pp.state.x if cons is None else cons(pp.state.x, pp.state.x)
+    f_g, t_g = force(x0, box, lam)
+    pc, _ = cli._load_tpz("em.tpz", "cpu")
+    cpu = MdRunner(pc.system, runner.params,
+                   RunnerConfig(layout=runner.layout))
+    f_c, t_c = cli.em_functions(cpu, pc.state)[0](x0.cpu(), pc.state.box,
+                                                  pc.state.lam)
+    e_rel = abs(float(t_g.epot) - float(t_c.epot)) / abs(float(t_c.epot))
+    f_rel, _ = _rel(f_g.cpu(), f_c)
+    if not (e_rel <= 1e-4 and f_rel <= 5e-4):
+        raise AssertionError(f"EM: first force call against the CPU: E rel "
+                             f"{e_rel:.2e}, F rel {f_rel:.2e}")
+    per = ""
+    if device == "cuda":
+        force, cons, valid, pcalls = cli.em_functions(runner, pp.state)
+        n_kern, n_copy, _ = _device_ops(
+            lambda: steepest_descent(res.x, box, lam, force,
+                                     nsteps=EM_PROFILE_STEPS, emtol=0.0,
+                                     step0=runner.params.emstep,
+                                     constrain_fn=cons, valid_fn=valid), 1)
+        per = (f"{n_kern / EM_PROFILE_STEPS:.0f} kernels and "
+               f"{n_copy / EM_PROFILE_STEPS:.1f} copies per EM step "
+               f"({n_kern / pcalls[0]:.0f} kernels per force call; "
+               f"torch.profiler over {EM_PROFILE_STEPS} more steps), ")
+    _say(f"CLI (e1) steep on the freshly solvated box "
+         f"({runner.system.n_atoms} atoms, emtol {EM_TOL:g}, -fep gpu): "
+         f"{res.n_steps} steps, {int(acc.sum())} accepted ({broken} "
+         f"trials rejected because SETTLE broke there), Epot "
+         f"{trace[0]:.1f} -> {trace[-1]:.1f} kJ/mol, Fmax "
+         f"{float(res.fmax):.1f} kJ/mol/nm; {ms_em:.3f} ms per EM step "
+         f"(host clock, ending in torch.cuda.synchronize()), {per}"
+         f"launches {nb} for {calls} force calls; first force call against "
+         f"the CPU's plain versions: E rel {e_rel:.2e} (gate 1e-4), F rel "
+         f"{f_rel:.2e} (gate 5e-4); SETTLE max |r - d| / d {dev:.2e} (gate "
+         f"{SETTLE_DEV:g}); {seconds:.1f} s; {smi}")
+    return counts, seconds
+
+
+def _cli_frames(deffnm, state, step0, nsteps, out, smi):
+    """(e2): the window's trr frames at exactly the multiples of
+    CLI_NSTXOUT in [step0, step0 + nsteps] and its xtc frames at those of
+    CLI_NSTXTC; the last trr frame's x and v bitwise the run's final state
+    and its .cpt.  Returns the seconds the CLI spent writing frames."""
+    from gromacs_fep_gpu_tpu_torch.io.checkpoint import load_checkpoint
+    from gromacs_fep_gpu_tpu_torch.io.trrio import read_trr_frame, scan_trr
+    from gromacs_fep_gpu_tpu_torch.io.xtcio import read_xtc_frame, scan_xtc
+    steps = range(step0, step0 + nsteps + 1)
+    got = {}
+    for kind, n, scan, read in (("trr", CLI_NSTXOUT, scan_trr,
+                                 read_trr_frame),
+                                ("xtc", CLI_NSTXTC, scan_xtc,
+                                 read_xtc_frame)):
+        na, nf = scan(f"{deffnm}.{kind}")
+        frames = [read(f"{deffnm}.{kind}", i, na) for i in range(nf)]
+        want = [s for s in steps if s % n == 0]
+        if [fr["step"] for fr in frames] != want:
+            raise AssertionError(f"{deffnm}.{kind}: frames at "
+                                 f"{[fr['step'] for fr in frames]}, expected "
+                                 f"{want}")
+        got[kind] = frames
+    last = got["trr"][-1]
+    cpt = load_checkpoint(f"{deffnm}.cpt", "cpu")
+    # the frame steps are exact, so the last frame is the final state's
+    # step when that step is a multiple of CLI_NSTXOUT (on the card)
+    for k in ("x", "v") if last["step"] == state.step else ():
+        if not (np.array_equal(last[k], getattr(state, k).cpu().numpy())
+                and np.array_equal(last[k], getattr(cpt, k).numpy())):
+            raise AssertionError(f"{deffnm}.trr: the last frame's {k} is "
+                                 "not the final state's")
+    same = [fr for fr in got["xtc"] if fr["step"] == last["step"]]
+    dx = float(np.abs(same[0]["x"] - last["x"]).max())
+    ms = float(re.search(r"; ([\d.]+) ms per frame written", out).group(1))
+    n = len(got["trr"]) + len(got["xtc"])
+    _say(f"CLI (e2) {deffnm}: {len(got['trr'])} trr frames (x, v) at steps "
+         f"{[fr['step'] for fr in got['trr']]}, {len(got['xtc'])} xtc frames "
+         f"every {CLI_NSTXTC} steps; the last trr frame (step "
+         f"{last['step']}) against the final state (step {state.step}) and "
+         f".cpt: bitwise where the steps agree, the xtc frame of the same "
+         f"step within {dx:.2e} nm of it "
+         f"(precision 1e-3 nm); {ms:.3f} ms per frame written (host clock, "
+         f"the copy from the device included); {smi}")
+    return ms * n / 1e3
+
+
+def _cli_rerun(device, w):
+    """(e3): mdrun -rerun of window w's trr reproduces its dhdl.xvg rows
+    (dH/dlambda and Delta H) at the frame steps to rel 1e-4 of the largest
+    entry; the rerun of its xtc is printed beside the xtc's 1e-3 nm
+    precision.  Returns the seconds of both reruns."""
+    from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg
+    t0 = time.perf_counter()
+    run_rows = read_xvg(f"win{w}.dhdl.xvg")[0]
+    rel = {}
+    for kind in ("trr", "xtc"):
+        (_, frames), _ = _cli(["mdrun", "-s", f"win{w}.tpz", "-rerun",
+                               f"win{w}.{kind}", "-deffnm", f"rerun_{kind}"],
+                              device)
+        rows = read_xvg(f"rerun_{kind}.dhdl.xvg")[0]
+        t_run, t_rerun = np.round(run_rows[:, 0], 6), np.round(rows[:, 0], 6)
+        both = np.intersect1d(t_run, t_rerun)
+        a = run_rows[np.isin(t_run, both)]
+        b = rows[np.isin(t_rerun, both)]
+        if len(a) == 0 or len(a) != len(b) or len(rows) != len(frames.step):
+            raise AssertionError(f"rerun of win{w}.{kind}: rows at "
+                                 f"{rows[:, 0]} against {run_rows[:, 0]}")
+        rel[kind] = (float(np.abs(a[:, 1:] - b[:, 1:]).max()
+                           / np.abs(a[:, 1:]).max()), len(a), len(rows))
+    seconds = time.perf_counter() - t0
+    _say(f"CLI (e3) mdrun -rerun win{w}.trr ({rel['trr'][2]} frames): the "
+         f"window's dhdl.xvg rows at the {rel['trr'][1]} frame steps within "
+         f"{rel['trr'][0]:.2e} of the largest entry (gate 1e-4); of "
+         f"win{w}.xtc ({rel['xtc'][2]} frames, 1e-3 nm precision): "
+         f"{rel['xtc'][0]:.2e} over {rel['xtc'][1]} rows; {seconds:.1f} s")
+    if not rel["trr"][0] <= 1e-4:
+        raise AssertionError(f"rerun of win{w}.trr: rel {rel['trr'][0]}")
+    return seconds
 
 
 def _cli_restart(device, counted, tpz, cpt, step0, n, what):
@@ -4065,11 +4276,12 @@ def run(device="cuda", smi=None):
     done("lambda windows")
     npt_rows, npt_counts, pr_counts = phase_npt(timer, smi, *npt_start)
     done("NPT windows")
-    phase_cli(device, smi, ms_step)
+    em_counts = phase_cli(device, smi, ms_step)
     done("the CLI (phase 16)")
     phase_ethanol(device, smi, ms_step)
     done("a ligand's dihedrals and restraints under sd (phase 17)")
-    for r in rows:
+    for r in rows:      # the main path's K1 and PME rows: the EM path's
+        r["launches_em"] = em_counts.get(r["name"], 0)
         if r["name"].startswith("nb_v2u"):    # K1 runs on every path
             r["launches_window"] = window_counts[r["name"]]
             r["launches_npt"] = npt_counts[r["name"]]

@@ -8,11 +8,14 @@ mdrun/legacymdrunoptions.h incl. the fork's -fep).
         -c conf.gro -o topol.tpz
     python -m gromacs_fep_gpu_tpu_torch mdrun -s topol.tpz [-deffnm md] \\
         [-nsteps N] [-cpi md.cpt | md.gmx.cpt] [-maxh H] [-fep gpu|cpu|auto]
+    python -m gromacs_fep_gpu_tpu_torch mdrun -s topol.tpz \\
+        -rerun md.trr | md.xtc [-deffnm rerun]
     python -m gromacs_fep_gpu_tpu_torch solvate -cp solute.gro -box L \\
         -o conf.gro
     python -m gromacs_fep_gpu_tpu_torch bar -f w0.dhdl.xvg w1.dhdl.xvg ... \\
         [-method mbar]
     python -m gromacs_fep_gpu_tpu_torch check -s topol.tpz | md.cpt | md.edr
+    python -m gromacs_fep_gpu_tpu_torch check -f md.trr | md.xtc
 
 The device is the GPU: main(argv, device="cuda").  Without one, grompp,
 mdrun and check exit with a message before building anything; nothing
@@ -28,10 +31,23 @@ a triclinic box or a CPU device and K1 otherwise (JAX cli.py:267-280).
 A .tpz holds the same keys and values as the JAX package's, so each
 package's grompp output runs on the other's mdrun.  The port's .cpt is
 its own (io/checkpoint.py); mdrun also writes the GROMACS-format
-.gmx.cpt, which both packages read.  Not ported yet, and raising: .tpr
-input and output and trr/xtc (ROADMAP item 8), -rerun and -tunepme
-(slice 16), -dd (slice 17), the minimizers, normal modes and TPI (the mdp
-reader raises on their integrators).
+.gmx.cpt, which both packages read.
+
+mdrun with integrator = steep | cg | l-bfgs minimizes (md/minimize.py) at
+the run input's lambda, every force call on a fresh pair list through the
+runner (MdRunner.evaluate), SETTLE and LINCS on every trial step (a
+trial they leave off its lengths rejected, as the reference's do_steep
+rejects one whose constraints failed), and writes <deffnm>.gro (JAX
+_do_minimize).  With nstxout / nstxout-compressed
+mdrun writes <deffnm>.trr (x, and v with nstvout = nstxout) and
+<deffnm>.xtc at every step that is a multiple of the interval, step 0
+included (GROMACS's do_per_step; the chunks end there); with -cpi it
+appends to them and writes no frame twice.  -rerun evaluates a .trr or
+.xtc frame by frame (energies, dV/dlambda and the Delta H sweep) into
+ener.csv and dhdl.xvg, the writer of mdrun (JAX _do_rerun).  Not ported
+yet, and raising: .tpr input and output and other trajectory formats
+(ROADMAP item 8), -tunepme, normal modes and TPI (slice 16), -dd (slice
+17), and -rerun with energygrps (item 8).
 """
 from __future__ import annotations
 
@@ -45,6 +61,11 @@ import types
 
 import numpy as np
 import torch
+
+# an EM trial step whose constrained positions miss a constraint length by
+# more than this (relative) is rejected; converged SETTLE and LINCS in
+# float32 stay near 5e-6
+EM_CONSTRAINT_TOL = 1e-4
 
 
 def _device(args) -> torch.device:
@@ -176,6 +197,219 @@ def _restore(args, state, runner, params, device):
     return state
 
 
+def _write_dhdl(path, pp, times, dvdl, delta_h, lam_arr, fep_state):
+    """dhdl.xvg of mdrun and mdrun -rerun: the JAX writer's columns, and
+    dH/drestraint-lambda where the mdp gives restraint-lambdas."""
+    from .core.types import FepCoupling as FC
+    from .io.xvgio import write_dhdl_xvg
+    comps = (FC.COUL, FC.VDW, FC.BONDED) + (
+        (FC.RESTRAINT,) if pp.separate_dvdl[int(FC.RESTRAINT)] else ())
+    write_dhdl_xvg(path, times, dvdl, delta_h, lam_arr, fep_state,
+                   components=comps, temperature=pp.params.ref_t)
+
+
+class TrajectoryOutput:
+    """mdrun's trr and xtc frames: a frame of state goes to <deffnm>.trr
+    when state.step is a multiple of nstxout (x, v where nstvout =
+    nstxout, lambda the global fep-lambda, as GROMACS's trr) and to
+    <deffnm>.xtc when it is a multiple of nstxout-compressed (x at
+    compressed-x-precision), step 0 included (do_per_step).  A new run
+    starts the files afresh; a restart (append=True) appends to them and
+    writes no step at or before the file's last frame again.  The JAX CLI
+    writes at chunk ends instead, from the first chunk's end on, and v in
+    every trr frame (its cli.py:302-315).  Each written frame copies the
+    state to the host; `seconds` is the host time spent in writing."""
+
+    def __init__(self, deffnm: str, params, append: bool):
+        from .io import trrio, xtcio
+        self.params = params
+        self.files = []     # (kind, path, interval, [last step, frames])
+        for kind, n, io_mod in (("trr", params.nstxout, trrio),
+                                ("xtc", params.nstxout_compressed, xtcio)):
+            if n <= 0:
+                continue
+            io_mod.codec()      # a first use builds it: set-up, not a frame
+            path = f"{deffnm}.{kind}"
+            last = -1
+            if os.path.exists(path):
+                scan, read = _traj_io(path, "mdrun")
+                na, nf = scan(path) if append else (0, 0)
+                if nf:
+                    last = read(path, nf - 1, na)["step"]
+                else:
+                    os.unlink(path)
+            self.files.append((kind, path, n, [last, 0]))
+        self.intervals = tuple(n for _, _, n, _ in self.files)
+        self.seconds = 0.0
+
+    def __call__(self, state):
+        from .core.types import FepCoupling as FC
+        from .io.trrio import write_trr_frame
+        from .io.xtcio import write_xtc_frame
+        due = [f for f in self.files
+               if state.step % f[2] == 0 and state.step > f[3][0]]
+        if not due:
+            return
+        t0 = time.perf_counter()
+        p = self.params
+        x, box = state.x.cpu().numpy(), state.box.cpu().numpy()
+        t = state.step * p.dt
+        for kind, path, _, done in due:
+            if kind == "trr":
+                v = (state.v.cpu().numpy() if p.nstvout == p.nstxout
+                     else None)
+                write_trr_frame(path, x, box, v=v, step=state.step, time=t,
+                                lam=float(state.lam[int(FC.FEP)]))
+            else:
+                write_xtc_frame(path, x, box, step=state.step, time=t,
+                                precision=p.compressed_x_precision)
+            done[0], done[1] = state.step, done[1] + 1
+        self.seconds += time.perf_counter() - t0
+
+    def report(self):
+        n = sum(done[1] for _, _, _, done in self.files)
+        if n:
+            print("trajectory: " + ", ".join(
+                f"{done[1]} frames to {path}"
+                for _, path, _, done in self.files)
+                + f"; {self.seconds / n * 1e3:.3f} ms per frame written "
+                "(host clock, the copy from the device included)")
+
+
+def em_functions(runner, state):
+    """(force(x, box, lam) -> (f, terms), constrain_fn or None, valid_fn or
+    None, calls) of a minimization from `state`: the force on a fresh pair
+    list (MdRunner.evaluate), the constraints of the system (SETTLE, LINCS)
+    at state's masses and bonded lambda, and whether a constrained trial
+    holds every constraint length to EM_CONSTRAINT_TOL (the water SETTLE's
+    Newton solve does not converge for displacements of a few hundredths
+    of a nm, and a step that grew on acceptance reaches them; the
+    minimizer rejects such a trial); calls[0] counts the force calls and
+    calls[1] (a tensor on the device, or 0) the trials valid_fn rejected."""
+    from .core.types import FepCoupling as FC
+    from .md import constraints as constr_mod
+    from .md.simulator import masses_at_lambda
+
+    system, params = runner.system, runner.params
+    calls = [0]
+
+    def force(x, box, lam):
+        calls[0] += 1
+        f, terms, _ = runner.evaluate(state.replace(x=x, box=box, lam=lam))
+        return f, terms
+
+    constrain_fn = valid_fn = None
+    if constr_mod.n_constraints(system) > 0:
+        _, invmass = masses_at_lambda(system, state.lam[int(FC.MASS)])
+        lam_b = state.lam[int(FC.BONDED)]
+
+        def constrain_fn(x_ref, x_try):
+            return constr_mod.constrain(x_ref, x_try, state.box, system,
+                                        invmass, lam_b, params.lincs_order,
+                                        params.lincs_iter)
+
+        calls.append(torch.zeros((), dtype=torch.int64,
+                                 device=state.x.device))
+
+        def valid_fn(x):
+            ok = constr_mod.max_deviation(x, state.box, system,
+                                          lam_b) <= EM_CONSTRAINT_TOL
+            calls[1] += ~ok
+            return ok
+    else:
+        calls.append(0)
+    return force, constrain_fn, valid_fn, calls
+
+
+def _do_minimize(args, pp, params, data, config, device):
+    """Energy minimization (JAX cli.py _do_minimize; reference:
+    minimize.cpp do_steep / do_cg / do_lbfgs) at the run input's lambda:
+    each force call on a fresh pair list (MdRunner.evaluate, the energy
+    flavour), every constraint (SETTLE, LINCS) applied to each trial step.
+    Prints JAX's result line and the ms per EM step, writes <deffnm>.gro;
+    returns (runner, md/minimize.py MinimizeResult)."""
+    from .core.types import IntegratorType as IT
+    from .io.groio import write_gro
+    from .md.minimize import conjugate_gradient, l_bfgs, steepest_descent
+    from .md.runner import MdRunner
+
+    system, state = pp.system, pp.state
+    runner = MdRunner(system, params, config)
+    force, constrain_fn, valid_fn, calls = em_functions(runner, state)
+    algo = {IT.STEEP: steepest_descent, IT.CG: conjugate_gradient,
+            IT.LBFGS: l_bfgs}[params.integrator]
+    kw = {"m": params.nbfgscorr} if params.integrator == IT.LBFGS else {}
+    t0 = time.time()
+    res = algo(state.x, state.box, state.lam, force,
+               nsteps=params.nsteps if params.nsteps > 0 else 1000,
+               emtol=params.emtol, step0=params.emstep,
+               constrain_fn=constrain_fn, valid_fn=valid_fn, **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.time() - t0
+    print(f"{params.integrator.value}: {res.n_steps} steps, "
+          f"Epot = {float(res.epot):.4f} kJ/mol, "
+          f"Fmax = {float(res.fmax):.4f} kJ/mol/nm "
+          f"({'converged' if res.converged else 'not converged'} "
+          f"at emtol {params.emtol})")
+    print(f"Performance: {wall / max(res.n_steps, 1) * 1e3:.3f} ms per EM "
+          f"step ({calls[0]} force calls, {int(calls[1])} trials whose "
+          f"constraints failed, {wall:.1f} s wall, "
+          f"{system.n_atoms} atoms)")
+    write_gro(f"{args.deffnm}.gro", "tpumd minimized",
+              [str(n) for n in data["names"]],
+              [str(r) for r in data["resnames"]], res.x.cpu().numpy(), None,
+              state.box.cpu().numpy())
+    return runner, res
+
+
+def _do_rerun(args, pp, params, data, lam_arr, config, device):
+    """Energies, dV/dlambda and the Delta H sweep of every frame of a .trr
+    or .xtc (JAX cli.py _do_rerun; reference: mdrun/rerun.cpp), each on a
+    fresh pair list (MdRunner.evaluate), at the run input's lambda: writes
+    <deffnm>.ener.csv (time, Epot) and <deffnm>.dhdl.xvg (mdrun's
+    writer); returns (runner, the per-frame values as numpy arrays)."""
+    from .io.mdpio import parse_mdp
+    from .md.runner import MdRunner
+
+    if parse_mdp(str(data["mdp"])).get("energygrps", "").split():
+        raise NotImplementedError(
+            "mdrun -rerun with energygrps is not ported yet (ROADMAP item "
+            "8: the group-pair energies, JAX's dense decomposition)")
+    system, state = pp.system, pp.state
+    scan, read = _traj_io(args.rerun, "mdrun -rerun")
+    natoms, nframes = scan(args.rerun)
+    if natoms != system.n_atoms:
+        raise SystemExit(f"rerun trajectory has {natoms} atoms, topology "
+                         f"has {system.n_atoms}")
+    runner = MdRunner(system, params, config, all_lambda=lam_arr)
+    times, steps, epot, dvdl, delta_h = [], [], [], [], []
+    for i in range(nframes):
+        fr = read(args.rerun, i, natoms)
+        st = state.replace(
+            x=torch.as_tensor(fr["x"], device=device),
+            box=torch.as_tensor(fr["box"], device=device), step=fr["step"])
+        _, terms, dh = runner.evaluate(st, foreign=True)
+        times.append(fr["time"])
+        steps.append(fr["step"])
+        epot.append(terms.epot)
+        dvdl.append(terms.dvdl)
+        if dh is not None:
+            delta_h.append(dh)
+    out = types.SimpleNamespace(
+        time=np.asarray(times, np.float64), step=np.asarray(steps),
+        epot=torch.stack(epot).cpu().numpy() if epot else np.zeros(0),
+        dvdl=torch.stack(dvdl).cpu().numpy() if dvdl else np.zeros((0, 7)),
+        delta_h=(torch.stack(delta_h).cpu().numpy() if delta_h else None))
+    np.savetxt(f"{args.deffnm}.ener.csv", np.stack([out.time, out.epot], 1),
+               header="time epot", comments="# ")
+    if lam_arr is not None:
+        _write_dhdl(f"{args.deffnm}.dhdl.xvg", pp, out.time, out.dvdl,
+                    out.delta_h, lam_arr, state.fep_state)
+    print(f"rerun: {nframes} frames evaluated from {args.rerun}")
+    return runner, out
+
+
 def cmd_mdrun(args):
     """The md path; returns (runner, final state)."""
     from .core.types import FepCoupling as FC
@@ -186,35 +420,41 @@ def cmd_mdrun(args):
                            dhcoll_block)
     from .io.groio import write_gro
     from .io.logio import MdLogWriter
-    from .io.xvgio import write_dhdl_xvg
     from .md.runner import MdRunner, RunnerConfig, concat_logs
 
     for given, what in (
             (args.s.endswith(".tpr") or args.mdp,
              "-s .tpr / -mdp: reading GROMACS run input (ROADMAP item 8)"),
-            (args.rerun, "-rerun (ROADMAP slice 16)"),
             (args.tunepme, "-tunepme (ROADMAP slice 16)"),
             (str(args.dd).strip() not in ("0", "1", ""),
              "-dd (ROADMAP slice 17)")):
         if given:
             raise NotImplementedError(f"mdrun {what} is not ported yet")
+    if args.rerun:
+        _traj_io(args.rerun, "mdrun -rerun")
     device = _device(args)
     pp, data = _load_tpz(args.s, device)
     system, params, state, all_lambda = (pp.system, pp.params, pp.state,
                                          pp.all_lambda)
     if args.nsteps is not None:
         params = params.replace(nsteps=args.nsteps)
-    if params.nsteps <= 0:
-        raise ValueError(f"nsteps = {params.nsteps}: mdrun needs nsteps > 0")
     lam_arr = None if all_lambda is None else np.asarray(all_lambda.T)
     seed = params.ld_seed if params.ld_seed >= 0 else 1993
-    runner = MdRunner(system, params,
-                      RunnerConfig(layout=fep_layout(args.fep, data["box"],
-                                                     device),
-                                   seed=seed),
-                      all_lambda=lam_arr)
-    if args.cpi and os.path.exists(args.cpi):
+    config = RunnerConfig(layout=fep_layout(args.fep, data["box"], device),
+                          seed=seed)
+    if args.rerun:
+        return _do_rerun(args, pp, params, data, lam_arr, config, device)
+    if params.integrator in (IntegratorType.STEEP, IntegratorType.CG,
+                             IntegratorType.LBFGS):
+        return _do_minimize(args, pp, params, data, config, device)
+    if params.nsteps <= 0:
+        raise ValueError(f"nsteps = {params.nsteps}: mdrun needs nsteps > 0")
+    runner = MdRunner(system, params, config, all_lambda=lam_arr)
+    restart = bool(args.cpi and os.path.exists(args.cpi))
+    if restart:
         state = _restore(args, state, runner, params, device)
+    frames = TrajectoryOutput(args.deffnm, params, append=restart)
+    frames(state)
 
     # stop handler: SIGTERM/SIGINT and -maxh end the run cleanly at the
     # next verified chunk with every output and the checkpoint written
@@ -240,8 +480,10 @@ def cmd_mdrun(args):
     try:
         state, logs = runner.run(
             state, params.nsteps,
+            callback=lambda st, lg, done: frames(st),
             stop_condition=lambda: (stop_flag["stop"] or (
-                t_end is not None and time.time() > t_end)))
+                t_end is not None and time.time() > t_end)),
+            chunk_ends=frames.intervals)
     finally:
         for sg, h in old_handlers.items():
             signal.signal(sg, h)
@@ -262,13 +504,8 @@ def cmd_mdrun(args):
                header="time epot ekin temp pres", comments="# ")
     if all_lambda is not None:
         keep = ~np.isnan(log.delta_h[:, 0])
-        # the JAX writer's columns, and dH/drestraint-lambda where the mdp
-        # gives restraint-lambdas
-        dhdl_comps = (FC.COUL, FC.VDW, FC.BONDED) + (
-            (FC.RESTRAINT,) if pp.separate_dvdl[int(FC.RESTRAINT)] else ())
-        write_dhdl_xvg(f"{deffnm}.dhdl.xvg", times[keep], log.dvdl[keep],
-                       log.delta_h[keep], lam_arr, state.fep_state,
-                       components=dhdl_comps, temperature=params.ref_t)
+        _write_dhdl(f"{deffnm}.dhdl.xvg", pp, times[keep], log.dvdl[keep],
+                    log.delta_h[keep], lam_arr, state.fep_state)
     # binary .edr with per-frame BAR delta-H blocks (gmx energy / gmx bar
     # interop; reference: fileio/enxio.cpp, mdlib/mdebin_bar.cpp)
     etot = log.epot + log.ekin
@@ -327,6 +564,7 @@ def cmd_mdrun(args):
     ns_day = n_done * params.dt / 1000.0 / max(wall, 1e-9) * 86400.0
     report = runner.wallcycle.report()
     print(report)
+    frames.report()
     print(f"\nPerformance: {ns_day:10.3f} ns/day  "
           f"{wall / max(n_done, 1) * 1e3:.3f} ms/step  ({wall:.1f} s wall, "
           f"{n_done} steps, {system.n_atoms} atoms)")
@@ -437,16 +675,55 @@ def cmd_bar(args):
     return total, err
 
 
+def _traj_io(path, what):
+    """(scan, read_frame) of a .trr or .xtc file; other formats raise."""
+    from .io.trrio import read_trr_frame, scan_trr
+    from .io.xtcio import read_xtc_frame, scan_xtc
+    if path.endswith(".trr"):
+        return scan_trr, read_trr_frame
+    if path.endswith(".xtc"):
+        return scan_xtc, read_xtc_frame
+    raise NotImplementedError(f"{what} {path}: trajectories other than "
+                              ".trr and .xtc are not ported yet (ROADMAP "
+                              "item 8)")
+
+
+def _check_traj(path):
+    """gmx check -f: atoms, frames, the first and last step and time,
+    which frames carry v / f (trr) and the precision (xtc)."""
+    scan, read = _traj_io(path, "check -f")
+    natoms, nframes = scan(path)
+    frames = [read(path, i, natoms) for i in range(nframes)]
+    print(f"{path}: {nframes} frames, {natoms} atoms")
+    if frames:
+        print(f"steps {frames[0]['step']} .. {frames[-1]['step']}, time "
+              f"{frames[0]['time']:g} .. {frames[-1]['time']:g} ps; "
+              "non-finite frames: "
+              f"{sum(not np.isfinite(fr['x']).all() for fr in frames)}")
+    prec = frames[0].get("precision") if frames else None
+    if path.endswith(".xtc"):
+        print(f"precision: {prec} /nm (xtc, compressed)")
+    else:
+        print("precision: single (trr, float32); frames with v: "
+              f"{sum(fr['v'] is not None for fr in frames)}, with f: "
+              f"{sum(fr['f'] is not None for fr in frames)}")
+    return types.SimpleNamespace(natoms=natoms, nframes=nframes,
+                                 steps=[fr["step"] for fr in frames],
+                                 precision=prec)
+
+
 def cmd_check(args):
     """Summary of a run input (.tpz), a checkpoint (the port's .cpt or a
     GROMACS .cpt) or an energy file (.edr)."""
     from .io.cptio import is_gmx_cpt, read_gmx_cpt
 
     if args.f:
-        raise NotImplementedError("check -f: trr/xtc trajectories are not "
-                                  "ported yet (ROADMAP item 8)")
+        traj = _check_traj(args.f)
+        if not args.s:
+            return traj
     if not args.s:
-        raise SystemExit("check: give -s run input, checkpoint or edr")
+        raise SystemExit("check: give -s run input, checkpoint or edr, or "
+                         "-f trajectory")
     if args.s.endswith(".tpr"):
         raise NotImplementedError("check -s .tpr: reading GROMACS run "
                                   "input is not ported yet (ROADMAP item 8)")
@@ -524,7 +801,8 @@ def main(argv=None, device="cuda"):
     m.add_argument("-nsteps", type=int, default=None)
     m.add_argument("-cpi", default=None, help="checkpoint to restart from "
                    "(the port's .cpt or a GROMACS .cpt)")
-    m.add_argument("-rerun", default=None, help="not ported yet")
+    m.add_argument("-rerun", default=None, help="evaluate the frames of "
+                   "a .trr or .xtc (energies, dV/dlambda, Delta H)")
     m.add_argument("-tunepme", action="store_true", help="not ported yet")
     m.add_argument("-maxh", type=float, default=0.0,
                    help="stop cleanly (checkpoint + outputs) after "
@@ -560,7 +838,7 @@ def main(argv=None, device="cuda"):
     c = sub.add_parser("check", help="inspect run input, checkpoint or "
                        "energy files (reference: gmx check/dump)")
     c.add_argument("-s", default=None, help=".tpz, .cpt or .edr")
-    c.add_argument("-f", default=None, help="trajectory (not ported yet)")
+    c.add_argument("-f", default=None, help="trajectory (.trr or .xtc)")
     c.set_defaults(fn=cmd_check)
 
     args = p.parse_args(argv)

@@ -46,6 +46,10 @@ class IntegratorType(enum.Enum):
     MD_VV = "md-vv"
     SD = "sd"            # leapfrog Langevin (md/integrators.py)
     BD = "bd"
+    # energy minimizers (md/minimize.py; mdrun runs them, cli.py)
+    STEEP = "steep"
+    CG = "cg"
+    LBFGS = "l-bfgs"
 
 
 class TcouplType(enum.Enum):
@@ -134,10 +138,16 @@ class MdParams:
     nstpcouple: int = 10
     ld_seed: int = 1993                # seeds the thermostat's generator
     nstcomm: int = 100
-    # trajectory output (trr / xtc frames every N steps; the port writes
-    # neither yet, so the mdp reader raises on N > 0)
+    # energy minimization (reference: inputrec em_tol / em_stepsize)
+    emtol: float = 10.0                # kJ/mol/nm max-force convergence
+    emstep: float = 0.01               # initial step, nm
+    nbfgscorr: int = 10                # L-BFGS history size
+    # trajectory output: trr x (and v with nstvout = nstxout) and xtc x
+    # frames at every step that is a multiple of N (0 = off)
     nstxout: int = 0
+    nstvout: int = 0
     nstxout_compressed: int = 0
+    compressed_x_precision: float = 1000.0   # xtc precision (1/nm)
     nstcalcenergy: int = 1
     nstlog: int = 1000                 # md.log energy-block interval
     # LINCS expansion order and length-correction rounds (mdp lincs-order,

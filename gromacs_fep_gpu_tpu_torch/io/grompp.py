@@ -5,7 +5,8 @@ preprocess_arrays; reference: src/gromacs/gmxpreprocess/grompp.cpp:1869
 gmx_grompp).
 
 The transforms run in the reference order: couple-moltype conversion,
-constraints = h-bonds | all-bonds (bonds -> LINCS rows), the PME grid
+constraints = h-bonds | all-bonds (bonds -> LINCS rows; integrator = cg
+or l-bfgs with any constraint, SETTLE included, raises), the PME grid
 (fft/calcgrid.cpp), gen-vel start velocities and the initial lambda
 vector (mdlib/freeenergyparameters.cpp).  gen-vel draws from numpy's
 default_rng exactly as the JAX package does, so the same seed gives the
@@ -22,8 +23,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.types import (CoulombType, FepCoupling, MdParams, State, System,
-                          make_state)
+from ..core.types import (CoulombType, FepCoupling, IntegratorType,
+                          MdParams, State, System, make_state)
 from ..core.units import BOLTZ
 from .mdpio import mdp_extras, mdp_to_params, parse_mdp
 from .ndxio import default_groups, parse_ndx, resolve_group
@@ -177,6 +178,16 @@ def preprocess_arrays(mdp_text: str, top_text: str, names, resnames,
         raise ValueError(f"topology has {system.n_atoms} atoms, "
                          f"coordinates {x.shape[0]}")
     set_posres_reference(system, x if posres_x is None else posres_x)
+    n_settle = int(system.settle.atoms.shape[0])
+    if (params.integrator in (IntegratorType.CG, IntegratorType.LBFGS)
+            and n_settle + int(system.lincs.atoms.shape[0]) > 0):
+        raise NotImplementedError(
+            f"integrator = {params.integrator.value} with {n_settle} SETTLE "
+            f"water(s) and {int(system.lincs.atoms.shape[0])} constraint(s):"
+            f" {params.integrator.value} cannot run with constraints, SETTLE "
+            "included (GROMACS refuses them); use integrator = steep, or "
+            "flexible water (define = -DFLEXIBLE with a topology that has "
+            "it)")
 
     # energy groups name index groups (reference: readir.cpp do_egp_flag):
     # checked here; md writes no per-group energies, as in the JAX package

@@ -20,6 +20,13 @@ isotropic, and berendsen | parrinello-rahman with semiisotropic (ref-p and
 compressibility then take two values, xy and z); mttk, anisotropic,
 surface-tension and semiisotropic c-rescale raise.
 
+integrator = steep | cg | l-bfgs run the minimizers (md/minimize.py):
+emtol, emstep and nbfgscorr; cg and l-bfgs with constraints raise (GROMACS
+refuses them; the JAX minimizers project their trial steps), and so does
+mts = yes with a minimizer.  nstxout, nstvout (0 or nstxout) and
+nstxout-compressed with compressed-x-precision write trr and xtc frames;
+nstfout and compressed-x-grps other than the whole system raise.
+
 constraints = h-bonds | all-bonds make LINCS rows of the bonds (io/topio.py
 make_hbond_constraints) solved with lincs-order and lincs-iter; h-angles,
 all-angles and constraint-algorithm = shake raise, where the JAX reader
@@ -43,7 +50,10 @@ _VMOD = {"none": VdwModifier.NONE,
          "potential-shift-verlet": VdwModifier.POTENTIAL_SHIFT,
          "potential-switch": VdwModifier.POTENTIAL_SWITCH,
          "force-switch": VdwModifier.FORCE_SWITCH}
-_INTEG = {"md": IntegratorType.MD, "sd": IntegratorType.SD}
+_INTEG = {"md": IntegratorType.MD, "sd": IntegratorType.SD,
+          "steep": IntegratorType.STEEP, "cg": IntegratorType.CG,
+          "l-bfgs": IntegratorType.LBFGS}
+_MINIMIZERS = ("steep", "cg", "l-bfgs")
 _TC = {"no": TcouplType.NO, "v-rescale": TcouplType.V_RESCALE}
 _PC = {"no": PcouplType.NO, "berendsen": PcouplType.BERENDSEN,
        "c-rescale": PcouplType.C_RESCALE,
@@ -76,8 +86,7 @@ def _nonzero(v: str) -> bool:
 # mdp_to_params as well.
 _UNSUPPORTED = (
     ("integrator", lambda v: _first(v) not in _INTEG,
-     "ROADMAP item 5 (bd, md-vv) or slice 16 (steep, cg, l-bfgs, nm, "
-     "tpi)"),
+     "ROADMAP item 5 (bd, md-vv) or slice 16 (nm, tpi)"),
     ("tcoupl", lambda v: _first(v) not in _TC, "ROADMAP item 5"),
     ("tc-grps", lambda v: len(v.split()) > 1,
      "ROADMAP item 5 (one coupling group)"),
@@ -128,10 +137,11 @@ _UNSUPPORTED = (
     ("mts-level2-forces",
      lambda v: v.lower().split() != ["longrange-nonbonded"],
      "MTS of the PME reciprocal force only"),
-    ("nstxout", _nonzero, "ROADMAP item 8 (trr output)"),
-    ("nstvout", _nonzero, "ROADMAP item 8 (trr output)"),
-    ("nstfout", _nonzero, "ROADMAP item 8 (trr output)"),
-    ("nstxout-compressed", _nonzero, "ROADMAP item 8 (xtc output)"),
+    ("nstfout", _nonzero, "ROADMAP item 8a (forces in the trr)"),
+    ("compressed-x-grps",
+     lambda v: _first(v) != "system",
+     "ROADMAP item 8a (xtc of a group; the JAX reader writes the whole "
+     "system)"),
     ("freezegrps", lambda v: bool(v.split()), "frozen atoms"),
     ("acc-grps", lambda v: bool(v.split()), "accelerated groups"),
     ("cos-acceleration", _nonzero, "cosine acceleration"),
@@ -175,6 +185,26 @@ def unsupported_options(kv: Dict[str, str]):
         if v is not None and v.strip() and rejects(v):
             raise NotImplementedError(
                 f"mdp: {key} = {v} is not ported yet ({lifted_by})")
+    nstxout = int(_lookup(kv, "nstxout") or 0)
+    nstvout = int(_lookup(kv, "nstvout") or 0)
+    if nstvout not in (0, nstxout):
+        raise NotImplementedError(
+            f"mdp: nstvout = {nstvout} with nstxout = {nstxout} is not "
+            "ported yet (ROADMAP item 8a: velocities go into the trr "
+            "frames of x, nstvout = 0 or nstxout)")
+    integ = _first(_lookup(kv, "integrator") or "md")
+    if integ in _MINIMIZERS:
+        if _first(_lookup(kv, "mts") or "no") in ("yes", "true"):
+            raise NotImplementedError(
+                f"mdp: mts = yes with integrator = {integ}: GROMACS runs "
+                "multiple time stepping with integrator = md only")
+        cons = _first(_lookup(kv, "constraints") or "none")
+        if integ != "steep" and cons not in ("none", ""):
+            raise NotImplementedError(
+                f"mdp: integrator = {integ} with constraints = {cons}: "
+                f"{integ} cannot run with constraints (GROMACS refuses "
+                "them); use integrator = steep, or flexible bonds "
+                "(constraints = none, define = -DFLEXIBLE for the water)")
     pc = _first(_lookup(kv, "pcoupl") or "no")
     pct = _first(_lookup(kv, "pcoupltype") or "isotropic")
     if pc != "no" and pct not in _PCT:
@@ -340,8 +370,13 @@ def mdp_to_params(text: str) -> Tuple[MdParams, Optional[np.ndarray]]:
         nstpcouple=get("nstpcouple", 10, int),
         ld_seed=get("ld-seed", 1993, int),
         nstcomm=get("nstcomm", 100, int),
+        emtol=get("emtol", 10.0),
+        emstep=get("emstep", 0.01),
+        nbfgscorr=get("nbfgscorr", 10, int),
         nstxout=get("nstxout", 0, int),
+        nstvout=get("nstvout", 0, int),
         nstxout_compressed=get("nstxout-compressed", 0, int),
+        compressed_x_precision=get("compressed-x-precision", 1000.0),
         nstcalcenergy=get("nstcalcenergy", 1, int),
         nstlog=get("nstlog", 1000, int),
         # multiple time stepping (reference: readir.cpp mts block)

@@ -227,6 +227,32 @@ def constrain(x0, x1, box, system, invmass, lam_bonded=None,
     return out[:-1] + (out[-1] + vir_s,)
 
 
+def max_deviation(x, box, system, lam_bonded=None):
+    """Largest |r - d| / d over every SETTLE bond and LINCS row of
+    `system` at positions x (minimum image; LINCS lengths mixed at
+    lam_bonded), a 0-d tensor on x's device; NaN where x is not finite."""
+    dev = x.new_zeros(())
+    st = system.settle
+    if st.atoms.shape[0] > 0:
+        o, h1, h2 = (x[st.atoms[:, i]] for i in range(3))
+        for a, b, d in ((o, h1, st.d_oh), (o, h2, st.d_oh),
+                        (h1, h2, st.d_hh)):
+            r = torch.linalg.norm(pbc_mod.pbc_dx(a - b, box), dim=-1)
+            rel = (r - d).abs() / torch.where(st.mask > 0, d,
+                                              torch.ones_like(d))
+            dev = torch.maximum(dev, (rel * st.mask).max())
+    lc = system.lincs
+    if lc.atoms.shape[0] > 0:
+        lam = 0.0 if lam_bonded is None else lam_bonded
+        d = (1.0 - lam) * lc.length_a + lam * lc.length_b
+        r = torch.linalg.norm(
+            pbc_mod.pbc_dx(x[lc.atoms[:, 0]] - x[lc.atoms[:, 1]], box), dim=-1)
+        rel = (r - d).abs() / torch.where(lc.mask > 0, d,
+                                          torch.ones_like(d))
+        dev = torch.maximum(dev, (rel * lc.mask).max())
+    return dev
+
+
 def n_constraints(system) -> int:
     return (3 * int(system.settle.atoms.shape[0])
             + int(system.lincs.atoms.shape[0]))

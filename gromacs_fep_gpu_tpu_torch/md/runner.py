@@ -19,7 +19,9 @@ uses the lists: on a capacity overflow the capacities grow by the JAX
 contract (need = max(flag, cap) * 1.25 + 8, rounded up to 32 for the union
 list and to 16 for the per-cluster list) and the chunk restarts from its
 verified start state, so no step ever runs on an overflowed list.
-Excluded pairs beyond rlist fail hard.
+Excluded pairs beyond rlist fail hard.  evaluate(state) is one force call
+(energies) at any positions on a fresh rebuild, for the minimizers and
+mdrun -rerun, through the same lists, growth and roll-back.
 
 Domain decomposition (a mesh whose spatial axis has more than one domain):
 the rebuild sorts atoms so that each domain owns a contiguous cluster range
@@ -36,7 +38,7 @@ global arrays), the update and the Delta H sweep stay on the home device
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -397,9 +399,7 @@ class MdRunner:
                     raise ValueError(
                         f"mts-level2-factor {m} requires {nm} (= {n}) to "
                         "be a multiple of it (reference: readir.cpp)")
-        b = state.box.cpu().numpy()
-        if np.abs(b - np.diag(np.diag(b))).max() > 1e-6:
-            raise NotImplementedError("triclinic boxes are not ported yet")
+        _check_box(state)
 
     def step_fn(self, nlist, feplist, prep):
         """step(state, flavor) on one rebuild's lists (make_step_fn with
@@ -474,14 +474,36 @@ class MdRunner:
                 continue
             return nlist, feplist, prep, fl
 
+    def evaluate(self, state: State, foreign: bool = False):
+        """(f, terms, delta_h) at state.x, state.box and state.lam, any
+        positions (a minimizer's trial step, a trajectory frame): a fresh
+        rebuild through lists() (growth and roll-back on overflow), then
+        the force's energy flavour (VF: energies and dV/dlambda).  With
+        foreign=True and a ladder, delta_h is the (L,) Delta H sweep on the
+        same lists, else None (JAX's _bound_force and _do_rerun's eval
+        rebuild their list on every call too, cli.py:634-659)."""
+        _check_box(state)
+        nlist, feplist, prep, fl = self.lists(state)
+        self.last_flags = fl
+        f, terms = self._force_fn(state.x, state.box, state.lam, nlist,
+                                  feplist, prep, need_energy=True)
+        delta_h = None
+        if foreign and self._foreign is not None:
+            delta_h = self._foreign(feplist)(state.x, state.box, state.lam)
+        return f, terms, delta_h
+
     def run(self, state: State, nsteps: int,
             callback: Optional[Callable] = None,
-            stop_condition: Optional[Callable[[], bool]] = None
+            stop_condition: Optional[Callable[[], bool]] = None,
+            chunk_ends: Sequence[int] = ()
             ) -> Tuple[State, List[StepLog]]:
         """Run nsteps; returns (final state, per-chunk stacked StepLogs).
         Each chunk rebuilds its lists at its verified start state (lists),
         so a roll-back on overflow never runs a step on an overflowed
-        list.
+        list.  A chunk is nstlist steps long, and ends early at every step
+        that is a multiple of an entry of chunk_ends (the trajectory
+        intervals: the callback then sees the state of that step; an
+        interval that is a multiple of nstlist changes no chunk).
 
         After each chunk (a verified state: its lists were checked before
         its first step) callback(state, chunk_log, done) is called, then
@@ -495,7 +517,9 @@ class MdRunner:
         nst = max(1, min(self.params.nstlist, nsteps))
         logs, done = [], 0
         while done < nsteps:
-            seg_len = min(nst, nsteps - done)
+            seg_len = min([nst, nsteps - done] + [n - state.step % n
+                                                  for n in chunk_ends
+                                                  if n > 0])
             flavors = self._flavor_pattern(state.step, seg_len)
             with self.wallcycle.region("overflow_check"):
                 nlist, feplist, prep, fl = self.lists(state)
@@ -515,6 +539,12 @@ class MdRunner:
                 self.stopped_at = done
                 break
         return state, logs
+
+
+def _check_box(state: State):
+    b = state.box.cpu().numpy()
+    if np.abs(b - np.diag(np.diag(b))).max() > 1e-6:
+        raise NotImplementedError("triclinic boxes are not ported yet")
 
 
 def concat_logs(logs: List[StepLog]) -> StepLog:

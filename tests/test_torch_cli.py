@@ -42,7 +42,11 @@ from gromacs_fep_gpu_tpu.io.xvgio import read_xvg as jread_xvg
 from gromacs_fep_gpu_tpu_torch import cli as tcli
 from gromacs_fep_gpu_tpu_torch.io.checkpoint import load_checkpoint
 from gromacs_fep_gpu_tpu_torch.io.edrio import ENX_DH, read_edr
+from gromacs_fep_gpu_tpu_torch.io.pdbio import read_structure
+from gromacs_fep_gpu_tpu_torch.io.trrio import read_trr_frame, scan_trr
+from gromacs_fep_gpu_tpu_torch.io.xtcio import read_xtc_frame, scan_xtc
 from gromacs_fep_gpu_tpu_torch.io.xvgio import read_xvg
+from gromacs_fep_gpu_tpu_torch.md.constraints import max_deviation
 
 import torch_bridge  # noqa: F401  (one torch thread per worker)
 
@@ -265,16 +269,151 @@ def test_fep_flag_maps_to_layout(fep, device, box, layout):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["mdrun", "-s", "t1.tpz", "-rerun", "x.trr"], "rerun"),
+    (["mdrun", "-s", "t1.tpz", "-rerun", "x.gro"], "rerun"),
     (["mdrun", "-s", "t1.tpz", "-tunepme"], "tunepme"),
     (["mdrun", "-s", "t1.tpz", "-dd", "2x2x2"], "-dd"),
     (["mdrun", "-s", "x.tpr", "-mdp", "md1.mdp"], "tpr"),
     (["grompp", "-f", "md1.mdp", "-p", "topol.top", "-c", "conf.gro",
       "-o", "x.tpr"], "tpr"),
-    (["check", "-f", "x.xtc"], "xtc")])
+    (["check", "-f", "x.gro"], "xtc")])
 def test_unported_cli_options_raise(argv, what):
     with pytest.raises(NotImplementedError, match=what):
         _port(*argv)
+
+
+@pytest.mark.parametrize("mdp,rerun,what", [
+    ({"energygrps": "Water"}, True, "energygrps"),
+    ({"integrator": "cg"}, False, "SETTLE")])
+def test_rerun_energygrps_and_cg_with_settle_raise(example, monkeypatch, mdp,
+                                                   rerun, what):
+    """-rerun with energy groups raises at mdrun, cg with SETTLE waters at
+    grompp."""
+    monkeypatch.chdir(example)
+    tag = "raise_" + "_".join(mdp)
+    Path(f"{tag}.mdp").write_text(_mdp(1, **mdp))
+    with pytest.raises(NotImplementedError, match=what):
+        _port("grompp", "-f", f"{tag}.mdp", "-p", "topol.top", "-c",
+              "conf.gro", "-o", f"{tag}.tpz")
+        if rerun:
+            _port("mdrun", "-s", f"{tag}.tpz", "-rerun", "x.trr")
+
+
+def _steps(path):
+    scan, read = ((scan_trr, read_trr_frame) if path.endswith(".trr")
+                  else (scan_xtc, read_xtc_frame))
+    na, nf = scan(path)
+    return [read(path, i, na) for i in range(nf)]
+
+
+def test_em_window_frames_rerun_bar_chain(example, monkeypatch):
+    """grompp em.mdp -> mdrun (steep) -> em.gro -> grompp of windows 0 and
+    1 with nstxout = nstvout = nstxout-compressed = 5 -> mdrun -> frames
+    at steps 0, 5, 10 (the last one the final state) -> mdrun -rerun of
+    each .trr reproduces the window's dhdl.xvg rows at 1e-4 of the largest
+    entry -> bar over the runs and over the reruns; -rerun of an .xtc and
+    check -f of both formats."""
+    monkeypatch.chdir(example)
+    Path("chain_em.mdp").write_text(_mdp(1, integrator="steep", emtol=10))
+    _port("grompp", "-f", "chain_em.mdp", "-p", "topol.top", "-c",
+          "conf.gro", "-o", "chain_em.tpz")
+    _, res = _port("mdrun", "-s", "chain_em.tpz", "-deffnm", "chain_em")
+    trace = res.epot_trace.numpy()
+    assert res.n_steps == NSTEPS and trace[-1] < trace[0]
+    np.testing.assert_allclose(read_structure("chain_em.gro")[2],
+                               res.x.numpy(), atol=6e-4)
+    traj = {"nstxout": 5, "nstvout": 5, "nstxout-compressed": 5}
+    runs, reruns = [], []
+    for w in (0, 1):
+        Path(f"chain{w}.mdp").write_text(_mdp(w, **traj))
+        _port("grompp", "-f", f"chain{w}.mdp", "-p", "topol.top", "-c",
+              "chain_em.gro", "-o", f"chain{w}.tpz")
+        _, st = _port("mdrun", "-s", f"chain{w}.tpz", "-deffnm",
+                      f"chain{w}", "-fep", "gpu")
+        trr, xtc = _steps(f"chain{w}.trr"), _steps(f"chain{w}.xtc")
+        assert [f["step"] for f in trr] == [f["step"] for f in xtc] == \
+            [0, 5, 10]
+        np.testing.assert_array_equal(trr[-1]["x"], st.x.numpy())
+        np.testing.assert_array_equal(trr[-1]["v"], st.v.numpy())
+        _, out = _port("mdrun", "-s", f"chain{w}.tpz", "-rerun",
+                       f"chain{w}.trr", "-deffnm", f"chain_rr{w}", "-fep",
+                       "gpu")
+        assert list(out.step) == [0, 5, 10]
+        (tw, lw), (tr, lr) = (read_xvg(f"chain{w}.dhdl.xvg"),
+                              read_xvg(f"chain_rr{w}.dhdl.xvg"))
+        # the run's rows at steps 0 and 5; the trr keeps time in float32
+        assert lr == lw and tr.shape == (3, tw.shape[1])
+        np.testing.assert_allclose(tr[:2, 0], tw[:, 0], rtol=1e-6)
+        np.testing.assert_allclose(tr[:2, 1:], tw[:, 1:], rtol=0,
+                                   atol=1e-4 * np.abs(tw[:, 1:]).max())
+        runs.append(f"chain{w}.dhdl.xvg")
+        reruns.append(f"chain_rr{w}.dhdl.xvg")
+    for files in (runs, reruns):
+        dg, err = _port("bar", "-f", *files, "-b", "0")
+        assert np.isfinite(dg) and np.isfinite(err)
+    _, out = _port("mdrun", "-s", "chain1.tpz", "-rerun", "chain1.xtc",
+                   "-deffnm", "chain_rx1")
+    assert np.isfinite(out.delta_h).all() and out.delta_h.shape == (3, N_WIN)
+    for kind, prec in (("trr", None), ("xtc", 1000.0)):
+        info = _port("check", "-f", f"chain1.{kind}")
+        assert (info.natoms, info.steps, info.precision) == (
+            st.n_atoms, [0, 5, 10], prec)
+
+
+def test_em_rejects_a_step_settle_cannot_hold(example, monkeypatch):
+    """steep with emstep 0.1 nm on the example: the first trial moves
+    waters farther than the Newton SETTLE solves, so its constrained
+    positions break them; the minimizer rejects it (without that, the
+    broken waters reach the pair list and the excluded-pairs check fails
+    hard), the energy never rises and every water keeps its geometry."""
+    monkeypatch.chdir(example)
+    Path("big_em.mdp").write_text(_mdp(1, integrator="steep", emtol=10,
+                                       emstep=0.1))
+    _port("grompp", "-f", "big_em.mdp", "-p", "topol.top", "-c",
+          "conf.gro", "-o", "big_em.tpz")
+    runner, res = _port("mdrun", "-s", "big_em.tpz", "-deffnm", "big_em")
+    trace = res.epot_trace.numpy()
+    assert res.n_steps == NSTEPS and not bool(res.accepted[0])
+    assert (np.diff(trace) <= 0).all() and trace[-1] < trace[0]
+    box = tcli._load_tpz("big_em.tpz", "cpu")[0].state.box
+    assert float(max_deviation(res.x, box, runner.system)) <= \
+        tcli.EM_CONSTRAINT_TOL
+
+
+def test_frames_at_exact_steps(example, monkeypatch):
+    """nstxout 3 and nstxout-compressed 4 against nstlist 10: frames at
+    exactly the multiples, step 0 included; nstvout 0 writes no v."""
+    monkeypatch.chdir(example)
+    Path("exact.mdp").write_text(_mdp(1, **{"nstxout": 3,
+                                            "nstxout-compressed": 4}))
+    _port("grompp", "-f", "exact.mdp", "-p", "topol.top", "-c", "conf.gro",
+          "-o", "exact.tpz")
+    _port("mdrun", "-s", "exact.tpz", "-deffnm", "exact")
+    trr = _steps("exact.trr")
+    assert [f["step"] for f in trr] == [0, 3, 6, 9]
+    assert all(f["v"] is None for f in trr)
+    assert [f["step"] for f in _steps("exact.xtc")] == [0, 4, 8]
+
+
+def test_frames_of_a_restart_equal_one_run(example, monkeypatch):
+    """10 steps, then -cpi of the same files for 10 more: the same frame
+    steps and coordinates as one 20-step run (the restart's step 10 is not
+    written twice)."""
+    monkeypatch.chdir(example)
+    Path("fr.mdp").write_text(_mdp(1, **{"nstxout": 5, "nstvout": 5,
+                                         "nstxout-compressed": 5}))
+    _port("grompp", "-f", "fr.mdp", "-p", "topol.top", "-c", "conf.gro",
+          "-o", "fr.tpz")
+    _port("mdrun", "-s", "fr.tpz", "-deffnm", "fr_whole", "-nsteps",
+          str(2 * NSTEPS))
+    _port("mdrun", "-s", "fr.tpz", "-deffnm", "fr_half")
+    _port("mdrun", "-s", "fr.tpz", "-deffnm", "fr_half", "-cpi",
+          "fr_half.cpt")
+    for kind in ("trr", "xtc"):
+        whole, half = _steps(f"fr_whole.{kind}"), _steps(f"fr_half.{kind}")
+        assert [f["step"] for f in half] == [f["step"] for f in whole] == \
+            [0, 5, 10, 15, 20]
+        for a, b in zip(half, whole):
+            np.testing.assert_array_equal(a["x"], b["x"])
 
 
 def test_default_device_is_the_gpu(tmp_path, monkeypatch):

@@ -4,7 +4,8 @@ step on a (2, 2, 2) domain grid of eight CPU domains, one step of the
 table route (Lorentz-Berthelot, force-switch) and of K7a and K7b, two
 C-rescale NPT steps with the dispersion correction, a two-step lambda
 window with its dhdl.xvg and BAR, the CLI (solvate -> grompp -> mdrun
--> bar -> check, and `python -m` through __main__) and two sd steps of
+with trr/xtc frames -> bar -> check, steep, -rerun, and `python -m`
+through __main__) and two sd steps of
 chip_smoke.py's OPLS-AA ethanol (dihedrals, restraints, grompp -r) run on
 the CPU.  Run in a subprocess so this test's own interpreter, which has
 JAX loaded, does not hide a stray import."""
@@ -31,7 +32,8 @@ for m in ("ops.nonbonded_ref", "ops.forces", "ops.foreign", "ops.dispcorr",
           "parallel.ensemble", "parallel.mesh", "parallel.spatial",
           "io.mdpio", "io.ndxio", "io.groio", "io.pdbio", "io.topio",
           "io.grompp", "io.buildtools", "io.edrio", "io.cptio",
-          "io.checkpoint", "io.logio", "utils.timing", "cli", "__main__"):
+          "io.checkpoint", "io.logio", "utils.timing", "io.native",
+          "io.trrio", "io.xtcio", "md.minimize", "cli", "__main__"):
     assert pkg.__name__ + "." + m in mods, m
 from gromacs_fep_gpu_tpu_torch.core.types import (CoulombType, FepParams,
                                                   MdParams)
@@ -142,7 +144,8 @@ SOL %d
 MDP = ("integrator = md\ndt = 0.001\nnsteps = 2\nnstlist = 2\n"
        "coulombtype = reaction-field\nrcoulomb = 0.55\nrvdw = 0.55\n"
        "rlist = 0.6\nfree-energy = yes\nfep-lambdas = 0 1\n"
-       "init-lambda-state = %d\nnstdhdl = 1\n")
+       "init-lambda-state = %d\nnstdhdl = 1\nnstxout = 1\nnstvout = 1\n"
+       "nstxout-compressed = 1\n")
 with tempfile.TemporaryDirectory() as tmp:
     os.chdir(tmp)
     cli.main(["solvate", "-box", "1.3", "-o", "conf.gro"])
@@ -155,6 +158,18 @@ with tempfile.TemporaryDirectory() as tmp:
         cli.main(["mdrun", "-s", "w%d.tpz" % w, "-deffnm", "w%d" % w],
                  device="cpu")
     cli.main(["bar", "-f", "w0.dhdl.xvg", "w1.dhdl.xvg", "-b", "0"])
+    # steep before a window, the frames of a window, -rerun after it
+    open("em.mdp", "w").write((MDP % 1).replace("integrator = md",
+                                                "integrator = steep"))
+    cli.main(["grompp", "-f", "em.mdp", "-p", "topol.top", "-c", "conf.gro",
+              "-o", "em.tpz"], device="cpu")
+    _, res = cli.main(["mdrun", "-s", "em.tpz", "-deffnm", "em"],
+                      device="cpu")
+    assert res.n_steps == 2 and os.path.exists("em.gro")
+    assert cli.main(["check", "-f", "w1.xtc"], device="cpu").steps == [0, 1, 2]
+    _, rr = cli.main(["mdrun", "-s", "w1.tpz", "-rerun", "w1.trr",
+                      "-deffnm", "rr"], device="cpu")
+    assert list(rr.step) == [0, 1, 2]
     cli.main(["check", "-s", "w1.cpt"], device="cpu")
     sys.argv = ["gromacs_fep_gpu_tpu_torch", "check", "-s", "w1.edr"]
     runpy.run_module("gromacs_fep_gpu_tpu_torch", run_name="__main__")
